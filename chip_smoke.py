@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, single-crop inference with the S4/256 model
-served by `PoseServer`, through the four hand-written CUDA kernels, and
-checks every phase. It imports no JAX. Phases, each raising on failure:
+Drives the port's two paths through its six hand-written CUDA kernels and
+checks every phase: single-crop inference with the S4/256 model served by
+`PoseServer` (four kernels), and S4/256 training by `Trainer` (the warp and
+heatmap kernels). It imports nothing of JAX or of the JAX package. Phases,
+each raising on failure:
 
 1. card: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile the kernels from `single_person_pose_estimation_tpu_torch/
@@ -20,7 +22,22 @@ checks every phase. It imports no JAX. Phases, each raising on failure:
 6. times: S4/256 forward img/s at batch 128 with the kernels and with the
    plain model, and each kernel's time beside its plain version's;
 7. trace: torch.profiler over 3 forwards of each path at batch 128: device
-   busy time, span and idle share, and the device time of each kernel.
+   busy time, span and idle share, and the device time of each kernel;
+8. train_kernels: the warp kernel (both passes) and the heatmap kernel
+   against their plain versions at batch 64, 256x256x3 and 64x64x17, f32,
+   with flips, scales that push samples off the edge, and keypoints on the
+   border, negative and invisible;
+9. train: S4/256, bf16 compute and f32 params from `init_variables(seed=0)`,
+   trained by `Trainer` for 2 epochs of 3 steps at batch 64 on synthetic
+   crops with augmentation, then resumed by a new `Trainer` for 1 epoch;
+   the launch counts must equal what the steps imply, every loss must be
+   finite and the restored state must equal the saved one; then 20 steps
+   on one fixed batch without augmentation must bring the loss down;
+10. train_times: train-step img/s at batch 64 and its split (augment,
+   targets, fwd+bwd+Adam), a torch.profiler trace of two train steps
+   (busy, span, idle share, top kernels), the warp on each backend, and
+   each training kernel beside its plain version (per call, and on the
+   device alone).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -66,12 +83,19 @@ REPLACES = {
         "single_person_pose_estimation_tpu/ops/pallas/uplevel_kernel.py:82",
     "fused_head":
         "single_person_pose_estimation_tpu/ops/pallas/head_kernel.py:76",
+    "resample_last_axis":
+        "single_person_pose_estimation_tpu/ops/pallas/warp_kernel.py:78",
+    "render_heatmaps_batch":
+        "single_person_pose_estimation_tpu/experimental/heatmap_kernel.py:61",
 }
 SOURCES = {
     "fused_bottleneck": "single_person_pose_estimation_tpu_torch/csrc/bottleneck.cu",
     "fused_bottleneck_pool": "single_person_pose_estimation_tpu_torch/csrc/bottleneck.cu",
     "fused_uplevel": "single_person_pose_estimation_tpu_torch/csrc/bottleneck.cu",
     "fused_head": "single_person_pose_estimation_tpu_torch/csrc/head.cu",
+    "resample_last_axis": "single_person_pose_estimation_tpu_torch/csrc/warp.cu",
+    "render_heatmaps_batch":
+        "single_person_pose_estimation_tpu_torch/csrc/heatmap.cu",
 }
 
 
@@ -280,7 +304,8 @@ def phase_golden():
     kernels.reset_launch_counts()
     outs = fused_apply(fp, torch.from_numpy(data["x"]).cuda(), **MAIN_FLAGS)
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = {n: c for n, c in kernels.launch_counts().items()
+              if n in PER_FORWARD}
     for s in range(stacks):
         err = (outs[s].cpu() - torch.from_numpy(data[f"ref_out_{s}"])).abs()
         log(f"golden stack {s}: max|d| vs TF reference = "
@@ -344,7 +369,8 @@ def phase_slice(report, model):
         batch = server.predict(imgs[16:])
         elapsed = time.perf_counter() - t0
         torch.cuda.synchronize()
-        counts = kernels.launch_counts()
+        all_counts = kernels.launch_counts()
+        counts = {n: all_counts[n] for n in PER_FORWARD}
         routes = dict(fi.plain_routes)
         stats = server.stats()
     finally:
@@ -362,9 +388,9 @@ def phase_slice(report, model):
     log(f"slice: {len(answers)} requests in {forwards} forwards, "
         f"{elapsed:.2f} s, stats {stats}")
     want = {n: v * forwards for n, v in PER_FORWARD.items()}
-    log(f"slice launches: {counts} expected {want}")
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != {want}")
+    log(f"slice launches: {all_counts} expected {want}")
+    if counts != want or any(all_counts[n] for n in TRAIN_KERNELS):
+        raise AssertionError(f"launch counts {all_counts} != {want}")
     for name, n in counts.items():
         report.setdefault(name, {})["launches"] = n
 
@@ -527,6 +553,429 @@ def phase_trace(model, card):
                     f"{kname}")
 
 
+# ---------------------------------------------------------------------------
+# Training: the warp (#11) and heatmap (#12) kernels and the S4/256 trainer.
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = ("resample_last_axis", "render_heatmaps_batch")
+B_TRAIN = 64        # the train step's batch
+IMG = 256
+# #11 and #12 run the plain version's float32 operations in the same order
+# with every operation rounded (no FMA contraction, expf without fast-math),
+# so they should agree bit for bit or within an ulp of expf: 1e-6.
+TOL_TRAIN_KERNELS = 1e-6
+# Bounds: the card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
+# cores 989 TFLOP/s, float32 outside the tensor cores 67 TFLOP/s, HBM
+# 3.35 TB/s.
+PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12
+# Operations per output element counted for the bound: #11 forms pos (3),
+# two weights (3 each), two products and a sum (3); #12 two compares per
+# coordinate and the validity test, and in the window d2 (3), the
+# division and exp.
+OPS_RESAMPLE = 12
+TRAIN_STEPS_PER_EPOCH, TRAIN_EPOCHS, RESUME_EPOCHS = 3, 2, 1
+
+
+def bound(flops, nbytes, peak):
+    """(ms, 'operations' or 'bytes'): the least time the card could take."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def inference_bounds():
+    """Bounds of #1-#4 at phase_times' shapes (bf16, B=128), counting each
+    input (activations and weights) read once and each output written
+    once."""
+    b, e = B_TIME, 2
+    w_bneck = (C * CM + 9 * CM * CM + CM * C) * e
+    f_bneck = lambda h: 2 * b * h * h * (C * CM + 9 * CM * CM + CM * C)
+    act = lambda h, c=C: b * h * h * c * e
+    m = b * 64 * 64
+    return {
+        "fused_bottleneck": bound(f_bneck(64), 2 * act(64) + w_bneck,
+                                  PEAK_BF16),
+        "fused_bottleneck_pool": bound(
+            f_bneck(32), 2 * act(32) + act(16) + w_bneck, PEAK_BF16),
+        "fused_uplevel": bound(2 * f_bneck(64),
+                               2 * act(64) + act(32) + 2 * w_bneck,
+                               PEAK_BF16),
+        "fused_head": bound(2 * m * (C * C + C * K + C * C + K * C),
+                            3 * act(64) + m * K * 4
+                            + (2 * C * C + 2 * K * C) * e, PEAK_BF16),
+    }
+
+
+def warp_inputs(rng, device):
+    """B_TRAIN images and draws that cover flips, scales that push samples
+    off the edge (0.5-1.6) and the full rotation range."""
+    import torch
+
+    imgs = torch.from_numpy(rng.uniform(0, 1, (B_TRAIN, IMG, IMG, 3))
+                            .astype(np.float32)).to(device)
+    theta = torch.from_numpy(rng.uniform(-np.pi / 6, np.pi / 6, B_TRAIN)
+                             .astype(np.float32)).to(device)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.6, B_TRAIN)
+                             .astype(np.float32)).to(device)
+    flip = torch.arange(B_TRAIN, device=device) % 2 == 1
+    return imgs, theta, scale, flip
+
+
+def keypoint_inputs(rng, device):
+    """(B_TRAIN, K) keypoints with border (0, 63, 64), negative, fractional
+    and invisible cases among uniform ones."""
+    import torch
+
+    kx = rng.uniform(-3, 67, (B_TRAIN, K)).astype(np.float32)
+    ky = rng.uniform(-3, 67, (B_TRAIN, K)).astype(np.float32)
+    kx[:, :6] = [0.0, 0.5, 63.0, 63.9, 64.0, -0.7]
+    ky[:, 6:12] = [0.0, 0.5, 63.0, 63.9, 64.0, -0.7]
+    kv = rng.integers(0, 3, (B_TRAIN, K)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (kx, ky, kv))
+
+
+def warp_passes(imgs, theta, scale, flip):
+    """The two resample passes of one warp at the main path's shapes:
+    [(input (B, C, L, K), (slope, line_coef, line_const))] each; pass 2's
+    input comes from the kernel's pass 1."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        warp_kernel as wk,
+    )
+
+    p1, p2 = wk.warp_pass_params(theta, scale, flip, IMG)
+    x1 = imgs.permute(0, 3, 1, 2).contiguous()
+    x2 = wk.resample_last_axis(x1, *p1).transpose(2, 3).contiguous()
+    return [(x1, p1), (x2, p2)]
+
+
+def phase_train_kernels(report):
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        heatmap_kernel as hk,
+        warp_kernel as wk,
+    )
+
+    rng = np.random.default_rng(4)
+    failures = []
+    imgs, theta, scale, flip = warp_inputs(rng, "cuda")
+    for i, (x, p) in enumerate(warp_passes(imgs, theta, scale, flip)):
+        got, want = wk.resample_last_axis(x, *p), \
+            wk.resample_last_axis_plain(x, *p)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        zero = (want == 0).float().mean().item()
+        ok = got.shape == want.shape and torch.isfinite(got).all().item() \
+            and err <= TOL_TRAIN_KERNELS
+        log(f"kernel resample_last_axis pass {i + 1} {tuple(x.shape)} f32: "
+            f"max|d| = {err:.3e}, zero-filled share {zero:.3f} "
+            f"{'ok' if ok else 'FAIL'}")
+        ent = report.setdefault("resample_last_axis", {})
+        ent["max_abs_err"] = max(ent.get("max_abs_err", 0.0), err)
+        if not ok:
+            failures.append(f"resample pass {i + 1}: {err}")
+    kx, ky, kv = keypoint_inputs(rng, "cuda")
+    got = hk.render_heatmaps_batch(kx, ky, kv)
+    want = hk.render_heatmaps_batch_plain(kx, ky, kv)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    peaks = int((want == 1.0).sum().item())
+    ok = got.shape == want.shape == (B_TRAIN, 64, 64, K) \
+        and err <= TOL_TRAIN_KERNELS
+    log(f"kernel render_heatmaps_batch ({B_TRAIN}, 64, 64, {K}) f32: max|d| "
+        f"= {err:.3e}, {peaks} peaks rendered {'ok' if ok else 'FAIL'}")
+    report.setdefault("render_heatmaps_batch", {})["max_abs_err"] = err
+    if not ok:
+        failures.append(f"heatmap: {err}")
+    if failures:
+        raise AssertionError("training kernels disagree with their plain "
+                             "versions: " + "; ".join(failures))
+
+
+def train_config(root):
+    from single_person_pose_estimation_tpu_torch import Config
+
+    return Config(hg_num_stacks=4, hg_num_channels=C, batch_size=B_TRAIN,
+                  compute_dtype="bfloat16", temporary_dir=root,
+                  augment_backend="auto", seed=0)
+
+
+def build_s4_train(seed=0):
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models.hourglass import (
+        StackedHourglass,
+    )
+    from single_person_pose_estimation_tpu_torch.utils.weight_convert import (
+        init_variables,
+        load_variables,
+    )
+
+    model = StackedHourglass(num_stacks=4, num_channels=C,
+                             compute_dtype=torch.bfloat16)
+    return load_variables(model, init_variables(4, C, seed=seed))
+
+
+def phase_train(report):
+    """S4/256 bf16 (f32 params) trained by `Trainer` on synthetic crops with
+    augmentation, then resumed in a new Trainer; a fixed batch without
+    augmentation must lose loss over 20 steps."""
+    import shutil
+
+    import torch
+
+    from single_person_pose_estimation_tpu_torch import losses
+    from single_person_pose_estimation_tpu_torch.data.in_memory import (
+        ArrayDatasetBuilder,
+        synthetic_crops,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+    from single_person_pose_estimation_tpu_torch.training.trainer import (
+        Trainer,
+    )
+
+    root = os.path.join(ROOT, "temp", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = train_config(root)
+    builder = ArrayDatasetBuilder(
+        synthetic_crops(TRAIN_STEPS_PER_EPOCH * B_TRAIN, IMG, seed=5),
+        synthetic_crops(B_TRAIN, IMG, seed=6), B_TRAIN, seed=0)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = Trainer(build_s4_train(), builder, TRAIN_EPOCHS, 2.5e-4,
+                          "weighted_mse", cfg, augment=True, device="cuda")
+        if trainer.state.model.count_params() != S4_PARAMS:
+            raise AssertionError("the trained model is not S4/256")
+        trainer.train()
+        saved = snapshot(trainer.state)
+        rows = list(trainer.logger.rows)
+        trainer.close()
+        resumed = Trainer(build_s4_train(seed=1), builder, RESUME_EPOCHS,
+                          2.5e-4, "weighted_mse", cfg, augment=True,
+                          device="cuda")
+        resumed.resume_training()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        rows += resumed.logger.rows
+        resumed.close()
+        # The restore alone, into a third fresh state, against the saved one.
+        check = Trainer(build_s4_train(seed=2), builder, 1, 2.5e-4,
+                        "weighted_mse", cfg, device="cuda")
+        check.ckpt.restore(check.state, epoch=TRAIN_EPOCHS)
+        diffs = compare_snapshots(saved, snapshot(check.state))
+        check.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    steps = (TRAIN_EPOCHS + RESUME_EPOCHS) * TRAIN_STEPS_PER_EPOCH
+    evals = TRAIN_EPOCHS + RESUME_EPOCHS
+    want = {"resample_last_axis": 2 * steps,
+            "render_heatmaps_batch": steps + evals}
+    log(f"train: S4/256 bf16 B={B_TRAIN}, {steps} train steps and {evals} "
+        f"eval steps in {elapsed:.1f} s; launches {counts} expected {want}")
+    for r in rows:
+        log(f"train epoch: loss {r['loss']:.5f} val_loss {r['val_loss']:.5f}")
+    got = {n: counts[n] for n in TRAIN_KERNELS}
+    if got != want or any(counts[n] for n in PER_FORWARD):
+        raise AssertionError(f"train launch counts {counts} != {want}")
+    for n in TRAIN_KERNELS:
+        report.setdefault(n, {})["launches"] = counts[n]
+    if len(rows) != steps // TRAIN_STEPS_PER_EPOCH or not all(
+            np.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"non-finite or missing epoch losses: {rows}")
+    log(f"train resume: restored state vs saved: {diffs}")
+    if any(diffs.values()):
+        raise AssertionError(f"restored state differs from the saved one: "
+                             f"{diffs}")
+
+    # One fixed batch, no augmentation: the loss must go down.
+    state = steps_lib.TrainState.create(
+        build_s4_train(), lambda m: steps_lib.make_optimizer(m, 1e-3),
+        seed=0, device="cuda")
+    step = steps_lib.make_train_step(losses.weighted_mse, cfg, augment=False)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in synthetic_crops(B_TRAIN, IMG, seed=7).items()}
+    losses = []
+    for _ in range(20):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    log("train fixed batch, 20 steps: loss " + " ".join(
+        f"{v:.4f}" for v in losses))
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-5:]) < 0.95 * losses[0]):
+        raise AssertionError(f"the fixed-batch loss did not go down: "
+                             f"{losses}")
+    del state
+
+
+def snapshot(state):
+    """What a checkpoint must bring back: params, BN statistics, Adam
+    moments, schedule count, step and generator state, on the host."""
+    opt = state.optimizer.state_dict()
+    moments = {f"{i}.{k}": v.detach().cpu().clone()
+               for i, st in opt["adam"]["state"].items()
+               for k, v in st.items()}
+    return {"model": {k: v.detach().cpu().clone()
+                      for k, v in state.model.state_dict().items()},
+            "adam": moments, "count": opt["count"], "step": state.step,
+            "generator": state.generator.get_state().clone()}
+
+
+def compare_snapshots(a, b):
+    """Number of differing entries per part (0 everywhere means equal)."""
+    import torch
+
+    def tensors(x, y):
+        if x.keys() != y.keys():
+            return len(x.keys() ^ y.keys()) or 1
+        return sum(not torch.equal(x[k], y[k]) for k in x)
+
+    return {"model": tensors(a["model"], b["model"]),
+            "adam": tensors(a["adam"], b["adam"]),
+            "count": int(a["count"] != b["count"]),
+            "step": int(a["step"] != b["step"]),
+            "generator": int(not torch.equal(a["generator"],
+                                             b["generator"]))}
+
+
+def phase_train_times(report, card):
+    """The train step at B=64 and its split; the warp on each backend; each
+    training kernel beside its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from single_person_pose_estimation_tpu_torch import losses
+    from single_person_pose_estimation_tpu_torch.data.in_memory import (
+        synthetic_crops,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import augment as aug
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        heatmap_kernel as hk,
+        warp_kernel as wk,
+    )
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+
+    rng = np.random.default_rng(8)
+    cfg = train_config(os.path.join(ROOT, "temp"))
+    loss_fn = losses.weighted_mse
+    state = steps_lib.TrainState.create(
+        build_s4_train(), lambda m: steps_lib.make_optimizer(m, 2.5e-4),
+        seed=0, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in synthetic_crops(B_TRAIN, IMG, seed=9).items()}
+    step = steps_lib.make_train_step(loss_fn, cfg, augment=True)
+    imgs, kx, ky, kv = batch["image"], batch["kx"], batch["ky"], batch["kv"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    target = lambda: hk.render_heatmaps_batch(
+        kx, ky, kv, cfg.label_height, cfg.label_width, cfg.hm_sigma)
+    hms = target()
+
+    def fwd_bwd_adam():
+        state.optimizer.zero_grad()
+        total, _ = steps_lib.forward_loss(state.model, loss_fn, imgs, hms)
+        total.backward()
+        state.optimizer.step()
+
+    def augment(backend):
+        return lambda: aug.augment_batch(gen, imgs, kx, ky, kv,
+                                         geometric_backend=backend)
+
+    split = {"step": lambda: step(state, batch),
+             "augment (matmul2pass kernel)": augment("matmul2pass"),
+             "augment (gather)": augment("gather"),
+             "targets (heatmap kernel)": target,
+             "fwd+bwd+Adam": fwd_bwd_adam}
+    times = {name: [] for name in split}
+    for fn in split.values():
+        fn()
+    for i in range(5):
+        names = list(split) if i % 2 == 0 else list(reversed(split))
+        for name in names:
+            times[name].append(cuda_ms(split[name], iters=2, warmup=0))
+    med = {n: statistics.median(ts) for n, ts in times.items()}
+    for name, ms in med.items():
+        log(f"train_times S4/256 bf16 B={B_TRAIN} {name}: median {ms:.3f} ms "
+            f"over {len(times[name])} runs [{card}]")
+    log(f"train_times S4/256 bf16 B={B_TRAIN} train step: "
+        f"{B_TRAIN / med['step'] * 1e3:.1f} img/s [{card}]")
+    span, busy, per = device_trace(lambda: step(state, batch), calls=2)
+    log(f"trace S4/256 bf16 B={B_TRAIN} train step: device span "
+        f"{span:.2f} ms/step, busy {busy:.2f} ms, idle share "
+        f"{1 - busy / span:.4f} [{card}]")
+    for kname, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  {ms:9.3f} ms/step {ms / busy:6.1%} x{n:6.1f}  {kname}")
+    del state
+
+    # The warp alone on each backend, and one resample launch beside its
+    # plain version and beside F.grid_sample (a single-pass bilinear warp,
+    # a reference only: not the same function).
+    wimgs, theta, scale, flip = warp_inputs(rng, "cuda")
+    (x1, p1), _ = warp_passes(wimgs, theta, scale, flip)
+    grid = torch.rand(B_TRAIN, IMG, IMG, 2, device="cuda") * 2 - 1
+    nchw = wimgs.permute(0, 3, 1, 2).contiguous()
+    kx, ky, kv = keypoint_inputs(rng, "cuda")
+    warp_cases = {
+        "warp matmul2pass (2 kernel launches + permutes)":
+            lambda: wk.affine_warp_batch(wimgs, theta, scale, flip),
+        "warp gather": lambda: aug._warp_image(wimgs, scale, theta, flip),
+        "F.grid_sample bilinear, zeros (reference)":
+            lambda: F.grid_sample(nchw, grid, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True),
+    }
+    for name, fn in warp_cases.items():
+        log(f"train_times {name} B={B_TRAIN} {IMG}x{IMG}x3 f32: "
+            f"{cuda_ms(fn, iters=10):.3f} ms [{card}]")
+    n_out = x1.numel()
+    kern_cases = {
+        "resample_last_axis": (
+            lambda: wk.resample_last_axis(x1, *p1),
+            lambda: wk.resample_last_axis_plain(x1, *p1),
+            bound(OPS_RESAMPLE * n_out, 2 * 4 * n_out, PEAK_F32)),
+        "render_heatmaps_batch": (
+            lambda: hk.render_heatmaps_batch(kx, ky, kv),
+            lambda: hk.render_heatmaps_batch_plain(kx, ky, kv),
+            heatmap_bound(kx, ky, kv)),
+    }
+    for name, (kern, plain, (bms, by)) in kern_cases.items():
+        ms, plain_ms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=20)
+        # The events above time back-to-back wrapper calls, host work
+        # included; the profiler gives the kernel's own device time.
+        device_ms = sum(t for k, (t, _) in device_trace(kern, 5)[2].items()
+                        if "spe::" in k)
+        if not device_ms > 0:
+            raise AssertionError(f"the trace shows no kernel of {name}")
+        report.setdefault(name, {}).update(
+            ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=None)
+        log(f"times {name} f32 B={B_TRAIN}: kernel {ms:.4f} ms per call "
+            f"({device_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}) [{card}]")
+
+
+def heatmap_bound(kx, ky, kv, height=64, width=64, sigma=1.0):
+    """#12's bound for these keypoints: the float32 output written once and
+    the keypoints read once; per element 5 compares, and for the elements
+    this data puts in a valid window d2, a division and an exp (counted
+    as 5)."""
+    import torch
+
+    xi, yi = torch.trunc(kx).int(), torch.trunc(ky).int()
+    valid = (xi > 0) & (xi < width) & (yi > 0) & (yi < height) & (kv > 0)
+    r = int(3 * sigma)
+    span = lambda c, n: (torch.clamp(c + r, max=n - 1)
+                         - torch.clamp(c - r, min=0) + 1)
+    in_window = int((valid * span(xi, width) * span(yi, height)).sum())
+    n = kx.numel() * height * width
+    return bound(5 * n + 5 * in_window, 4 * n + 12 * kx.numel(), PEAK_F32)
+
+
 def main():
     import torch
 
@@ -551,6 +1000,13 @@ def main():
     phase_slice(report, model)
     phase_times(report, model, card)
     phase_trace(model, card)
+    del model
+    torch.cuda.empty_cache()
+    phase_train_kernels(report)
+    phase_train(report)
+    phase_train_times(report, card)
+    for name, (bms, by) in inference_bounds().items():
+        report[name].update(bound_ms=bms, bound_by=by, library_ms=None)
     log(json.dumps({"forward_img_per_s_b128_bf16": report.pop("_forward"),
                     "card": card}))
     log(json.dumps({"kernels": [

@@ -1,12 +1,13 @@
 """PyTorch and CUDA port of the stacked-hourglass pose estimator.
 
 The JAX package `single_person_pose_estimation_tpu` is the reference; this
-package computes the same functions with PyTorch tensors, and runs the
-inference path's hot loops through hand-written CUDA kernels
-(`ops/cuda/`) on an NVIDIA Hopper card. It never imports JAX. The one module
-it shares with the reference is the framework-free `Config`.
+package computes the same functions with PyTorch tensors, and runs the hot
+loops of inference and training through hand-written CUDA kernels
+(`ops/cuda/`) on an NVIDIA Hopper card. It imports neither JAX nor any
+module of the JAX package: what it needs of that package's framework-free
+modules (`Config`, the training metrics files) it keeps as its own copies.
 """
 
-from single_person_pose_estimation_tpu.configs.default_config import Config
+from single_person_pose_estimation_tpu_torch.configs.default_config import Config
 
 __all__ = ["Config"]

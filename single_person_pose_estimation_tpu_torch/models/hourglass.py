@@ -1,7 +1,7 @@
 """Stacked Hourglass Network (Newell et al., arXiv:1603.06937) in PyTorch.
 
 The plain counterpart of the JAX package's `models/hourglass.py`
-`StackedHourglass.apply(..., train=False)`, standard variant only. Child
+`StackedHourglass.apply(..., train=...)`, standard variant only. Child
 modules carry the flax names (`front_conv_1x1_1`,
 `hg0_downsample_f1_conv_1x1_1_bn`, ...), so `utils/weight_convert.py` maps
 variables one to one. The public layout is NHWC in and NHWC out with float32
@@ -15,7 +15,14 @@ Reference details kept:
   * the last stack's next-stage convs are pruned, so S4/256 counts
     13,784,260 parameters (BN running statistics included, as Keras counts);
   * the sigmoid runs in float32; upsampling is nearest 2x;
-  * H and W must be divisible by 64.
+  * H and W must be divisible by 64;
+  * train-mode BatchNorm is flax's `nn.BatchNorm`, computed here by hand:
+    batch mean and variance in float32 with the variance as E[x^2]-E[x]^2
+    (biased, clipped at 0), normalise with that variance, and update the
+    running statistics as r = m*r + (1-m)*batch with the BIASED variance
+    and m = `bn_momentum` (0.99; flax's convention, not torch's).
+    `F.batch_norm(training=True)` would store the unbiased variance and
+    read momentum the other way round.
 
 Parameters are stored in float32; `compute_dtype` casts the activations
 and weights of every conv, as flax's `dtype=` does.
@@ -83,7 +90,7 @@ class StackedHourglass(nn.Module):
                  num_channels: int = 256,
                  compute_dtype: torch.dtype = torch.float32,
                  mobile: bool = False, front_s2d: bool = False,
-                 remat=False):
+                 remat=False, bn_momentum: float = 0.99):
         super().__init__()
         if mobile:
             raise NotImplementedError(
@@ -96,6 +103,7 @@ class StackedHourglass(nn.Module):
         self.num_stacks = num_stacks
         self.num_channels = num_channels
         self.compute_dtype = compute_dtype
+        self.bn_momentum = bn_momentum
         for name, kind, cin, cout, k in hourglass_specs(
                 num_stacks, num_channels, num_classes):
             if kind == "conv":
@@ -129,39 +137,52 @@ class StackedHourglass(nn.Module):
             return torch.sigmoid(y.float())
         return y
 
-    def _bn(self, x, name):
+    def _bn(self, x, name, train=False):
         bn = getattr(self, name)
-        return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
-                            bn.weight, bn.bias, False, 0.0,
-                            bn.eps).to(self.compute_dtype)
+        if not train:
+            return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
+                                bn.weight, bn.bias, False, 0.0,
+                                bn.eps).to(self.compute_dtype)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        with torch.no_grad():
+            m = self.bn_momentum
+            bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean)
+            bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var)
+        col = lambda v: v[None, :, None, None]
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        y = (xf - col(mean)) * col(mul) + col(bn.bias)
+        return y.to(self.compute_dtype)
 
-    def _bottleneck(self, x, name, cout):
+    def _bottleneck(self, x, name, cout, train=False):
         skip = x if x.shape[1] == cout else self._conv(x, name + "_skip")
         y = self._bn(self._conv(x, name + "_conv_1x1_1"),
-                     name + "_conv_1x1_1_bn")
+                     name + "_conv_1x1_1_bn", train)
         y = self._bn(self._conv(y, name + "_conv_3x3_2"),
-                     name + "_conv_3x3_2_bn")
+                     name + "_conv_3x3_2_bn", train)
         y = self._bn(self._conv(y, name + "_conv_1x1_3"),
-                     name + "_conv_1x1_3_bn")
+                     name + "_conv_1x1_3_bn", train)
         return skip + y
 
-    def _hourglass(self, x, i, is_last):
+    def _hourglass(self, x, i, is_last, train=False):
         c, hg = self.num_channels, f"hg{i}"
         feats = []
         p = x
         for lvl in ("f1", "f2", "f4", "f8"):
-            f = self._bottleneck(p, f"{hg}_downsample_{lvl}", c)
+            f = self._bottleneck(p, f"{hg}_downsample_{lvl}", c, train)
             feats.append((f, lvl))
             p = F.max_pool2d(f, 2)
         for lvl in ("f8_1", "f8_2", "f8_3"):
-            p = self._bottleneck(p, f"{hg}_downsample_{lvl}", c)
+            p = self._bottleneck(p, f"{hg}_downsample_{lvl}", c, train)
         u = p
         for f, lvl in reversed(feats):
-            d = self._bottleneck(f, f"{hg}_upsample_{lvl}_short", c)
+            d = self._bottleneck(f, f"{hg}_upsample_{lvl}_short", c, train)
             u = d + F.interpolate(u, scale_factor=2, mode="nearest")
-            u = self._bottleneck(u, f"{hg}_upsample_{lvl}_merged", c)
+            u = self._bottleneck(u, f"{hg}_upsample_{lvl}_merged", c, train)
         head = self._bn(self._conv(u, hg + "_conv_1x1_1"),
-                        hg + "_conv_1x1_1_bn")
+                        hg + "_conv_1x1_1_bn", train)
         pred = self._conv(head, hg + "_conv_1x1_predict", "sigmoid")
         if is_last:
             return x, pred
@@ -170,16 +191,21 @@ class StackedHourglass(nn.Module):
                         "linear")
         return h2 + hm + x, pred
 
-    def front(self, x):
+    def front(self, x, train=False):
         """Front module on an NCHW compute-dtype tensor (H/4 x W/4 out)."""
         c = self.num_channels
-        y = self._bn(self._conv(x, "front_conv_1x1_1"), "front_conv_1x1_1_bn")
-        y = self._bottleneck(y, "front_bottleneck_1", c // 2)
+        y = self._bn(self._conv(x, "front_conv_1x1_1"), "front_conv_1x1_1_bn",
+                     train)
+        y = self._bottleneck(y, "front_bottleneck_1", c // 2, train)
         y = F.max_pool2d(y, 2)
-        y = self._bottleneck(y, "front_bottleneck_2", c // 2)
-        return self._bottleneck(y, "front_bottleneck_3", c)
+        y = self._bottleneck(y, "front_bottleneck_2", c // 2, train)
+        return self._bottleneck(y, "front_bottleneck_3", c, train)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                train: bool = False) -> List[torch.Tensor]:
+        """x (B, H, W, 3) -> per-stack heatmaps. `train=True` normalises
+        with batch statistics and updates the running ones in place, as
+        flax's `apply(..., train=True, mutable=["batch_stats"])`."""
         if x.dim() != 4 or x.shape[-1] != 3 or x.shape[1] % 64 \
                 or x.shape[2] % 64:
             raise ValueError(
@@ -188,9 +214,9 @@ class StackedHourglass(nn.Module):
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        y = self.front(x)
+        y = self.front(x, train)
         outputs = []
         for i in range(self.num_stacks):
-            y, pred = self._hourglass(y, i, i == self.num_stacks - 1)
+            y, pred = self._hourglass(y, i, i == self.num_stacks - 1, train)
             outputs.append(pred.float().permute(0, 2, 3, 1))
         return outputs

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the inference path, each with its plain
-PyTorch version beside it (see each module's docstring)."""
+"""Hand-written CUDA kernels of the inference and training paths, each with
+its plain PyTorch version beside it (see each module's docstring)."""
 
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     fused_bottleneck,
@@ -8,8 +8,14 @@ from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
 from single_person_pose_estimation_tpu_torch.ops.cuda.head_kernel import (
     fused_head,
 )
+from single_person_pose_estimation_tpu_torch.ops.cuda.heatmap_kernel import (
+    render_heatmaps_batch,
+)
 from single_person_pose_estimation_tpu_torch.ops.cuda.uplevel_kernel import (
     fused_uplevel,
+)
+from single_person_pose_estimation_tpu_torch.ops.cuda.warp_kernel import (
+    resample_last_axis,
 )
 
 # The wrappers whose `launches` attribute counts kernel launches.
@@ -18,6 +24,8 @@ KERNEL_WRAPPERS = {
     "fused_bottleneck_pool": fused_bottleneck_pool,
     "fused_uplevel": fused_uplevel,
     "fused_head": fused_head,
+    "resample_last_axis": resample_last_axis,
+    "render_heatmaps_batch": render_heatmaps_batch,
 }
 
 

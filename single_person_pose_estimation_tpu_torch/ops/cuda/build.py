@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` of this package into one shared library
-with a plain C interface, for `sm_90a` (Hopper), at first use; `ctypes`
-loads it. No PyTorch header is included, so a build takes seconds. The
+`nvcc` compiles every `csrc/*.cu` of this package for `sm_90a` (Hopper) at
+first use, one `nvcc` process per source, all started together, and links
+the objects into one shared library with a plain C interface that `ctypes`
+loads. No PyTorch header is included, so a build takes seconds. The
 library goes into `_build/` beside the package sources (listed in
 `.gitignore`) under a name that hashes the sources, so an edited kernel is
-rebuilt and a finished build is reused.
+rebuilt and a finished build is reused. No source is compiled with
+fast-math: the training kernels promise results within an ulp or two of
+their plain versions.
 
 Nothing here runs at import: the CPU tests import every module, and a CPU
 host has neither `nvcc` nor a card.
@@ -24,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 _lock = threading.Lock()
@@ -38,6 +41,10 @@ _SIGNATURES = {
     # mid, bf16, u, y, wh, wpT, w2, w3p, vec, pred, ynext, M, C, K, stream
     "spe_head": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _P],
+    # kx, ky, kv, out, B, H, W, K, radius, 2 sigma^2, stream
+    "spe_heatmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # img, params, out, B, C, L, K, stream
+    "spe_resample": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -74,17 +81,33 @@ def build(verbose: bool = False) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
+    cmds = [[_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+             "-I", str(CSRC), "-c", "-o", str(o), str(f)]
+            for f, o in zip(cu, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, cu)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr)
+    try:
+        for cmd, p, text in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{text}")
+            if verbose:
+                print(text)
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(link)}\n{res.stdout}\n"
+                               f"{res.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
 

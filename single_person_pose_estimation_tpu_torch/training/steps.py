@@ -1,0 +1,336 @@
+"""Train and eval steps with on-device preprocessing, in PyTorch.
+
+The counterpart of the JAX package's `training/steps.py`. One train step
+takes a batch of raw crops and keypoints on the host or the device and runs
+everything on the device: augmentation (the warp kernel of
+`ops/cuda/warp_kernel.py`), Gaussian target rendering (the heatmap kernel
+of `ops/cuda/heatmap_kernel.py`), forward, loss, backward (autograd; cuDNN
+for the convs) and one Adam update. The JAX step is a pure function of a
+donated state; here the step updates its `TrainState` in place and returns
+it, so the call reads the same: `state, metrics = step(state, batch)`.
+
+A batch is a dict with
+  "image": (B, H, W, 3) float32 in [0, 1], or uint8 (divided by 255 on the
+           device: the uint8 wire of `config.train_transfer_dtype`);
+  "kx", "ky": (B, K) float32 keypoints in heatmap space;
+  "kv": (B, K) integer visibility.
+Metrics are 0-dim tensors on the device ("loss", "loss/hg{i}"), so a step
+does not wait for the device.
+
+Adam is `torch.optim.Adam` with Keras' defaults (b1 0.9, b2 0.999, eps
+1e-7). Like optax, it bias-corrects both moments and adds eps outside the
+square root: lr/(1-b1^t) * m / (sqrt(v)/sqrt(1-b2^t) + eps) is
+lr * m_hat / (sqrt(v_hat) + eps). The learning rate of step t is the
+schedule at t, counted before the step, as optax counts: a warmup's first
+step runs at lr 0.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import torch
+
+from single_person_pose_estimation_tpu_torch import losses as losses_lib
+from single_person_pose_estimation_tpu_torch.configs.default_config import Config
+from single_person_pose_estimation_tpu_torch.ops import augment as augment_lib
+from single_person_pose_estimation_tpu_torch.ops.cuda.heatmap_kernel import (
+    render_heatmaps_batch,
+)
+
+
+def resolve_device(device) -> torch.device:
+    """The explicit device of an entry point: CUDA raises when absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
+# ---------------------------------------------------------------------------
+# Optimizer: Adam, a learning-rate schedule and an EMA of the params
+# ---------------------------------------------------------------------------
+
+def make_lr_schedule(learning_rate: float, schedule: Optional[str] = None,
+                     total_steps: Optional[int] = None,
+                     warmup_steps: int = 0) -> Callable[[int], float]:
+    """Step count -> learning rate, as the JAX package's optax schedules.
+
+    None/"constant": the reference's fixed lr (after a linear warmup from 0
+    when warmup_steps > 0). "cosine": linear warmup from 0, then a cosine
+    decay to 0 at total_steps."""
+
+    def warmup(count):
+        return learning_rate * min(count, warmup_steps) / warmup_steps
+
+    if schedule in (None, "constant"):
+        if warmup_steps:
+            return warmup
+        return lambda count: learning_rate
+    if schedule == "cosine":
+        if not total_steps:
+            raise ValueError("schedule='cosine' requires total_steps")
+        decay_steps = total_steps - warmup_steps
+        if decay_steps <= 0:
+            raise ValueError(f"cosine decay needs total_steps > "
+                             f"warmup_steps: {total_steps}, {warmup_steps}")
+
+        def cosine(count):
+            if count < warmup_steps:
+                return warmup(count)
+            c = min(count - warmup_steps, decay_steps)
+            return learning_rate * 0.5 * (1 + math.cos(math.pi * c
+                                                       / decay_steps))
+        return cosine
+    raise ValueError(
+        f"unknown schedule {schedule!r}: use None/'constant'/'cosine'")
+
+
+class Optimizer:
+    """Adam over a model's parameters, a learning-rate schedule, and an
+    optional exponential moving average of the params (ema <- decay * ema
+    + (1 - decay) * params after each update, starting from a copy of the
+    params). Its `state_dict` holds all three and checkpoints with the
+    rest of the state."""
+
+    def __init__(self, model: torch.nn.Module, learning_rate: float,
+                 schedule: Optional[str] = None,
+                 total_steps: Optional[int] = None, warmup_steps: int = 0,
+                 ema_decay: Optional[float] = None):
+        if ema_decay is not None and not 0.0 <= ema_decay < 1.0:
+            raise ValueError(f"ema decay must be in [0, 1): {ema_decay}")
+        self.params = dict(model.named_parameters())
+        self.lr_fn = make_lr_schedule(learning_rate, schedule, total_steps,
+                                      warmup_steps)
+        self.adam = torch.optim.Adam(self.params.values(),
+                                     lr=self.lr_fn(0), betas=(0.9, 0.999),
+                                     eps=1e-7)
+        self.count = 0
+        self.ema_decay = ema_decay
+        self.ema = None if ema_decay is None else {
+            n: p.detach().clone() for n, p in self.params.items()}
+
+    def zero_grad(self):
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self) -> float:
+        """One update with the current grads; returns the lr it used."""
+        lr = self.lr_fn(self.count)
+        for group in self.adam.param_groups:
+            group["lr"] = lr
+        self.adam.step()
+        self.count += 1
+        if self.ema is not None:
+            d = self.ema_decay
+            with torch.no_grad():
+                for n, p in self.params.items():
+                    self.ema[n].copy_(self.ema[n] * d + (1.0 - d) * p)
+        return lr
+
+    def state_dict(self) -> dict:
+        return {"adam": self.adam.state_dict(), "count": self.count,
+                "ema": self.ema}
+
+    def load_state_dict(self, sd: dict):
+        self.adam.load_state_dict(sd["adam"])
+        self.count = int(sd["count"])
+        if (sd["ema"] is None) != (self.ema is None):
+            raise ValueError("the saved optimizer state and this optimizer "
+                             "disagree on tracking an EMA of the params")
+        if self.ema is not None:
+            for n, v in sd["ema"].items():
+                self.ema[n].copy_(v)
+
+
+def make_optimizer(model, learning_rate: float,
+                   schedule: Optional[str] = None,
+                   total_steps: Optional[int] = None, warmup_steps: int = 0,
+                   ema_decay: Optional[float] = None) -> Optimizer:
+    """Adam with Keras' defaults (the reference's optimizer), an optional
+    lr schedule (see make_lr_schedule) and an optional EMA of the params."""
+    return Optimizer(model, learning_rate, schedule, total_steps,
+                     warmup_steps, ema_decay)
+
+
+def get_ema_params(optimizer: Optimizer) -> Dict[str, torch.Tensor]:
+    """The EMA params tracked by make_optimizer(ema_decay=...)."""
+    if optimizer.ema is None:
+        raise ValueError("optimizer state has no EMA component; build it "
+                         "with make_optimizer(..., ema_decay=0.999)")
+    return optimizer.ema
+
+
+@dataclass
+class TrainState:
+    """The model (params and BN statistics), the optimizer (Adam moments,
+    schedule count, EMA), the step count and the generator that draws the
+    augmentation. Everything a checkpoint saves."""
+
+    model: torch.nn.Module
+    optimizer: Optimizer
+    generator: torch.Generator
+    step: int = 0
+
+    @classmethod
+    def create(cls, model, optimizer_fn: Callable[[torch.nn.Module],
+                                                  Optimizer],
+               seed: int = 0, device="cuda") -> "TrainState":
+        """Move `model` to `device`, build its optimizer there, and seed a
+        generator on the device."""
+        device = resolve_device(device)
+        model.to(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return cls(model=model, optimizer=optimizer_fn(model), generator=gen)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+def _to_device(batch, device):
+    images = batch["image"]
+    images = torch.as_tensor(images).to(device, non_blocking=True)
+    if images.dtype == torch.uint8:
+        images = images.float() / 255.0
+    kx, ky, kv = (torch.as_tensor(batch[k]).to(device, non_blocking=True)
+                  for k in ("kx", "ky", "kv"))
+    return images, kx.float(), ky.float(), kv
+
+
+def forward_loss(model, loss_fn, images, heatmaps, bn_mode: str = "batch"):
+    """(total, per-stack losses). bn_mode "batch" normalises with batch
+    statistics and updates the running ones; "frozen" normalises with the
+    running statistics and leaves them as they are."""
+    outs = model(images, train=bn_mode == "batch")
+    per_stack = losses_lib.per_stack_losses(loss_fn, heatmaps, outs)
+    return torch.stack(per_stack).sum(), per_stack
+
+
+def _metrics(total, per_stack):
+    m = {"loss": total.detach()}
+    for i, v in enumerate(per_stack):
+        m[f"loss/hg{i}"] = v.detach()
+    return m
+
+
+def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
+                    bn_mode: str = "batch", accum_steps: int = 1):
+    """Build the train step, (state, batch) -> (state, metrics).
+
+    accum_steps: the batch is split into N equal microbatches; their grads
+    are summed and divided by N, and one optimizer update follows. With
+    train-mode BN each microbatch normalises by its own statistics and the
+    running statistics chain through the microbatches in order, as in the
+    JAX package. Augmentation and targets run once on the whole batch.
+
+    config.augment_backend "auto" takes the CUDA warp kernel on the card
+    (see ops/augment.py). After the step each parameter's `.grad` holds the
+    gradient the update used.
+    """
+    if bn_mode not in ("batch", "frozen"):
+        raise ValueError(f"bn_mode must be 'batch' or 'frozen': {bn_mode!r}")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1: {accum_steps}")
+    label_h, label_w = config.label_height, config.label_width
+    sigma = config.hm_sigma
+
+    def step(state: TrainState, batch):
+        model, opt = state.model, state.optimizer
+        images, kx, ky, kv = _to_device(batch, state.device)
+        if augment:
+            images, kx, ky, kv = augment_lib.augment_batch(
+                state.generator, images, kx, ky, kv, label_size=label_w,
+                flip_pairs=config.flip_pairs,
+                geometric_backend=config.augment_backend,
+                scale_min=config.aug_scale_min,
+                scale_max=config.aug_scale_max,
+                rotate_deg=config.aug_rotate_deg)
+        heatmaps = render_heatmaps_batch(kx, ky, kv, height=label_h,
+                                         width=label_w, sigma=sigma)
+        opt.zero_grad()
+        if accum_steps > 1:
+            b = images.shape[0]
+            if b % accum_steps:
+                raise ValueError(f"batch size {b} not divisible by "
+                                 f"accum_steps {accum_steps}")
+            totals, stacks = [], []
+            for imgs_m, hms_m in zip(images.chunk(accum_steps),
+                                     heatmaps.chunk(accum_steps)):
+                tot_m, ps_m = forward_loss(model, loss_fn, imgs_m, hms_m,
+                                           bn_mode)
+                tot_m.backward()
+                totals.append(tot_m.detach())
+                stacks.append(torch.stack(ps_m).detach())
+            for p in opt.params.values():
+                if p.grad is not None:
+                    p.grad.div_(accum_steps)
+            total = torch.stack(totals).mean()
+            per_stack = list(torch.stack(stacks).mean(0))
+        else:
+            total, per_stack = forward_loss(model, loss_fn, images, heatmaps,
+                                            bn_mode)
+            total.backward()
+        opt.step()
+        state.step += 1
+        return state, _metrics(total, per_stack)
+
+    return step
+
+
+def make_eval_step(loss_fn: Callable, config: Config):
+    """Validation step, (state, batch) -> metrics: targets without
+    augmentation, forward with the running BN statistics, per-stack
+    losses."""
+    label_h, label_w = config.label_height, config.label_width
+    sigma = config.hm_sigma
+
+    def step(state: TrainState, batch):
+        images, kx, ky, kv = _to_device(batch, state.device)
+        with torch.no_grad():
+            heatmaps = render_heatmaps_batch(kx, ky, kv, height=label_h,
+                                             width=label_w, sigma=sigma)
+            outs = state.model(images, train=False)
+            per_stack = losses_lib.per_stack_losses(loss_fn, heatmaps, outs)
+            return _metrics(torch.stack(per_stack).sum(), per_stack)
+
+    return step
+
+
+def make_predict_fn(model):
+    """images -> the LAST stack's heatmaps (the reference's eval
+    convention), with the running BN statistics."""
+
+    def predict(images):
+        with torch.inference_mode():
+            return model(images, train=False)[-1]
+
+    return predict
+
+
+def recalibrate_batch_stats(state: TrainState, batches,
+                            momentum: float = 0.0) -> TrainState:
+    """Refresh the BN running statistics by forwarding `batches` in train
+    mode, params untouched. momentum=0.0 adopts each batch's statistics
+    outright, as the JAX package's `model.clone(bn_momentum=0.0)`."""
+    model = state.model
+    saved = model.bn_momentum
+    model.bn_momentum = momentum
+    try:
+        with torch.no_grad():
+            for batch in batches:
+                images = batch["image"] if isinstance(batch, dict) else batch
+                images = torch.as_tensor(images).to(state.device)
+                if images.dtype == torch.uint8:
+                    images = images.float() / 255.0
+                model(images, train=True)
+    finally:
+        model.bn_momentum = saved
+    return state

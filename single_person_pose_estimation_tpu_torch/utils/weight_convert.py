@@ -10,6 +10,11 @@ or the flat `var/params/<layer>/<leaf>` keys of the golden fixtures
   BN    scale / bias                   -> weight / bias
         mean / var (batch_stats)       -> running_mean / running_var
 
+A tree without `batch_stats` (a gradient, or an optimizer moment, shaped
+like `params`) converts to the parameters' entries alone.
+`load_train_state` loads a JAX `TrainState` (its `params` and
+`batch_stats`), so a test starts both packages from the same numbers.
+
 `init_variables` makes flax-layout variables with numpy alone, so a machine
 without JAX can build a model of any size from a seed.
 """
@@ -59,11 +64,12 @@ def to_state_dict(variables: Mapping) -> dict:
                 np.asarray(leaves["scale"], np.float32).copy())
             sd[f"{layer}.bias"] = torch.from_numpy(
                 np.asarray(leaves["bias"], np.float32).copy())
-            st = stats[layer]
-            sd[f"{layer}.running_mean"] = torch.from_numpy(
-                np.asarray(st["mean"], np.float32).copy())
-            sd[f"{layer}.running_var"] = torch.from_numpy(
-                np.asarray(st["var"], np.float32).copy())
+            st = stats.get(layer)
+            if st is not None:
+                sd[f"{layer}.running_mean"] = torch.from_numpy(
+                    np.asarray(st["mean"], np.float32).copy())
+                sd[f"{layer}.running_var"] = torch.from_numpy(
+                    np.asarray(st["var"], np.float32).copy())
         else:
             raise ValueError(f"unsupported layer {layer!r}: leaves "
                              f"{sorted(leaves)} (mobile separable convs are "
@@ -81,6 +87,13 @@ def load_variables(model: torch.nn.Module, variables: Mapping):
         raise KeyError(f"variables do not fit the model: missing {missing}, "
                        f"unexpected {unexpected}")
     return model
+
+
+def load_train_state(model: torch.nn.Module, state):
+    """Load a JAX `TrainState`'s params and BN statistics into `model`
+    (any object with `params` and `batch_stats` trees of arrays)."""
+    return load_variables(model, {"params": state.params,
+                                  "batch_stats": state.batch_stats})
 
 
 def init_variables(num_stacks: int, num_channels: int, seed: int = 0,

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: every main-path shape at batch 2, float32 (TF32 off) and bfloat16,
-at chip_smoke.py's tolerances. Skips on a host without a card."""
+card: the inference kernels at every main-path shape at batch 2, float32
+(TF32 off) and bfloat16, and the training kernels (warp, heatmap) at the
+train step's batch 64, at chip_smoke.py's tolerances. Skips on a host
+without a card."""
 
 import numpy as np
 import pytest
@@ -39,3 +41,25 @@ def test_kernels_match_plain_versions_on_card(card, dtype):
             assert g.shape == w.shape and g.dtype == w.dtype, label
             err, ok = chip_smoke.max_err(g, w, dt)
             assert ok, (label, err)
+
+
+def test_training_kernels_match_plain_versions_on_card(card):
+    """#11 (both warp passes) and #12 at the train step's shapes, within
+    chip_smoke's 1e-6."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        heatmap_kernel as hk,
+        warp_kernel as wk,
+    )
+
+    rng = np.random.default_rng(4)
+    imgs, theta, scale, flip = chip_smoke.warp_inputs(rng, "cuda")
+    for x, p in chip_smoke.warp_passes(imgs, theta, scale, flip):
+        got = wk.resample_last_axis(x, *p)
+        want = wk.resample_last_axis_plain(x, *p)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= chip_smoke.TOL_TRAIN_KERNELS
+    kx, ky, kv = chip_smoke.keypoint_inputs(rng, "cuda")
+    got = hk.render_heatmaps_batch(kx, ky, kv)
+    want = hk.render_heatmaps_batch_plain(kx, ky, kv)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= chip_smoke.TOL_TRAIN_KERNELS

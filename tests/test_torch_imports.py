@@ -1,5 +1,7 @@
-"""The port imports neither JAX nor flax: an AST scan of its sources, and
-an import of its serving module with both blocked."""
+"""The port imports neither JAX nor flax nor anything of the JAX package
+(`single_person_pose_estimation_tpu` and its submodules): an AST scan of
+its sources and of chip_smoke.py, and an import of its serving and
+training modules with all of them blocked."""
 
 import ast
 import os
@@ -10,7 +12,8 @@ import single_person_pose_estimation_tpu_torch as port
 
 PORT_DIR = os.path.dirname(os.path.abspath(port.__file__))
 REPO = os.path.dirname(PORT_DIR)
-BANNED = ("jax", "flax", "jaxlib", "optax", "orbax")
+BANNED = ("jax", "flax", "jaxlib", "optax", "orbax",
+          "single_person_pose_estimation_tpu")
 
 
 def _imports(path):
@@ -40,16 +43,27 @@ def test_port_sources_import_no_jax():
     assert scanned >= 10 and not offenders, offenders
 
 
-def test_serving_imports_with_jax_blocked():
+def test_ban_catches_the_jax_package_but_not_the_port():
+    banned = lambda mod: mod.split(".")[0] in BANNED
+    assert banned("single_person_pose_estimation_tpu.configs.default_config")
+    assert banned("single_person_pose_estimation_tpu")
+    assert not banned("single_person_pose_estimation_tpu_torch.losses")
+
+
+def test_serving_and_training_import_with_jax_blocked():
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'jaxlib'):\n"
+            "for m in ('jax', 'flax', 'jaxlib', 'optax', 'orbax',\n"
+            "          'single_person_pose_estimation_tpu'):\n"
             "    sys.modules[m] = None\n"
             "import single_person_pose_estimation_tpu_torch.serving as s\n"
             "import single_person_pose_estimation_tpu_torch.utils"
             ".weight_convert\n"
-            "assert s.PoseServer\n"
-            "assert not any(m.startswith(('jax', 'flax')) and sys.modules[m]"
-            " for m in sys.modules)\n"
+            "import single_person_pose_estimation_tpu_torch.training"
+            ".trainer as t\n"
+            "assert s.PoseServer and t.Trainer\n"
+            "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax',\n"
+            "               'orbax', 'single_person_pose_estimation_tpu')\n"
+            "               and sys.modules[m] for m in sys.modules)\n"
             "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
