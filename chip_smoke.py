@@ -3,37 +3,53 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through its six hand-written CUDA kernels and
-checks every phase: single-crop inference with the S4/256 model served by
-`PoseServer` (four kernels), and S4/256 training by `Trainer` (the warp and
-heatmap kernels). It imports nothing of JAX or of the JAX package. Phases,
-each raising on failure:
+Drives the port's three paths through its seven hand-written CUDA kernels
+and checks every phase: single-crop inference with the S4/256 model served
+by `PoseServer` (four kernels and the decode kernel), evaluation from
+TFRecords by `predict_ds` (the same five), and S4/256 training by
+`Trainer` (the warp and heatmap kernels). It imports nothing of JAX or of
+the JAX package. Phases, each raising on failure:
 
 1. card: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile the kernels from `single_person_pose_estimation_tpu_torch/
    csrc` with nvcc and print the build time;
 3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (batch 8), in float32 and bfloat16;
+   path's shapes (batch 8), in float32 and bfloat16; then decode_kernel:
+   the decode kernel against its plain version at batch 128, 64x64x17
+   float32, legacy and corrected, on random, peaked, tied and border maps
+   and on S4/256 bf16 heatmaps (kernel path and plain model), exactly;
 4. golden: the fused path with kernels at float32 against the TF reference
    outputs in `tests/fixtures/golden_ref_s2c32.npz`;
 5. slice: S4/256 from `init_variables(seed=0)`, served by
    `PoseServer(device="cuda")` in bfloat16; launch counters must equal the
-   launches the served forwards imply;
+   launches the served forwards and decodes imply;
 6. times: S4/256 forward img/s at batch 128 with the kernels and with the
-   plain model, and each kernel's time beside its plain version's;
+   plain model, and each kernel's time (per call and on the device alone)
+   beside its plain version's;
 7. trace: torch.profiler over 3 forwards of each path at batch 128: device
    busy time, span and idle share, and the device time of each kernel;
-8. train_kernels: the warp kernel (both passes) and the heatmap kernel
+8. eval: a synthetic COCO split of 1,024 person crops at 256x256 (and 256
+   training crops) written to TFRecords by the port's ETL and read back by
+   its native reader; an S4/256 checkpoint restored with
+   `load_model_from_checkpoint`, BN recalibrated over 2 training batches
+   from the records; `predict_ds` plain and with flip-TTA at batch 128
+   with exact launch counts, predictions equal to those of the plain
+   decode, keypoints finite and inside their boxes, the record fields
+   exact, 10 finite OKS stats and one PCK per label;
+9. eval_times: records-to-predictions img/s (median of 3), its split
+   (host parse, forward, decode), the device idle share of one pass, and
+   the decode kernel beside its plain version;
+10. train_kernels: the warp kernel (both passes) and the heatmap kernel
    against their plain versions at batch 64, 256x256x3 and 64x64x17, f32,
    with flips, scales that push samples off the edge, and keypoints on the
    border, negative and invisible;
-9. train: S4/256, bf16 compute and f32 params from `init_variables(seed=0)`,
+11. train: S4/256, bf16 compute and f32 params from `init_variables(seed=0)`,
    trained by `Trainer` for 2 epochs of 3 steps at batch 64 on synthetic
    crops with augmentation, then resumed by a new `Trainer` for 1 epoch;
    the launch counts must equal what the steps imply, every loss must be
    finite and the restored state must equal the saved one; then 20 steps
    on one fixed batch without augmentation must bring the loss down;
-10. train_times: train-step img/s at batch 64 and its split (augment,
+12. train_times: train-step img/s at batch 64 and its split (augment,
    targets, fwd+bwd+Adam), a torch.profiler trace of two train steps
    (busy, span, idle share, top kernels), the warp on each backend, and
    each training kernel beside its plain version (per call, and on the
@@ -47,6 +63,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -87,6 +104,8 @@ REPLACES = {
         "single_person_pose_estimation_tpu/ops/pallas/warp_kernel.py:78",
     "render_heatmaps_batch":
         "single_person_pose_estimation_tpu/experimental/heatmap_kernel.py:61",
+    "decode_batch":
+        "single_person_pose_estimation_tpu/experimental/decode_kernel.py:104",
 }
 SOURCES = {
     "fused_bottleneck": "single_person_pose_estimation_tpu_torch/csrc/bottleneck.cu",
@@ -96,6 +115,7 @@ SOURCES = {
     "resample_last_axis": "single_person_pose_estimation_tpu_torch/csrc/warp.cu",
     "render_heatmaps_batch":
         "single_person_pose_estimation_tpu_torch/csrc/heatmap.cu",
+    "decode_batch": "single_person_pose_estimation_tpu_torch/csrc/decode.cu",
 }
 
 
@@ -318,7 +338,7 @@ def phase_golden():
                              f"{counts}")
 
 
-def build_s4():
+def build_s4(seed=0):
     import torch
 
     from single_person_pose_estimation_tpu_torch.models.hourglass import (
@@ -331,7 +351,7 @@ def build_s4():
 
     model = StackedHourglass(num_stacks=4, num_channels=C,
                              compute_dtype=torch.bfloat16)
-    load_variables(model, init_variables(4, C, seed=0))
+    load_variables(model, init_variables(4, C, seed=seed))
     n = model.count_params()
     if n != S4_PARAMS:
         raise AssertionError(f"S4/256 has {n} parameters, not {S4_PARAMS}")
@@ -370,7 +390,7 @@ def phase_slice(report, model):
         elapsed = time.perf_counter() - t0
         torch.cuda.synchronize()
         all_counts = kernels.launch_counts()
-        counts = {n: all_counts[n] for n in PER_FORWARD}
+        counts = {n: all_counts[n] for n in (*PER_FORWARD, "decode_batch")}
         routes = dict(fi.plain_routes)
         stats = server.stats()
     finally:
@@ -387,12 +407,14 @@ def phase_slice(report, model):
     forwards = stats["steps"] - steps0
     log(f"slice: {len(answers)} requests in {forwards} forwards, "
         f"{elapsed:.2f} s, stats {stats}")
-    want = {n: v * forwards for n, v in PER_FORWARD.items()}
+    # One decode launch per served step, after its forward.
+    want = {**{n: v * forwards for n, v in PER_FORWARD.items()},
+            "decode_batch": forwards}
     log(f"slice launches: {all_counts} expected {want}")
     if counts != want or any(all_counts[n] for n in TRAIN_KERNELS):
         raise AssertionError(f"launch counts {all_counts} != {want}")
-    for name, n in counts.items():
-        report.setdefault(name, {})["launches"] = n
+    for name in PER_FORWARD:
+        report.setdefault(name, {})["launches"] = counts[name]
 
     # One batch through the kernel path and the plain model on the card, in
     # bf16 and (TF32 off) in float32.
@@ -484,39 +506,87 @@ def phase_times(report, model, card):
         for name, (shape, kern, plain) in cases.items():
             ms = cuda_ms(kern, iters=5)
             plain_ms = cuda_ms(plain, iters=5)
-            report.setdefault(name, {}).update(ms=ms, plain_ms=plain_ms)
-            log(f"times {name} bf16 B={B_TIME} {shape}: kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms [{card}]")
+            device_ms = kernel_device_ms(kern, name)
+            report.setdefault(name, {}).update(ms=ms, plain_ms=plain_ms,
+                                               device_ms=device_ms)
+            log(f"times {name} bf16 B={B_TIME} {shape}: kernel {ms:.3f} ms "
+                f"({device_ms:.3f} ms on the device), plain {plain_ms:.3f} "
+                f"ms [{card}]")
 
 
-def device_trace(fn, calls=3):
+def kernel_device_ms(fn, name, calls=9, before=None):
+    """Device time of one call of a kernel wrapper: the median over
+    `calls` calls, each bracketed by CUDA events, queued while a sleep
+    kernel holds the stream, so the device runs them back to back and no
+    host time falls inside a bracket. `before` (optional) runs ahead of
+    each bracket, outside it.
+
+    Not torch.profiler: on the H100 its sessions now and then recorded no
+    device activity at all for the µs-long kernels, even on retry."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
+    torch.cuda._sleep(100_000_000)      # ~50 ms at the H100's clock
+    for start, end in pairs:
+        if before is not None:
+            before()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = statistics.median(s.elapsed_time(e) for s, e in pairs)
+    if not ms > 0:
+        raise AssertionError(f"no device time measured for {name}")
+    return ms
+
+
+def device_trace(fn, calls=3, attempts=3):
     """Device activity of `calls` back-to-back calls of fn under
     torch.profiler, after one profiled warm-up call that is discarded.
-    Returns per call: (span ms, busy ms, {kernel: [ms, launches]})."""
+    Returns per call: (span ms, busy ms, {kernel: [ms, launches]}), and
+    the five longest idle gaps of the whole window as (ms, ms from its
+    start).
+
+    A profiler session now and then delivers no device records at all
+    (seen on the H100 for windows of µs-long kernels, which is why
+    kernel_device_ms does not use it); such a session is traced again, up
+    to `attempts` times, and then it fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(calls):
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-        prof.step()
-    # Device kernels, copies and memsets; the step markers the profiler puts
-    # on the device timeline span the whole step and are left out.
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)
-           and not e.name.startswith("ProfilerStep")]
-    if not evs:
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        # Device kernels, copies and memsets; the step markers the profiler
+        # puts on the device timeline span the whole step and are left out.
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("ProfilerStep")]
+        if evs:
+            break
+        log("trace: the profiler recorded no device activity; tracing "
+            "again")
+    else:
         raise AssertionError("torch.profiler recorded no device activity")
     ivs = sorted((e.time_range.start, e.time_range.end) for e in evs)
     busy, reach = 0.0, ivs[0][0]        # union of the intervals, in us
+    gaps = []
     for s, e in ivs:
+        if s > reach:
+            gaps.append(((s - reach) / 1e3, (reach - ivs[0][0]) / 1e3))
         if e > reach:
             busy += e - max(s, reach)
             reach = e
@@ -525,7 +595,8 @@ def device_trace(fn, calls=3):
         ent = per.setdefault(e.name[:100], [0.0, 0])
         ent[0] += (e.time_range.end - e.time_range.start) / 1e3 / calls
         ent[1] += 1 / calls
-    return (reach - ivs[0][0]) / 1e3 / calls, busy / 1e3 / calls, per
+    return ((reach - ivs[0][0]) / 1e3 / calls, busy / 1e3 / calls, per,
+            sorted(gaps, reverse=True)[:5])
 
 
 def phase_trace(model, card):
@@ -543,7 +614,7 @@ def phase_trace(model, card):
             "plain": lambda: model(x)[-1]}
     with torch.inference_mode():
         for name, fn in runs.items():
-            span, busy, per = device_trace(fn)
+            span, busy, per, _ = device_trace(fn)
             log(f"trace S4/256 bf16 B={B_TIME} {name}: device span "
                 f"{span:.2f} ms/forward, busy {busy:.2f} ms, idle share "
                 f"{1 - busy / span:.4f} [{card}]")
@@ -551,6 +622,434 @@ def phase_trace(model, card):
             for kname, (ms, n) in top:
                 log(f"  {ms:9.3f} ms/forward {ms / busy:6.1%} x{n:6.1f}  "
                     f"{kname}")
+
+
+# ---------------------------------------------------------------------------
+# Evaluation from records: the decode kernel (#13) and predict_ds.
+# ---------------------------------------------------------------------------
+
+HM = 64                   # heatmap side at 256 px input
+N_EVAL, N_EVAL_TRAIN = 1024, 256
+EVAL_SIDE = 300           # source images; each holds one 256 px crop
+BBOX = 205.0              # int(205 * 1.25) = 256: the crop needs no resize
+DECODE_OPS = 1            # one compare per heatmap element for the bound
+EVAL_ROOT = os.path.join(ROOT, "temp", "chip_smoke_eval")
+
+
+def decode_inputs(rng, b, size=HM):
+    """(b, size, size, K) float32 maps that cycle through random maps,
+    single peaks with a runner-up neighbour (on borders and corners too),
+    tied maxima and neighbours, flat and quantized maps, and all-negative
+    maps (below the threshold)."""
+    s = size - 1
+    hm = rng.uniform(0, 1, (b, size, size, K)).astype(np.float32)
+    spots = [(0, 0), (0, s), (s, 0), (s, s), (0, 30), (s, 9), (17, 0),
+             (41, s), (32, 32), (3, 60)]
+    for i in range(b):
+        kind = i % 6
+        if kind == 1:
+            hm[i] *= 0.2
+            for k in range(K):
+                py, px = spots[(i + k) % len(spots)]
+                py, px = min(py, s), min(px, s)
+                hm[i, py, px, k] = 0.9
+                ny = min(max(py + k % 3 - 1, 0), s)
+                nx = min(max(px + (k // 3) % 3 - 1, 0), s)
+                if (ny, nx) != (py, px):
+                    hm[i, ny, nx, k] = 0.6
+        elif kind == 2:
+            hm[i] = 0.1
+            hm[i, 4, 4] = hm[i, s - 2, 2] = 0.8
+            hm[i, 4, 5] = hm[i, 5, 4] = 0.5
+        elif kind == 3:
+            hm[i] = np.round(hm[i] * 4) / 4
+        elif kind == 4:
+            hm[i] = 0.3 if i % 12 == 4 else 0.0
+            hm[i, 0, 1, ::2] = 0.7
+        elif kind == 5:
+            hm[i] = -hm[i]
+    return hm
+
+
+def s4_heatmaps(model, n=B_TIME, seed=10):
+    """S4/256 bf16 last-stack heatmaps of n random crops, from the kernel
+    path and from the plain model: sigmoids of bf16 values, with many
+    exact ties."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models.fused_inference import (
+        fused_apply,
+        prepare_fused,
+    )
+
+    x = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0, 1, (n, 256, 256, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        fused = fused_apply(prepare_fused(model), x, **MAIN_FLAGS)[-1]
+        plain = model(x)[-1]
+    return {"S4/256 kernel path": fused.float(),
+            "S4/256 plain model": plain.float()}
+
+
+def phase_decode_kernel(report, model):
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        decode_kernel as dk,
+    )
+
+    rng = np.random.default_rng(11)
+    cases = {"synthetic": torch.from_numpy(decode_inputs(rng, B_TIME)).cuda(),
+             **s4_heatmaps(model)}
+    failures = []
+    for label, hm in cases.items():
+        flat = hm.reshape(hm.shape[0], -1, K)
+        ties = int((flat == flat.amax(1, keepdim=True)).sum().item()
+                   - flat.shape[0] * K)
+        for legacy in (True, False):
+            got = dk.decode_batch(hm, legacy=legacy)
+            want = dk.decode_batch_plain(hm, legacy=legacy)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ok = got.shape == want.shape == (B_TIME, K, 3) and \
+                torch.equal(got, want)
+            mode = "legacy" if legacy else "corrected"
+            log(f"kernel decode_batch {label} {tuple(hm.shape)} f32 {mode}: "
+                f"max|d| = {err:.3e}, {ties} tied maxima beyond the first "
+                f"{'ok' if ok else 'FAIL'}")
+            ent = report.setdefault("decode_batch", {})
+            ent["max_abs_err"] = max(ent.get("max_abs_err", 0.0), err)
+            if not ok:
+                failures.append(f"{label} {mode}: {err}")
+    if failures:
+        raise AssertionError("the decode kernel disagrees with its plain "
+                             "version: " + "; ".join(failures))
+
+
+def eval_dataset(root):
+    """A COCO-format dataset of single-person images under `root`: val and
+    train splits of 300x300 JPEGs, one person each, whose square crop is
+    exactly 256 px. Coordinates are multiples of 1/8, so every stored
+    float is exact and the ground truth round-trips exactly. Returns the
+    config and {ann_id: annotation} of the val split."""
+    from single_person_pose_estimation_tpu_torch import Config
+    from single_person_pose_estimation_tpu_torch.data.images import (
+        encode_jpeg,
+    )
+
+    rng = np.random.default_rng(12)
+    noise = rng.normal(0, 12, (EVAL_SIDE, EVAL_SIDE, 3)).astype(np.float32)
+    val = {}
+    for split, n in (("val2017", N_EVAL), ("train2017", N_EVAL_TRAIN)):
+        img_dir = os.path.join(root, "images", split)
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            # Smooth colour fields plus noise: a few tens of KB per JPEG.
+            base = rng.uniform(0, 255, (6, 6, 3)).astype(np.float32)
+            img = np.kron(base, np.ones((50, 50, 1), np.float32))
+            img += np.roll(noise, int(rng.integers(EVAL_SIDE)), axis=0)
+            x0, y0 = (rng.integers(240, 560, 2) / 8).tolist()
+            sq0 = (x0 + BBOX / 2 - BBOX * 1.25 / 2,
+                   y0 + BBOX / 2 - BBOX * 1.25 / 2)
+            kps = []
+            for k in range(K):
+                kx = sq0[0] + rng.integers(8, 1016) / 4
+                ky = sq0[1] + rng.integers(8, 1016) / 4
+                v = int(rng.choice([0, 1, 2], p=[0.2, 0.2, 0.6]))
+                if v:
+                    cx, cy = int(kx), int(ky)
+                    img[cy - 3:cy + 3, cx - 3:cx + 3] = 255.0
+                kps += [kx, ky, v]
+            name = f"{i:012d}.jpg"
+            with open(os.path.join(img_dir, name), "wb") as f:
+                f.write(encode_jpeg(np.clip(img, 0, 255).astype(np.uint8)))
+            images.append({"id": i + 1, "file_name": name,
+                           "width": EVAL_SIDE, "height": EVAL_SIDE})
+            ann = {"id": 10_000 + i, "image_id": i + 1, "category_id": 1,
+                   "iscrowd": 0, "bbox": [x0, y0, BBOX, BBOX],
+                   "area": BBOX * BBOX,
+                   "num_keypoints": sum(v > 0 for v in kps[2::3]),
+                   "keypoints": kps}
+            anns.append(ann)
+            if split == "val2017":
+                val[ann["id"]] = ann
+        with open(os.path.join(root, "annotations",
+                               f"person_keypoints_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": []}, f)
+    cfg = Config(dataset_dir=root, batch_size=B_TIME, min_num_keypoints=1,
+                 num_examples_per_record=128, compute_dtype="bfloat16",
+                 temporary_dir=os.path.join(root, "run"), seed=0)
+    return cfg, val
+
+
+def eval_model(cfg, seed):
+    """Save S4/256 (init_variables(seed=0)) as a checkpoint the way the
+    Trainer does, and restore it into a model from another seed with
+    load_model_from_checkpoint."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+    from single_person_pose_estimation_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+    from single_person_pose_estimation_tpu_torch.utils.model_utils import (
+        load_model_from_checkpoint,
+    )
+
+    saved = steps_lib.TrainState.create(
+        build_s4(), lambda m: steps_lib.make_optimizer(m, 2.5e-4),
+        device="cuda")
+    CheckpointManager(cfg.checkpoints_path).save(
+        1, saved, {"epoch": 1, "lr_schedule": None, "warmup_steps": 0})
+    state, _ = load_model_from_checkpoint(build_s4(seed=seed),
+                                          cfg.checkpoints_path)
+    want = saved.model.state_dict()
+    diff = [k for k, v in state.model.state_dict().items()
+            if not torch.equal(v, want[k])]
+    if diff:
+        raise AssertionError(f"restored weights differ: {diff[:5]}")
+    return state
+
+
+def phase_eval(report):
+    """Records -> predictions -> OKS and PCK on S4/256 at B=128."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.configs.default_config import (
+        COCO_KEYPOINT_LABELS,
+    )
+    from single_person_pose_estimation_tpu_torch.data import (
+        coco,
+        pipeline,
+        tfrecord,
+    )
+    from single_person_pose_estimation_tpu_torch.evaluation import (
+        predict,
+    )
+    from single_person_pose_estimation_tpu_torch.evaluation.oks import (
+        eval_oks,
+    )
+    from single_person_pose_estimation_tpu_torch.evaluation.pck import (
+        eval_pck,
+    )
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        decode_kernel as dk,
+    )
+    from single_person_pose_estimation_tpu_torch.training.steps import (
+        recalibrate_batch_stats,
+    )
+
+    shutil.rmtree(EVAL_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    cfg, val = eval_dataset(EVAL_ROOT)
+    t1 = time.perf_counter()
+    coco.gen_trainval_records(cfg)
+    t2 = time.perf_counter()
+    if not tfrecord.native_available():
+        raise AssertionError("the native TFRecord reader is not in use")
+    log(f"eval: wrote {N_EVAL} + {N_EVAL_TRAIN} source images in "
+        f"{t1 - t0:.1f} s, their records in {t2 - t1:.1f} s; native "
+        f"reader {tfrecord.library_path().name}")
+    state = eval_model(cfg, seed=1)
+    builder = pipeline.DatasetBuilder(cfg)
+    if builder.num_valid_examples != N_EVAL:
+        raise AssertionError(f"{builder.num_valid_examples} val records")
+    train_it, _ = builder.build_datasets()
+    n = 2            # cmd_eval --recalibrate-batches 2
+    recalibrate_batch_stats(state, (next(train_it) for _ in range(n)),
+                            momentum=1.0 - 1.0 / n)
+    builder.close()
+    torch.cuda.synchronize()
+
+    runs = {}
+    for flip in (False, True):
+        with pipeline.DatasetBuilder(cfg) as b:
+            kernels.reset_launch_counts()
+            fi.plain_routes.update(forward=0, level=0)
+            t0 = time.perf_counter()
+            preds = predict.predict_ds(state.model, state,
+                                       b.get_ds_prediction(),
+                                       save_path=None, flip_test=flip)
+            elapsed = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            routes = dict(fi.plain_routes)
+        forwards = (N_EVAL // B_TIME) * (2 if flip else 1)
+        want = {**{k: v * forwards for k, v in PER_FORWARD.items()},
+                "decode_batch": N_EVAL // B_TIME,
+                **{k: 0 for k in TRAIN_KERNELS}}
+        label = "flip-TTA" if flip else "plain"
+        log(f"eval {label}: {len(preds)} predictions in {elapsed:.2f} s; "
+            f"launches {counts} expected {want}; plain routes {routes}")
+        if counts != want or any(routes.values()):
+            raise AssertionError(f"eval {label}: launches {counts} != "
+                                 f"{want} or plain routes {routes}")
+        ent = report.setdefault("decode_batch", {})
+        ent["launches"] = ent.get("launches", 0) + counts["decode_batch"]
+        # The same pass with the plain decode: the kernel path's heatmaps
+        # are deterministic, so the predictions must be equal.
+        predict.decode_batch = dk.decode_batch_plain
+        try:
+            with pipeline.DatasetBuilder(cfg) as b:
+                plain = predict.predict_ds(state.model, state,
+                                           b.get_ds_prediction(),
+                                           save_path=None, flip_test=flip)
+        finally:
+            predict.decode_batch = dk.decode_batch
+        if plain != preds:
+            bad = sum(p != q for p, q in zip(plain, preds))
+            raise AssertionError(f"eval {label}: {bad} predictions differ "
+                                 f"from the plain decode's")
+        check_predictions(preds, val, label)
+        runs[label] = preds
+
+    gt = os.path.join(cfg.dataset_dir, "annotations",
+                      "person_keypoints_val2017.json")
+    for label, preds in runs.items():
+        stats = eval_oks(preds, gt, verbose=False)
+        pck = eval_pck(preds, COCO_KEYPOINT_LABELS, verbose=False)
+        log(f"eval {label}: OKS stats {np.round(stats, 4).tolist()}; PCK "
+            f"mean {np.mean(pck):.4f} over {len(pck)} labels")
+        if stats.shape != (10,) or not np.isfinite(stats).all() \
+                or len(pck) != K or not np.isfinite(pck).all():
+            raise AssertionError(f"eval {label}: OKS {stats}, PCK {pck}")
+    del state
+    return cfg
+
+
+def check_predictions(preds, val, label):
+    """Every keypoint finite and inside its crop box; ids, visibilities,
+    GT keypoints and the original bbox exactly as annotated."""
+    if sorted(p["ann_id"] for p in preds) != sorted(val):
+        raise AssertionError(f"eval {label}: the predictions' ids differ "
+                             f"from the annotations'")
+    for p in preds:
+        ann = val[p["ann_id"]]
+        side = int(BBOX * 1.25)
+        sq0 = [c + BBOX / 2 - BBOX * 1.25 / 2 for c in ann["bbox"][:2]]
+        xs, ys = np.asarray(p["xs/pred"]), np.asarray(p["ys/pred"])
+        inside = (np.isfinite(xs).all() and np.isfinite(ys).all()
+                  and (xs >= sq0[0]).all() and (xs < sq0[0] + side).all()
+                  and (ys >= sq0[1]).all() and (ys < sq0[1] + side).all())
+        kx, ky, kv = (ann["keypoints"][i::3] for i in range(3))
+        gt_x = [x if v else sq0[0] for x, v in zip(kx, kv)]
+        gt_y = [y if v else sq0[1] for y, v in zip(ky, kv)]
+        if not inside or p["image_id"] != ann["image_id"] \
+                or p["original_bbox"] != ann["bbox"] or p["vs"] != kv \
+                or p["xs/gt"] != gt_x or p["ys/gt"] != gt_y \
+                or len(p["confs"]) != K:
+            raise AssertionError(f"eval {label}: prediction of annotation "
+                                 f"{p['ann_id']} is off: {p}")
+
+
+def phase_eval_times(report, cfg, card):
+    """Records-to-predictions img/s and its split; the decode kernel
+    beside its plain version and beside argmax alone."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.data import (
+        pipeline,
+        tfrecord,
+    )
+    from single_person_pose_estimation_tpu_torch.evaluation import (
+        predict,
+    )
+    from single_person_pose_estimation_tpu_torch.models.fused_inference import (
+        forward_last_stack,
+        prepare_fused,
+    )
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        decode_kernel as dk,
+    )
+
+    model = build_s4().to("cuda")
+
+    def one_pass(flip):
+        with pipeline.DatasetBuilder(cfg) as b:
+            return predict.predict_ds(model, None, b.get_ds_prediction(),
+                                      save_path=None, flip_test=flip)
+
+    for flip in (False, True):
+        one_pass(flip)
+    times = {False: [], True: []}
+    for i in range(3):
+        for flip in ((False, True) if i % 2 == 0 else (True, False)):
+            t0 = time.perf_counter()
+            one_pass(flip)
+            times[flip].append(time.perf_counter() - t0)
+    for flip, ts in times.items():
+        med = statistics.median(ts)
+        label = "flip-TTA" if flip else "plain"
+        log(f"eval_times S4/256 bf16 B={B_TIME} records -> predictions "
+            f"({label}): median {med:.3f} s over {len(ts)} runs of "
+            f"{N_EVAL} = {N_EVAL / med:.1f} img/s "
+            f"(runs {[round(t, 3) for t in ts]}) [{card}]")
+        report.setdefault("_eval", {})[label] = N_EVAL / med
+
+    # The split. Host: parse one batch of records on one thread (the
+    # builder spreads it over its decode threads).
+    path = sorted(os.listdir(cfg.valid_tfrecords_dir))[0]
+    records = list(tfrecord.iter_records(
+        os.path.join(cfg.valid_tfrecords_dir, path)))[:B_TIME]
+    t0 = time.perf_counter()
+    batch = [pipeline._parse_prediction_example(r, cfg) for r in records]
+    parse_s = time.perf_counter() - t0
+    images = np.stack([im for im, _ in batch])
+    workers = cfg.host_workers or max(1, min(4, (os.cpu_count() or 1) - 1))
+    log(f"eval_times host parse of {len(records)} records (decode JPEG, "
+        f"resize, meta) on one thread: {parse_s * 1e3:.1f} ms, "
+        f"{parse_s / len(records) * 1e3:.3f} ms per record; the builder "
+        f"runs {workers} decode threads [{card}]")
+    x = torch.from_numpy(images).cuda()
+    fp = prepare_fused(model)
+    with torch.inference_mode():
+        fwd = lambda: forward_last_stack(model, x, use_fused=True, auto=True,
+                                         prepared=fp)
+        fwd_ms = cuda_ms(fwd, iters=3)
+        hm = fwd()
+        prep_ms = cuda_ms(lambda: prepare_fused(model), iters=1)
+    span, busy, per, gaps = device_trace(lambda: one_pass(False), calls=1)
+    log(f"eval_times S4/256 bf16 B={B_TIME} forward (kernels): "
+        f"{fwd_ms:.2f} ms per batch; prepare_fused (BN folding, once per "
+        f"predict_ds call) {prep_ms:.2f} ms; one plain pass under the "
+        f"profiler: device span {span:.1f} ms, busy {busy:.1f} ms, idle "
+        f"share {1 - busy / span:.4f} [{card}]")
+    log("  longest idle gaps (ms, at ms into the pass): "
+        + ", ".join(f"{g:.1f} at {at:.1f}" for g, at in gaps))
+    for kname, (kms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"  {kms:9.3f} ms/pass {kms / busy:6.1%} x{n:6.1f}  {kname}")
+
+    flat = hm.reshape(hm.shape[0], -1, K)
+    kern = lambda: dk.decode_batch(hm)
+    ms = cuda_ms(kern, iters=20)
+    # Straight from the forward, and back to back here, the 35.65 MB of
+    # maps sit in the 50 MB L2; after a 128 MB write they come from HBM.
+    device_ms = kernel_device_ms(kern, "decode_batch")
+    scrub = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    cold_ms = kernel_device_ms(kern, "decode_batch", before=scrub.zero_)
+    plain_ms = cuda_ms(lambda: dk.decode_batch_plain(hm), iters=20)
+    argmax_ms = cuda_ms(lambda: flat.argmax(1), iters=20)
+    n = hm.numel()
+    bms, by = bound(DECODE_OPS * n, 4 * n + 4 * 3 * B_TIME * K, PEAK_F32)
+    report.setdefault("decode_batch", {}).update(
+        ms=ms, device_ms=device_ms, device_ms_cold_l2=cold_ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+        argmax_ms=argmax_ms)
+    log(f"times decode_batch f32 B={B_TIME} {tuple(hm.shape)}: kernel "
+        f"{ms:.4f} ms per call ({device_ms:.4f} ms on the device with the "
+        f"maps in L2, {cold_ms:.4f} ms after an L2 scrub), plain "
+        f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); flat.argmax(1) "
+        f"alone (the argmax part only, not the same function) "
+        f"{argmax_ms:.4f} ms [{card}]")
+    del model
 
 
 # ---------------------------------------------------------------------------
@@ -719,8 +1218,6 @@ def phase_train(report):
     """S4/256 bf16 (f32 params) trained by `Trainer` on synthetic crops with
     augmentation, then resumed in a new Trainer; a fixed batch without
     augmentation must lose loss over 20 steps."""
-    import shutil
-
     import torch
 
     from single_person_pose_estimation_tpu_torch import losses
@@ -779,7 +1276,8 @@ def phase_train(report):
     for r in rows:
         log(f"train epoch: loss {r['loss']:.5f} val_loss {r['val_loss']:.5f}")
     got = {n: counts[n] for n in TRAIN_KERNELS}
-    if got != want or any(counts[n] for n in PER_FORWARD):
+    if got != want or any(counts[n] for n in (*PER_FORWARD,
+                                              "decode_batch")):
         raise AssertionError(f"train launch counts {counts} != {want}")
     for n in TRAIN_KERNELS:
         report.setdefault(n, {})["launches"] = counts[n]
@@ -905,7 +1403,7 @@ def phase_train_times(report, card):
             f"over {len(times[name])} runs [{card}]")
     log(f"train_times S4/256 bf16 B={B_TRAIN} train step: "
         f"{B_TRAIN / med['step'] * 1e3:.1f} img/s [{card}]")
-    span, busy, per = device_trace(lambda: step(state, batch), calls=2)
+    span, busy, per, _ = device_trace(lambda: step(state, batch), calls=2)
     log(f"trace S4/256 bf16 B={B_TRAIN} train step: device span "
         f"{span:.2f} ms/step, busy {busy:.2f} ms, idle share "
         f"{1 - busy / span:.4f} [{card}]")
@@ -946,11 +1444,8 @@ def phase_train_times(report, card):
     for name, (kern, plain, (bms, by)) in kern_cases.items():
         ms, plain_ms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=20)
         # The events above time back-to-back wrapper calls, host work
-        # included; the profiler gives the kernel's own device time.
-        device_ms = sum(t for k, (t, _) in device_trace(kern, 5)[2].items()
-                        if "spe::" in k)
-        if not device_ms > 0:
-            raise AssertionError(f"the trace shows no kernel of {name}")
+        # included; kernel_device_ms the device's time alone.
+        device_ms = kernel_device_ms(kern, name)
         report.setdefault(name, {}).update(
             ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=None)
@@ -997,10 +1492,18 @@ def main():
     phase_kernels(report)
     phase_golden()
     model = build_s4().to("cuda")
+    phase_decode_kernel(report, model)
     phase_slice(report, model)
     phase_times(report, model, card)
     phase_trace(model, card)
     del model
+    torch.cuda.empty_cache()
+    try:
+        cfg = phase_eval(report)
+        torch.cuda.empty_cache()
+        phase_eval_times(report, cfg, card)
+    finally:
+        shutil.rmtree(EVAL_ROOT, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_train_kernels(report)
     phase_train(report)
@@ -1008,6 +1511,7 @@ def main():
     for name, (bms, by) in inference_bounds().items():
         report[name].update(bound_ms=bms, bound_by=by, library_ms=None)
     log(json.dumps({"forward_img_per_s_b128_bf16": report.pop("_forward"),
+                    "eval_img_per_s_b128_bf16": report.pop("_eval"),
                     "card": card}))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

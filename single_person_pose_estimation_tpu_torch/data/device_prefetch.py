@@ -37,7 +37,8 @@ class Prefetcher:
 
     def __init__(self, it: Iterator, depth: int = 2,
                  on_stop: Optional[Callable] = None,
-                 map_fn: Optional[Callable] = None):
+                 map_fn: Optional[Callable] = None,
+                 name: Optional[str] = None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1: {depth}")
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -46,7 +47,7 @@ class Prefetcher:
         self._on_stop = on_stop
         self._map = map_fn
         self._thread = threading.Thread(target=self._run, args=(it,),
-                                        daemon=True)
+                                        daemon=True, name=name)
         self._thread.start()
 
     def _put(self, item) -> bool:

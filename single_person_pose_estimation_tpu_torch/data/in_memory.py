@@ -8,7 +8,8 @@ in order, both repeating forever. Images go out as float32 in [0, 1], or
 as uint8 with `transfer_dtype="uint8"` (the train step divides by 255 on
 the device). `synthetic_crops` makes such arrays from a seed.
 
-The port's TFRecord `DatasetBuilder` is still to come (ROADMAP Queue 1).
+Records on disk go through the TFRecord `data/pipeline.py::DatasetBuilder`
+instead, which `Trainer` takes the same way.
 """
 
 from __future__ import annotations

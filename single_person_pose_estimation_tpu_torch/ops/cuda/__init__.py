@@ -1,9 +1,13 @@
-"""Hand-written CUDA kernels of the inference and training paths, each with
-its plain PyTorch version beside it (see each module's docstring)."""
+"""Hand-written CUDA kernels of the inference, evaluation and training
+paths, each with its plain PyTorch version beside it (see each module's
+docstring)."""
 
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     fused_bottleneck,
     fused_bottleneck_pool,
+)
+from single_person_pose_estimation_tpu_torch.ops.cuda.decode_kernel import (
+    decode_batch,
 )
 from single_person_pose_estimation_tpu_torch.ops.cuda.head_kernel import (
     fused_head,
@@ -26,6 +30,7 @@ KERNEL_WRAPPERS = {
     "fused_head": fused_head,
     "resample_last_axis": resample_last_axis,
     "render_heatmaps_batch": render_heatmaps_batch,
+    "decode_batch": decode_batch,
 }
 
 

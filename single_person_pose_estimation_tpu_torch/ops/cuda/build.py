@@ -45,6 +45,8 @@ _SIGNATURES = {
     "spe_heatmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # img, params, out, B, C, L, K, stream
     "spe_resample": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # heatmaps, out, B, H, W, K, threshold, legacy, stream
+    "spe_decode": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 
 

@@ -10,8 +10,9 @@ which copies it to the host and resolves the futures.
 
 - The batcher admits at most `max_batch` requests per step and waits at
   most `max_wait_s` for stragglers.
-- The decode runs on the device: the host sees (B, K, 3) keypoints, not
-  (B, 64, 64, K) heatmaps.
+- The decode runs on the device (the v2 decode through the CUDA decode
+  kernel of `ops/cuda/decode_kernel.py`): the host sees (B, K, 3)
+  keypoints, not (B, 64, 64, K) heatmaps.
 - `transfer_dtype="uint8"` sends pixels as bytes and normalises to [0, 1]
   on the device, a quarter of the float32 traffic; "bfloat16" halves it
   with rounding-level error; "float32" is exact.
@@ -44,8 +45,10 @@ from single_person_pose_estimation_tpu_torch.models.fused_inference import (
     forward_last_stack,
     prepare_fused,
 )
-from single_person_pose_estimation_tpu_torch.ops.decode import (
+from single_person_pose_estimation_tpu_torch.ops.cuda.decode_kernel import (
     decode_batch,
+)
+from single_person_pose_estimation_tpu_torch.ops.decode import (
     decode_v1_batch,
 )
 

@@ -16,7 +16,8 @@ checkpoint is promoted across sessions. Each epoch appends to
 `model` is the port's `StackedHourglass` with its weights; the trainer
 moves it to `device`. `ds_builder` is any object with `build_datasets()`
 (two iterators of numpy batches), `num_train_examples` and
-`num_valid_examples`, e.g. `data/in_memory.py::ArrayDatasetBuilder`.
+`num_valid_examples`: the TFRecord `data/pipeline.py::DatasetBuilder`, or
+`data/in_memory.py::ArrayDatasetBuilder` for crops held in memory.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the inference kernels at every main-path shape at batch 2, float32
-(TF32 off) and bfloat16, and the training kernels (warp, heatmap) at the
-train step's batch 64, at chip_smoke.py's tolerances. Skips on a host
-without a card."""
+(TF32 off) and bfloat16, the training kernels (warp, heatmap) at the
+train step's batch 64, at chip_smoke.py's tolerances, and the decode
+kernel at batch 12, legacy and corrected, exactly. Skips on a host without
+a card."""
 
 import numpy as np
 import pytest
@@ -63,3 +64,20 @@ def test_training_kernels_match_plain_versions_on_card(card):
     want = hk.render_heatmaps_batch_plain(kx, ky, kv)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= chip_smoke.TOL_TRAIN_KERNELS
+
+
+@pytest.mark.parametrize("legacy", [True, False], ids=["legacy", "corrected"])
+def test_decode_kernel_matches_plain_version_on_card(card, legacy):
+    """#13 on chip_smoke's decode cases (every kind twice), exactly."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        decode_kernel as dk,
+    )
+
+    hm = torch.from_numpy(chip_smoke.decode_inputs(
+        np.random.default_rng(11), 12)).cuda()
+    before = dk.decode_batch.launches
+    got = dk.decode_batch(hm, legacy=legacy)
+    want = dk.decode_batch_plain(hm, legacy=legacy)
+    torch.cuda.synchronize()
+    assert dk.decode_batch.launches == before + 1
+    assert torch.equal(got, want)

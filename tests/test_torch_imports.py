@@ -1,7 +1,7 @@
 """The port imports neither JAX nor flax nor anything of the JAX package
 (`single_person_pose_estimation_tpu` and its submodules): an AST scan of
-its sources and of chip_smoke.py, and an import of its serving and
-training modules with all of them blocked."""
+its sources and of chip_smoke.py, and an import of its serving, training,
+data and evaluation modules with all of them blocked."""
 
 import ast
 import os
@@ -50,6 +50,18 @@ def test_ban_catches_the_jax_package_but_not_the_port():
     assert not banned("single_person_pose_estimation_tpu_torch.losses")
 
 
+def test_new_modules_are_scanned():
+    """Every module of the evaluation slice is among the scanned sources."""
+    for rel in ("data/example_codec.py", "data/tfrecord.py",
+                "data/images.py", "data/pipeline.py", "data/coco.py",
+                "ops/cuda/decode_kernel.py", "evaluation/predict.py",
+                "evaluation/oks.py", "evaluation/pck.py",
+                "utils/model_utils.py"):
+        path = os.path.join(PORT_DIR, rel)
+        assert os.path.exists(path), rel
+        assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
+
+
 def test_serving_and_training_import_with_jax_blocked():
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'jaxlib', 'optax', 'orbax',\n"
@@ -60,7 +72,19 @@ def test_serving_and_training_import_with_jax_blocked():
             ".weight_convert\n"
             "import single_person_pose_estimation_tpu_torch.training"
             ".trainer as t\n"
-            "assert s.PoseServer and t.Trainer\n"
+            "from single_person_pose_estimation_tpu_torch.evaluation"
+            ".predict import predict_ds\n"
+            "from single_person_pose_estimation_tpu_torch.evaluation"
+            ".oks import eval_oks\n"
+            "from single_person_pose_estimation_tpu_torch.evaluation"
+            ".pck import eval_pck\n"
+            "from single_person_pose_estimation_tpu_torch.data"
+            ".pipeline import DatasetBuilder\n"
+            "from single_person_pose_estimation_tpu_torch.data"
+            ".coco import generate_records\n"
+            "from single_person_pose_estimation_tpu_torch.utils"
+            ".model_utils import load_model_from_checkpoint\n"
+            "assert s.PoseServer and t.Trainer and predict_ds\n"
             "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax',\n"
             "               'orbax', 'single_person_pose_estimation_tpu')\n"
             "               and sys.modules[m] for m in sys.modules)\n"
