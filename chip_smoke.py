@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through its seven hand-written CUDA kernels
-and checks every phase: single-crop inference with the S4/256 model served
-by `PoseServer` (four kernels and the decode kernel), evaluation from
-TFRecords by `predict_ds` (the same five), and S4/256 training by
-`Trainer` (the warp and heatmap kernels). It imports nothing of JAX or of
-the JAX package. Phases, each raising on failure:
+Drives the port's paths through its ten hand-written CUDA kernels and
+checks every phase: single-crop inference with the S4/256 model served
+by `PoseServer` (four kernels and the decode kernel), the same with the
+mobile S4/256 model (the three mobile kernels, the head kernel and the
+decode kernel), evaluation from TFRecords by `predict_ds` (standard and
+mobile), and S4/256 training by `Trainer` (the warp and heatmap kernels).
+It imports nothing of JAX or of the JAX package. Phases, each raising on
+failure:
 
 1. card: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile the kernels from `single_person_pose_estimation_tpu_torch/
@@ -28,6 +30,20 @@ the JAX package. Phases, each raising on failure:
    beside its plain version's;
 7. trace: torch.profiler over 3 forwards of each path at batch 128: device
    busy time, span and idle share, and the device time of each kernel;
+7a. mobile_kernels: the mobile kernels (#8-#10) against their plain
+   versions at batch 8, C=256, at every level the mobile path runs them:
+   #8 at 64 and 4 px, #9 at 32, 16 and 8 px, #10 at 64, 32, 16 and 8 px,
+   float32 and bfloat16;
+7b. mobile_golden: the fused mobile path with the kernels at float32
+   against `tests/fixtures/golden_ref_s1c32_mobile.npz`;
+7c. mobile_slice: mobile S4/256 from `init_variables(seed=0, mobile=True)`
+   (5,818,564 parameters) served by `PoseServer(device="cuda")` in
+   bfloat16, with launch counts equal to what the forwards imply; then the
+   kernel path against the plain mobile model at float32 on a copy whose
+   last predict conv is scaled so that no heatmap value saturates;
+7d. mobile_times: mobile S4/256 forward img/s at batch 128 with the kernels
+   and with the plain mobile model, the device idle share of 3 forwards of
+   each, and each mobile kernel's time beside its plain version's;
 8. eval: a synthetic COCO split of 1,024 person crops at 256x256 (and 256
    training crops) written to TFRecords by the port's ETL and read back by
    its native reader; an S4/256 checkpoint restored with
@@ -39,6 +55,9 @@ the JAX package. Phases, each raising on failure:
 9. eval_times: records-to-predictions img/s (median of 3), its split
    (host parse, forward, decode), the device idle share of one pass, and
    the decode kernel beside its plain version;
+9a. mobile_eval: one `predict_ds` pass of mobile S4/256 over the same
+   records, with exact launch counts and predictions equal to those of
+   the plain decode;
 10. train_kernels: the warp kernel (both passes) and the heatmap kernel
    against their plain versions at batch 64, 256x256x3 and 64x64x17, f32,
    with flips, scales that push samples off the edge, and keypoints on the
@@ -61,6 +80,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -76,6 +96,7 @@ B_CHECK = 8      # batch of the per-kernel checks
 B_TIME = 128      # batch of the timings
 C, CM, K = 256, 128, 17
 S4_PARAMS = 13_784_260
+S4_MOBILE_PARAMS = 5_818_564
 # Tolerances. f32 with TF32 off: the kernel and the plain version differ
 # only in the order of float32 sums over <= 9*128 terms of size ~1, so
 # 1e-4 is ~100x the expected error. bf16: both sum in float32, but one
@@ -106,6 +127,12 @@ REPLACES = {
         "single_person_pose_estimation_tpu/experimental/heatmap_kernel.py:61",
     "decode_batch":
         "single_person_pose_estimation_tpu/experimental/decode_kernel.py:104",
+    "fused_bottleneck_mobile":
+        "single_person_pose_estimation_tpu/ops/pallas/mobile_kernel.py:124",
+    "fused_bottleneck_mobile_pool":
+        "single_person_pose_estimation_tpu/ops/pallas/mobile_kernel.py:154",
+    "fused_uplevel_mobile":
+        "single_person_pose_estimation_tpu/ops/pallas/mobile_kernel.py:189",
 }
 SOURCES = {
     "fused_bottleneck": "single_person_pose_estimation_tpu_torch/csrc/bottleneck.cu",
@@ -116,6 +143,9 @@ SOURCES = {
     "render_heatmaps_batch":
         "single_person_pose_estimation_tpu_torch/csrc/heatmap.cu",
     "decode_batch": "single_person_pose_estimation_tpu_torch/csrc/decode.cu",
+    **dict.fromkeys(("fused_bottleneck_mobile", "fused_bottleneck_mobile_pool",
+                     "fused_uplevel_mobile"),
+                    "single_person_pose_estimation_tpu_torch/csrc/mobile.cu"),
 }
 
 
@@ -234,6 +264,64 @@ def kernel_cases(rng, dtype, device, b):
     return cases
 
 
+def mobile_params(rng, dtype, device):
+    """One mobile bottleneck's operands (MobileParams) from the seed: 1x1
+    depthwise scales around 1, 3x3 taps, glorot-sized pointwise weights."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
+        bn_affine,
+    )
+    from single_person_pose_estimation_tpu_torch.ops.cuda.mobile_kernel import (
+        MobileParams,
+    )
+    import torch
+
+    def u(lo, hi, *shape):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    lim1, lim2 = np.sqrt(6 / (C + CM)), np.sqrt(6 / (2 * CM))
+    affs = [bn_affine(u(.5, 1.5, n), u(-.3, .3, n), u(-.5, .5, n),
+                      u(.5, 1.5, n)) for n in (CM, CM, C)]
+    return MobileParams.pack(
+        u(.5, 1.5, C), u(-lim1, lim1, C, CM), u(-.1, .1, CM),
+        u(-.3, .3, 3, 3, CM), u(-lim2, lim2, CM, CM), u(-.1, .1, CM),
+        u(.5, 1.5, CM), u(-lim1, lim1, CM, C), u(-.1, .1, C),
+        *affs[0], *affs[1], *affs[2], dtype=dtype, device=device)
+
+
+def mobile_kernel_cases(rng, dtype, device, b):
+    """(name, kernel call, plain call) of #8-#10 at every mobile main-path
+    shape, the 4 px and 8 px levels (a tile that is the whole map, its
+    halo all padding) among them."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        mobile_kernel as mk,
+    )
+
+    cases = []
+    for h in (64, 4):
+        x, p = nhwc(rng, b, h, dtype, device), mobile_params(rng, dtype, device)
+        cases.append((f"fused_bottleneck_mobile@{h}", "fused_bottleneck_mobile",
+                      lambda x=x, p=p: mk.fused_bottleneck_mobile(x, p),
+                      lambda x=x, p=p: mk.fused_bottleneck_mobile_plain(x, p)))
+    for h in (32, 16, 8):
+        x, p = nhwc(rng, b, h, dtype, device), mobile_params(rng, dtype, device)
+        cases.append((f"fused_bottleneck_mobile_pool@{h}",
+                      "fused_bottleneck_mobile_pool",
+                      lambda x=x, p=p: mk.fused_bottleneck_mobile_pool(x, p),
+                      lambda x=x, p=p:
+                          mk.fused_bottleneck_mobile_pool_plain(x, p)))
+    for h in (64, 32, 16, 8):
+        f, lo = nhwc(rng, b, h, dtype, device), nhwc(rng, b, h // 2, dtype,
+                                                      device)
+        ps = mobile_params(rng, dtype, device)
+        pm = mobile_params(rng, dtype, device)
+        cases.append((f"fused_uplevel_mobile@{h}", "fused_uplevel_mobile",
+                      lambda f=f, lo=lo, ps=ps, pm=pm:
+                          mk.fused_uplevel_mobile(f, lo, ps, pm),
+                      lambda f=f, lo=lo, ps=ps, pm=pm:
+                          mk.fused_uplevel_mobile_plain(f, lo, ps, pm)))
+    return cases
+
+
 def max_err(got, want, dtype):
     """(max |d|, passes) for one output under this dtype's tolerance."""
     import torch
@@ -250,14 +338,14 @@ def max_err(got, want, dtype):
     return d.max().item(), bool((d <= bound).all().item())
 
 
-def phase_kernels(report):
+def phase_kernels(report, make_cases=kernel_cases, seed=0):
     import torch
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
-        for label, name, kern, plain in kernel_cases(rng, dtype, "cuda",
-                                                     B_CHECK):
+        for label, name, kern, plain in make_cases(rng, dtype, "cuda",
+                                                   B_CHECK):
             got, want = kern(), plain()
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
@@ -298,6 +386,13 @@ MAIN_FLAGS = dict(fuse_levels=True, pool_fuse_max_h=32, fuse_heads=True)
 # of two launches each, 1 head.
 PER_FORWARD = {"fused_bottleneck": 16, "fused_bottleneck_pool": 12,
                "fused_uplevel": 32, "fused_head": 4}
+# Per mobile S4 forward: per stack 4 mobile bottlenecks, 3 pooled ones, 4
+# up-levels of two launches each, 1 head (the standard head kernel).
+MOBILE_PER_FORWARD = {"fused_bottleneck_mobile": 16,
+                      "fused_bottleneck_mobile_pool": 12,
+                      "fused_uplevel_mobile": 32, "fused_head": 4}
+MOBILE_KERNELS = ("fused_bottleneck_mobile", "fused_bottleneck_mobile_pool",
+                  "fused_uplevel_mobile")
 
 
 def phase_golden():
@@ -411,7 +506,8 @@ def phase_slice(report, model):
     want = {**{n: v * forwards for n, v in PER_FORWARD.items()},
             "decode_batch": forwards}
     log(f"slice launches: {all_counts} expected {want}")
-    if counts != want or any(all_counts[n] for n in TRAIN_KERNELS):
+    if counts != want or any(all_counts[n] for n in (*TRAIN_KERNELS,
+                                                     *MOBILE_KERNELS)):
         raise AssertionError(f"launch counts {all_counts} != {want}")
     for name in PER_FORWARD:
         report.setdefault(name, {})["launches"] = counts[name]
@@ -622,6 +718,329 @@ def phase_trace(model, card):
             for kname, (ms, n) in top:
                 log(f"  {ms:9.3f} ms/forward {ms / busy:6.1%} x{n:6.1f}  "
                     f"{kname}")
+
+
+# ---------------------------------------------------------------------------
+# The mobile (separable-conv) model: kernels #8-#10 and the head kernel.
+# ---------------------------------------------------------------------------
+
+def phase_mobile_golden():
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models.fused_inference import (
+        fused_apply,
+        prepare_fused,
+    )
+    from single_person_pose_estimation_tpu_torch.models.hourglass import (
+        StackedHourglass,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+    from single_person_pose_estimation_tpu_torch.utils.weight_convert import (
+        load_variables,
+    )
+
+    data = dict(np.load(os.path.join(ROOT, "tests", "fixtures",
+                                     "golden_ref_s1c32_mobile.npz")))
+    stacks, channels, _, mobile = (int(v) for v in data["meta"])
+    model = load_variables(StackedHourglass(num_stacks=stacks,
+                                            num_channels=channels,
+                                            mobile=bool(mobile)), data)
+    fp = prepare_fused(model.to("cuda"), dtype=torch.float32)
+    kernels.reset_launch_counts()
+    outs = fused_apply(fp, torch.from_numpy(data["x"]).cuda(), **MAIN_FLAGS)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in kernels.launch_counts().items()
+              if n in MOBILE_PER_FORWARD}
+    for s in range(stacks):
+        err = (outs[s].cpu() - torch.from_numpy(data[f"ref_out_{s}"])).abs()
+        log(f"mobile_golden stack {s}: max|d| vs TF reference = "
+            f"{err.max().item():.3e} (tol {TOL_GOLDEN})")
+        if not err.max().item() <= TOL_GOLDEN:
+            raise AssertionError(f"mobile golden stack {s}: "
+                                 f"{err.max().item()}")
+    log(f"mobile_golden launches: {counts}")
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel did not launch on the mobile golden "
+                             f"run: {counts}")
+
+
+def build_s4_mobile(seed=0):
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models.hourglass import (
+        StackedHourglass,
+    )
+    from single_person_pose_estimation_tpu_torch.utils.weight_convert import (
+        init_variables,
+        load_variables,
+    )
+
+    model = StackedHourglass(num_stacks=4, num_channels=C,
+                             compute_dtype=torch.bfloat16, mobile=True)
+    load_variables(model, init_variables(4, C, seed=seed, mobile=True))
+    n = model.count_params()
+    if n != S4_MOBILE_PARAMS:
+        raise AssertionError(f"mobile S4/256 has {n} parameters, not "
+                             f"{S4_MOBILE_PARAMS}")
+    return model
+
+
+def phase_mobile_slice(report, model):
+    """Mobile S4/256 served by PoseServer on the card: 40 requests."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
+    from single_person_pose_estimation_tpu_torch.models.fused_inference import (
+        fused_apply,
+        prepare_fused,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+    from single_person_pose_estimation_tpu_torch.serving import PoseServer
+
+    rng = np.random.default_rng(21)
+    imgs = rng.uniform(0, 1, (40, 256, 256, 3)).astype(np.float32)
+    server = PoseServer(model, device="cuda", buckets=(1, 8, 32),
+                        use_fused="auto", max_wait_s=0.005)
+    try:
+        if not server.use_fused:
+            raise AssertionError('use_fused="auto" did not pick the kernels')
+        server.warmup()
+        torch.cuda.synchronize()
+        steps0 = server.stats()["steps"]
+        kernels.reset_launch_counts()
+        fi.plain_routes.update(forward=0, level=0)
+        t0 = time.perf_counter()
+        futs = [server.submit(im) for im in imgs[:8]]
+        singles = [f.result(timeout=600) for f in futs]
+        batch = server.predict(imgs[8:])
+        elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        all_counts = kernels.launch_counts()
+        routes = dict(fi.plain_routes)
+        stats = server.stats()
+    finally:
+        server.close()
+    if any(routes.values()):
+        raise AssertionError(f"served mobile work left the kernels: {routes}")
+    answers = np.concatenate([np.stack(singles), batch])
+    if answers.shape != (40, K, 3) or not np.isfinite(answers).all():
+        raise AssertionError(f"bad mobile answers: {answers.shape}")
+    xy = answers[..., :2]
+    if xy.min() < 0 or xy.max() >= 64:
+        raise AssertionError(f"mobile keypoints outside the 64x64 map: "
+                             f"[{xy.min()}, {xy.max()}]")
+    forwards = stats["steps"] - steps0
+    log(f"mobile_slice: {len(answers)} requests in {forwards} forwards, "
+        f"{elapsed:.2f} s, stats {stats}")
+    want = dict.fromkeys(all_counts, 0)
+    want.update({n: v * forwards for n, v in MOBILE_PER_FORWARD.items()},
+                decode_batch=forwards)
+    log(f"mobile_slice launches: {all_counts} expected {want}")
+    if all_counts != want:
+        raise AssertionError(f"mobile launch counts {all_counts} != {want}")
+    for name in MOBILE_KERNELS:
+        report.setdefault(name, {})["launches"] = all_counts[name]
+
+    # The random S4/256 saturates 99.8% of its last-stack sigmoids to
+    # exactly 0 or 1, which hides what the kernels compute. So the kernel
+    # path is held against the plain model on a copy whose last predict
+    # conv is scaled to bring every pre-sigmoid value into [-4, 4]: the
+    # heatmaps then carry the relative error of the whole stream.
+    x = torch.from_numpy(imgs[:8]).cuda()
+    peaked = copy.deepcopy(model)
+    peaked.compute_dtype = torch.float32
+    with torch.inference_mode():
+        z = predict_logits(peaked, x)
+    pred = getattr(peaked, f"hg{peaked.num_stacks - 1}_conv_1x1_predict")
+    k = 4.0 / z.abs().max().item()
+    with torch.no_grad():
+        pred.weight.mul_(k)
+        pred.bias.mul_(k)
+    with torch.inference_mode():
+        plain32 = peaked(x)[-1]
+        fused32 = fused_apply(prepare_fused(peaked), x, **MAIN_FLAGS)[-1]
+        peaked.compute_dtype = torch.bfloat16
+        plain = peaked(x)[-1]
+        fused = fused_apply(prepare_fused(peaked), x, **MAIN_FLAGS)[-1]
+    if not torch.isfinite(fused).all() or not torch.isfinite(fused32).all():
+        raise AssertionError("non-finite heatmaps on the mobile kernel path")
+    open_share = ((plain32 > 0) & (plain32 < 1)).float().mean().item()
+    log(f"mobile_slice: last-stack logits max|z| = {z.abs().max().item():.4g}"
+        f", std {z.std().item():.4g}; predict conv scaled by {k:.4g}; "
+        f"{open_share:.4f} of the plain f32 heatmap values lie strictly "
+        f"between 0 and 1, range [{plain32.min().item():.4f}, "
+        f"{plain32.max().item():.4f}]")
+    if not open_share >= 0.99:
+        raise AssertionError(f"the scaled mobile heatmaps still saturate: "
+                             f"{open_share:.4f} open")
+    for label, a, b in (("kernels bf16 vs plain bf16", fused, plain),
+                        ("kernels bf16 vs plain f32", fused, plain32),
+                        ("plain bf16 vs plain f32", plain, plain32),
+                        ("kernels f32 vs plain f32", fused32, plain32)):
+        d = (a - b).abs()
+        log(f"mobile_slice heatmaps (batch 8, scaled predict), {label}: "
+            f"max|d| = {d.max().item():.3e}, mean|d| = "
+            f"{d.mean().item():.3e}")
+    # At f32 (TF32 off) the kernel path and the plain mobile model differ
+    # only in the order of float32 sums: the standard model's tolerances.
+    d = (fused32 - plain32).abs()
+    if not (d.max().item() <= TOL_S4_F32_MAX
+            and d.mean().item() <= TOL_S4_F32_MEAN):
+        raise AssertionError(f"mobile S4/256 f32 kernels vs plain model: max "
+                             f"{d.max().item()}, mean {d.mean().item()}")
+    del peaked
+
+
+def predict_logits(model, x):
+    """The plain model's last-stack heatmaps before the sigmoid."""
+    name = f"hg{model.num_stacks - 1}_conv_1x1_predict"
+    conv, seen = model._conv, []
+
+    def spy(y, layer, activation="relu"):
+        if layer == name:
+            seen.append(conv(y, layer, "linear").float())
+        return conv(y, layer, activation)
+
+    model._conv = spy
+    try:
+        model(x)
+    finally:
+        del model._conv
+    return seen[0]
+
+
+def phase_mobile_times(report, model, card):
+    """Mobile S4/256 forward img/s (kernels and plain model, alternating),
+    the device idle share of 3 forwards of each, and #8-#10 each beside
+    its plain version."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models.fused_inference import (
+        fused_apply,
+        prepare_fused,
+    )
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        mobile_kernel as mk,
+    )
+
+    rng = np.random.default_rng(22)
+    fp = prepare_fused(model)
+    x = torch.from_numpy(rng.uniform(0, 1, (B_TIME, 256, 256, 3))
+                         .astype(np.float32)).cuda()
+    runs = {"kernels": lambda: fused_apply(fp, x, **MAIN_FLAGS)[-1],
+            "plain": lambda: model(x)[-1]}
+    times = {k: [] for k in runs}
+    with torch.inference_mode():
+        for fn in runs.values():
+            fn()
+        for i in range(10):
+            for name in (("plain", "kernels") if i % 2 else
+                         ("kernels", "plain")):
+                times[name].append(cuda_ms(runs[name], iters=1, warmup=0))
+        for name, ts in times.items():
+            med = statistics.median(ts)
+            log(f"mobile_times mobile S4/256 bf16 forward B={B_TIME} {name}: "
+                f"median {med:.2f} ms over {len(ts)} runs = "
+                f"{B_TIME / med * 1e3:.1f} img/s [{card}]")
+            report.setdefault("_mobile_forward", {})[name] = \
+                B_TIME / med * 1e3
+        for name, fn in runs.items():
+            span, busy, per, _ = device_trace(fn)
+            log(f"trace mobile S4/256 bf16 B={B_TIME} {name}: device span "
+                f"{span:.2f} ms/forward, busy {busy:.2f} ms, idle share "
+                f"{1 - busy / span:.4f} [{card}]")
+            top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+            for kname, (ms, n) in top:
+                log(f"  {ms:9.3f} ms/forward {ms / busy:6.1%} x{n:6.1f}  "
+                    f"{kname}")
+
+    dt = torch.bfloat16
+    p = mobile_params(rng, dt, "cuda")
+    p2 = mobile_params(rng, dt, "cuda")
+    x64 = nhwc(rng, B_TIME, 64, dt, "cuda")
+    x32 = nhwc(rng, B_TIME, 32, dt, "cuda")
+    cases = {
+        "fused_bottleneck_mobile": (
+            "64x64", lambda: mk.fused_bottleneck_mobile(x64, p),
+            lambda: mk.fused_bottleneck_mobile_plain(x64, p)),
+        "fused_bottleneck_mobile_pool": (
+            "32x32", lambda: mk.fused_bottleneck_mobile_pool(x32, p),
+            lambda: mk.fused_bottleneck_mobile_pool_plain(x32, p)),
+        "fused_uplevel_mobile": (
+            "64x64", lambda: mk.fused_uplevel_mobile(x64, x32, p, p2),
+            lambda: mk.fused_uplevel_mobile_plain(x64, x32, p, p2)),
+    }
+    bounds = mobile_bounds()
+    with torch.inference_mode():
+        for name, (shape, kern, plain) in cases.items():
+            ms = cuda_ms(kern, iters=5)
+            plain_ms = cuda_ms(plain, iters=5)
+            device_ms = kernel_device_ms(kern, name)
+            bms, by = bounds[name]
+            report.setdefault(name, {}).update(
+                ms=ms, plain_ms=plain_ms, device_ms=device_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+            log(f"times {name} bf16 B={B_TIME} {shape}: kernel {ms:.3f} ms "
+                f"({device_ms:.3f} ms on the device), plain {plain_ms:.3f} "
+                f"ms, bound {bms:.4f} ms ({by}) [{card}]")
+
+
+def phase_mobile_eval(report, cfg, val, card):
+    """One predict_ds pass of mobile S4/256 over phase 8's records, with
+    exact launch counts, predictions equal to the plain decode's."""
+    from single_person_pose_estimation_tpu_torch.data import pipeline
+    from single_person_pose_estimation_tpu_torch.evaluation import (
+        predict,
+    )
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        decode_kernel as dk,
+    )
+
+    model = build_s4_mobile(seed=3).to("cuda")
+
+    def one_pass():
+        with pipeline.DatasetBuilder(cfg) as b:
+            t0 = time.perf_counter()
+            preds = predict.predict_ds(model, None, b.get_ds_prediction(),
+                                       save_path=None)
+            return preds, time.perf_counter() - t0
+
+    one_pass()
+    kernels.reset_launch_counts()
+    fi.plain_routes.update(forward=0, level=0)
+    preds, elapsed = one_pass()
+    counts = kernels.launch_counts()
+    routes = dict(fi.plain_routes)
+    forwards = N_EVAL // B_TIME
+    want = dict.fromkeys(counts, 0)
+    want.update({k: v * forwards for k, v in MOBILE_PER_FORWARD.items()},
+                decode_batch=forwards)
+    log(f"mobile_eval: {len(preds)} predictions in {elapsed:.2f} s = "
+        f"{N_EVAL / elapsed:.1f} img/s; launches {counts} expected {want}; "
+        f"plain routes {routes} [{card}]")
+    if counts != want or any(routes.values()):
+        raise AssertionError(f"mobile eval: launches {counts} != {want} or "
+                             f"plain routes {routes}")
+    predict.decode_batch = dk.decode_batch_plain
+    try:
+        plain, plain_s = one_pass()
+    finally:
+        predict.decode_batch = dk.decode_batch
+    if plain != preds:
+        bad = sum(p != q for p, q in zip(plain, preds))
+        raise AssertionError(f"mobile eval: {bad} predictions differ from "
+                             f"the plain decode's")
+    log(f"mobile_eval: the pass with the plain decode took {plain_s:.2f} s; "
+        f"predictions equal")
+    check_predictions(preds, val, "mobile")
+    report["_mobile_eval"] = N_EVAL / elapsed
+    del model
 
 
 # ---------------------------------------------------------------------------
@@ -885,7 +1304,7 @@ def phase_eval(report):
         forwards = (N_EVAL // B_TIME) * (2 if flip else 1)
         want = {**{k: v * forwards for k, v in PER_FORWARD.items()},
                 "decode_batch": N_EVAL // B_TIME,
-                **{k: 0 for k in TRAIN_KERNELS}}
+                **{k: 0 for k in (*TRAIN_KERNELS, *MOBILE_KERNELS)}}
         label = "flip-TTA" if flip else "plain"
         log(f"eval {label}: {len(preds)} predictions in {elapsed:.2f} s; "
             f"launches {counts} expected {want}; plain routes {routes}")
@@ -922,7 +1341,7 @@ def phase_eval(report):
                 or len(pck) != K or not np.isfinite(pck).all():
             raise AssertionError(f"eval {label}: OKS {stats}, PCK {pck}")
     del state
-    return cfg
+    return cfg, val
 
 
 def check_predictions(preds, val, label):
@@ -1104,6 +1523,25 @@ def inference_bounds():
     }
 
 
+def mobile_bounds():
+    """Bounds of #8-#10 at phase_mobile_times' shapes (bf16, B=128): per
+    pixel three pointwise products and 9 depthwise taps (2 operations per
+    multiply-add), each input read once and each output written once."""
+    b, e = B_TIME, 2
+    w_mob = (C * CM + CM * CM + CM * C) * e + 9 * CM * 4 + (6 * CM + 3 * C) * 4
+    f_mob = lambda h: 2 * b * h * h * (C * CM + CM * CM + CM * C + 9 * CM)
+    act = lambda h: b * h * h * C * e
+    return {
+        "fused_bottleneck_mobile": bound(f_mob(64), 2 * act(64) + w_mob,
+                                         PEAK_BF16),
+        "fused_bottleneck_mobile_pool": bound(
+            f_mob(32), 2 * act(32) + act(16) + w_mob, PEAK_BF16),
+        "fused_uplevel_mobile": bound(2 * f_mob(64),
+                                      2 * act(64) + act(32) + 2 * w_mob,
+                                      PEAK_BF16),
+    }
+
+
 def warp_inputs(rng, device):
     """B_TRAIN images and draws that cover flips, scales that push samples
     off the edge (0.5-1.6) and the full rotation range."""
@@ -1276,7 +1714,7 @@ def phase_train(report):
     for r in rows:
         log(f"train epoch: loss {r['loss']:.5f} val_loss {r['val_loss']:.5f}")
     got = {n: counts[n] for n in TRAIN_KERNELS}
-    if got != want or any(counts[n] for n in (*PER_FORWARD,
+    if got != want or any(counts[n] for n in (*PER_FORWARD, *MOBILE_KERNELS,
                                               "decode_batch")):
         raise AssertionError(f"train launch counts {counts} != {want}")
     for n in TRAIN_KERNELS:
@@ -1498,10 +1936,19 @@ def main():
     phase_trace(model, card)
     del model
     torch.cuda.empty_cache()
+    phase_kernels(report, mobile_kernel_cases, seed=20)
+    phase_mobile_golden()
+    model = build_s4_mobile().to("cuda")
+    phase_mobile_slice(report, model)
+    phase_mobile_times(report, model, card)
+    del model
+    torch.cuda.empty_cache()
     try:
-        cfg = phase_eval(report)
+        cfg, val = phase_eval(report)
         torch.cuda.empty_cache()
         phase_eval_times(report, cfg, card)
+        torch.cuda.empty_cache()
+        phase_mobile_eval(report, cfg, val, card)
     finally:
         shutil.rmtree(EVAL_ROOT, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -1512,6 +1959,10 @@ def main():
         report[name].update(bound_ms=bms, bound_by=by, library_ms=None)
     log(json.dumps({"forward_img_per_s_b128_bf16": report.pop("_forward"),
                     "eval_img_per_s_b128_bf16": report.pop("_eval"),
+                    "mobile_forward_img_per_s_b128_bf16":
+                        report.pop("_mobile_forward"),
+                    "mobile_eval_img_per_s_b128_bf16":
+                        report.pop("_mobile_eval"),
                     "card": card}))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

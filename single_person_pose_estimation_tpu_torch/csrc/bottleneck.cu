@@ -39,7 +39,6 @@ bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                   T* __restrict__ pooled, const T* __restrict__ ulo,
                   int H, int W, int C, int Cm, int TH, int TW, int tiles_x) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  using V4 = typename Store<T>::V4;
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int HW2 = (TH + 2) * (TW + 2);  // halo pixels
   const int P = TH * TW;                 // output pixels
@@ -66,15 +65,7 @@ bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const int tid = threadIdx.x;
 
   // Phase 0: the x halo into shared memory, zeros outside the image.
-  const int C4 = C / 4;
-  for (int v = tid; v < HW2 * C4; v += kThreads) {
-    const int q = v / C4, c = (v % C4) * 4;
-    const int iy = ty0 - 1 + q / (TW + 2), ix = tx0 - 1 + q % (TW + 2);
-    V4 val{};
-    if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-      val = *reinterpret_cast<const V4*>(xb + ((size_t)iy * W + ix) * C + c);
-    *reinterpret_cast<V4*>(xs + q * C + c) = val;
-  }
+  load_region<T>(xs, xb, ty0 - 1, tx0 - 1, TH + 2, TW + 2, H, W, C);
   __syncthreads();
 
   // Phase 1: t1 on every halo pixel (N = Cm).
@@ -193,20 +184,7 @@ bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   if (MODE == kPool) {
     // Each block pools its own 2x2 windows: TH and TW are even.
     __syncthreads();
-    const int PW = TW / 2, Ho = H / 2, Wo = W / 2;
-    const int n_out = (TH / 2) * PW * C;
-    for (int v = tid; v < n_out; v += kThreads) {
-      const int n = v % C, q = v / C;
-      const int py = q / PW, px = q % PW;
-      const int gy = ty0 / 2 + py, gx = tx0 / 2 + px;
-      if (gy >= Ho || gx >= Wo) continue;
-      const int p00 = 2 * py * TW + 2 * px;
-      const float m = fmaxf(
-          fmaxf(Store<T>::to_f(outs[p00 * C + n]), Store<T>::to_f(outs[(p00 + 1) * C + n])),
-          fmaxf(Store<T>::to_f(outs[(p00 + TW) * C + n]),
-                Store<T>::to_f(outs[(p00 + TW + 1) * C + n])));
-      pooled[(((size_t)b * Ho + gy) * Wo + gx) * C + n] = Store<T>::from_f(m);
-    }
+    pool_tile<T>(outs, pooled, b, ty0, tx0, TH, TW, H, W, C);
   }
 }
 

@@ -83,6 +83,47 @@ __device__ __forceinline__ void zero_acc(float (&acc)[kNP][kNC]) {
     for (int j = 0; j < kNC; ++j) acc[i][j] = 0.f;
 }
 
+// Rows of C values of the LH x LW region whose top-left pixel is (y0, x0)
+// in an H x W image (xb, NHWC) into dst, zeros outside the image.
+template <typename T>
+__device__ __forceinline__ void load_region(T* dst, const T* __restrict__ xb,
+                                            int y0, int x0, int LH, int LW,
+                                            int H, int W, int C) {
+  using V4 = typename Store<T>::V4;
+  const int C4 = C / 4;
+  for (int v = threadIdx.x; v < LH * LW * C4; v += kThreads) {
+    const int q = v / C4, c = (v % C4) * 4;
+    const int iy = y0 + q / LW, ix = x0 + q % LW;
+    V4 val{};
+    if (iy >= 0 && iy < H && ix >= 0 && ix < W)
+      val = *reinterpret_cast<const V4*>(xb + ((size_t)iy * W + ix) * C + c);
+    *reinterpret_cast<V4*>(dst + (size_t)q * C + c) = val;
+  }
+}
+
+// The 2x2/s2 max pool of a TH x TW output tile held in shared memory (rows
+// of C) whose top-left pixel is (ty0, tx0), into image b of pooled
+// (H/2 x W/2). TH, TW, ty0 and tx0 are even.
+template <typename T>
+__device__ __forceinline__ void pool_tile(const T* tile, T* __restrict__ pooled,
+                                          int b, int ty0, int tx0, int TH,
+                                          int TW, int H, int W, int C) {
+  const int PW = TW / 2, Ho = H / 2, Wo = W / 2;
+  for (int v = threadIdx.x; v < (TH / 2) * PW * C; v += kThreads) {
+    const int n = v % C, q = v / C;
+    const int py = q / PW, px = q % PW;
+    const int gy = ty0 / 2 + py, gx = tx0 / 2 + px;
+    if (gy >= Ho || gx >= Wo) continue;
+    const int p00 = 2 * py * TW + 2 * px;
+    const float m = fmaxf(
+        fmaxf(Store<T>::to_f(tile[(size_t)p00 * C + n]),
+              Store<T>::to_f(tile[(size_t)(p00 + 1) * C + n])),
+        fmaxf(Store<T>::to_f(tile[(size_t)(p00 + TW) * C + n]),
+              Store<T>::to_f(tile[(size_t)(p00 + TW + 1) * C + n])));
+    pooled[(((size_t)b * Ho + gy) * Wo + gx) * C + n] = Store<T>::from_f(m);
+  }
+}
+
 // Shared memory above 48 KB must be opted into per kernel.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -4,8 +4,9 @@ The port's counterpart of the JAX package's `evaluation/predict.py`. The
 reference's predict_ds (eval.py:99-146) runs model.predict per batch, then
 decodes each example's heatmaps in a Python loop on the host. Here the
 forward (last stack only, eval.py:108, through the CUDA kernels of
-`models/fused_inference.py` on the card) and the decode (the CUDA decode
-kernel of `ops/cuda/decode_kernel.py`) both run on the device; the host
+`models/fused_inference.py` on the card, for the standard or the mobile
+model) and the decode (the CUDA decode kernel of
+`ops/cuda/decode_kernel.py`) both run on the device; the host
 only un-crops the (B, K, 3) keypoints into original-image coordinates
 (_undo_bbox, eval.py:153-158) and assembles the JSON records.
 

@@ -4,8 +4,9 @@ bottlenecks, up-levels and heads run by the hand-written CUDA kernels.
 The counterpart of the JAX package's `models/fused_inference.py`. It
 consumes the same weights as `models.hourglass.StackedHourglass` (through
 `prepare_fused`, which folds the BN affines and re-lays the weights once)
-and returns the same per-stack heatmaps. The front module, the maxpools
-outside the kernels and the upsample-add outside `fused_uplevel` are plain
+and returns the same per-stack heatmaps, for the standard model and for
+the mobile (separable-conv) one. The front module, the maxpools outside
+the kernels and the upsample-add outside the up-level kernels are plain
 PyTorch (cuDNN may run the front convs, as XLA ran them in the JAX
 package). Inference only.
 
@@ -13,19 +14,23 @@ For a CPU tensor every kernel wrapper runs its plain PyTorch version, so
 the CPU tests reach this module's routing; for a CUDA tensor each wrapper
 launches its kernel or raises.
 
-Not ported (they raise): `fuse_bottom`, `fuse_front`, `front_s2d` and
-`mobile` (ROADMAP Queue 1 items 13 and 17, Queue 2 items 6, 7 and 9).
+Not ported (they raise): `fuse_bottom`, `fuse_front` and `front_s2d`
+(ROADMAP Queue 1 item 17, Queue 2 items 7 and 9). Under `mobile` the
+first two are turned off, as the JAX package turns them off.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
-from single_person_pose_estimation_tpu_torch.models.hourglass import same_pad
+from single_person_pose_estimation_tpu_torch.models.hourglass import (
+    SeparableConv,
+    same_pad,
+)
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     BottleneckParams,
     bn_affine,
@@ -37,6 +42,13 @@ from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
 from single_person_pose_estimation_tpu_torch.ops.cuda.head_kernel import (
     HeadParams,
     fused_head,
+)
+from single_person_pose_estimation_tpu_torch.ops.cuda.mobile_kernel import (
+    MobileParams,
+    fused_bottleneck_mobile,
+    fused_bottleneck_mobile_pool,
+    fused_uplevel_mobile,
+    sepconv_params,
 )
 from single_person_pose_estimation_tpu_torch.ops.cuda.uplevel_kernel import (
     fused_uplevel,
@@ -51,9 +63,12 @@ _HG_BOTTLENECKS = (
 
 @dataclass
 class _Conv:
-    """A conv in the compute dtype, OIHW, for the plain (cuDNN) layers."""
+    """A conv in the compute dtype, OIHW, for the plain (cuDNN) layers;
+    `depthwise` (C, 1, k, k) is set for a separable (mobile) conv, whose
+    pointwise part is weight and bias."""
     weight: torch.Tensor
     bias: torch.Tensor
+    depthwise: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -62,15 +77,17 @@ class FusedParams:
 
     `convs` / `affines` hold every layer in the compute dtype for the plain
     layers (front, and levels above `fuse_max_h`); `bnecks` and `heads`
-    hold the kernels' layouts.
+    hold the kernels' layouts (`MobileParams` for a mobile model).
     """
 
     num_stacks: int
     num_channels: int
     compute_dtype: torch.dtype
+    mobile: bool = False
     convs: Dict[str, _Conv] = field(default_factory=dict)
     affines: Dict[str, tuple] = field(default_factory=dict)
-    bnecks: Dict[str, BottleneckParams] = field(default_factory=dict)
+    bnecks: Dict[str, Union[BottleneckParams, MobileParams]] = field(
+        default_factory=dict)
     heads: List[HeadParams] = field(default_factory=list)
 
 
@@ -81,13 +98,18 @@ def prepare_fused(model, dtype: Optional[torch.dtype] = None) -> FusedParams:
     compute dtype."""
     dt = dtype or model.compute_dtype
     dev = next(model.parameters()).device
-    out = FusedParams(model.num_stacks, model.num_channels, dt)
+    out = FusedParams(model.num_stacks, model.num_channels, dt,
+                      bool(model.mobile))
     f32 = dict(dtype=torch.float32, device=dev)
+    st = dict(dtype=dt, device=dev)
     for name, mod in model.named_children():
         if isinstance(mod, torch.nn.Conv2d):
-            out.convs[name] = _Conv(
-                mod.weight.detach().to(device=dev, dtype=dt),
-                mod.bias.detach().to(device=dev, dtype=dt))
+            out.convs[name] = _Conv(mod.weight.detach().to(**st),
+                                    mod.bias.detach().to(**st))
+        elif isinstance(mod, SeparableConv):
+            out.convs[name] = _Conv(mod.pointwise.weight.detach().to(**st),
+                                    mod.pointwise.bias.detach().to(**st),
+                                    mod.depthwise.weight.detach().to(**st))
         else:
             a, c = bn_affine(mod.weight.to(**f32), mod.bias.to(**f32),
                              mod.running_mean.to(**f32),
@@ -101,16 +123,25 @@ def prepare_fused(model, dtype: Optional[torch.dtype] = None) -> FusedParams:
     def b(name):
         return getattr(model, name).bias.to(**f32)
 
+    def affines(n):
+        return (*out.affines[n + "_conv_1x1_1_bn"],
+                *out.affines[n + "_conv_3x3_2_bn"],
+                *out.affines[n + "_conv_1x1_3_bn"])
+
     for i in range(model.num_stacks):
         for suffix in _HG_BOTTLENECKS:
             n = f"hg{i}_{suffix}"
-            out.bnecks[n] = BottleneckParams.pack(
-                w(n + "_conv_1x1_1"), b(n + "_conv_1x1_1"),
-                w(n + "_conv_3x3_2"), b(n + "_conv_3x3_2"),
-                w(n + "_conv_1x1_3"), b(n + "_conv_1x1_3"),
-                *out.affines[n + "_conv_1x1_1_bn"],
-                *out.affines[n + "_conv_3x3_2_bn"],
-                *out.affines[n + "_conv_1x1_3_bn"], dtype=dt, device=dev)
+            if out.mobile:
+                sep = lambda layer: sepconv_params(getattr(model, n + layer))
+                out.bnecks[n] = MobileParams.pack(
+                    *sep("_conv_1x1_1"), *sep("_conv_3x3_2"),
+                    *sep("_conv_1x1_3"), *affines(n), dtype=dt, device=dev)
+            else:
+                out.bnecks[n] = BottleneckParams.pack(
+                    w(n + "_conv_1x1_1"), b(n + "_conv_1x1_1"),
+                    w(n + "_conv_3x3_2"), b(n + "_conv_3x3_2"),
+                    w(n + "_conv_1x1_3"), b(n + "_conv_1x1_3"),
+                    *affines(n), dtype=dt, device=dev)
         hg = f"hg{i}"
         glue = {}
         if i < model.num_stacks - 1:
@@ -133,6 +164,9 @@ def _conv(fp: FusedParams, x, name, stride=1):
     cv = fp.convs[name]
     k = cv.weight.shape[-1]
     xc = x.permute(0, 3, 1, 2)
+    if cv.depthwise is not None:    # separable: depthwise, then pointwise
+        kd = cv.depthwise.shape[-1]
+        xc = F.conv2d(xc, cv.depthwise, padding=kd // 2, groups=xc.shape[1])
     if stride == 2:
         ph, pw = (same_pad(n, k, 2) for n in xc.shape[2:])
         y = F.conv2d(F.pad(xc, (*pw, *ph)), cv.weight, cv.bias, stride=2)
@@ -188,8 +222,7 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
                 fuse_levels: bool = False, pool_fuse_max_h: int = 0,
                 fuse_heads: bool = False, fuse_bottom: int = 0,
                 fuse_front: bool = False, front_s2d: bool = False,
-                fuse_max_h: int = 64, mobile: bool = False
-                ) -> List[torch.Tensor]:
+                fuse_max_h: int = 64) -> List[torch.Tensor]:
     """Counterpart of `model(images)` with the kernels on the hourglasses.
 
     images (B, H, W, 3) on the device of fp's weights. Returns per-stack
@@ -202,10 +235,13 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
     not a fallback on error; each such bottleneck adds one to
     `plain_routes["level"]`. The main path (256 px input, fuse_max_h=64)
     never takes it.
+    For fp prepared from a mobile model (`fp.mobile`, the JAX function's
+    `mobile=True`) the bottlenecks, pools and up-levels run the mobile
+    kernels (`ops/cuda/mobile_kernel.py`), the heads the same `fused_head`,
+    and fuse_bottom and fuse_front are turned off.
     """
-    if mobile:
-        raise NotImplementedError("mobile is not ported yet (ROADMAP "
-                                  "Queue 1 item 13, Queue 2 item 6)")
+    if fp.mobile:
+        fuse_bottom, fuse_front = 0, False
     if front_s2d:
         raise NotImplementedError("front_s2d is not ported yet (ROADMAP "
                                   "Queue 1 item 17)")
@@ -222,11 +258,19 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
     x = images.to(fp.compute_dtype)
     y = _front(fp, x).contiguous()
 
+    if fp.mobile:
+        k_bneck, k_pool, k_uplevel = (fused_bottleneck_mobile,
+                                      fused_bottleneck_mobile_pool,
+                                      fused_uplevel_mobile)
+    else:
+        k_bneck, k_pool, k_uplevel = (fused_bottleneck, fused_bottleneck_pool,
+                                      fused_uplevel)
+
     def bneck(x, name):
         if x.shape[1] > fuse_max_h:
             plain_routes["level"] += 1
             return _bottleneck_plain(fp, x, name, c)
-        return fused_bottleneck(x, fp.bnecks[name])
+        return k_bneck(x, fp.bnecks[name])
 
     def down(x, name):
         if x.shape[1] > fuse_max_h:
@@ -234,7 +278,7 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
             out = _bottleneck_plain(fp, x, name, c)
             return out, maxpool2x2(out)
         if x.shape[1] <= pool_fuse_max_h:
-            return fused_bottleneck_pool(x, fp.bnecks[name])
+            return k_pool(x, fp.bnecks[name])
         out = bneck(x, name)
         return out, maxpool2x2(out)
 
@@ -253,7 +297,7 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
             short = f"{name}_upsample_{lvl}_short"
             merged = f"{name}_upsample_{lvl}_merged"
             if fuse_levels and feat.shape[1] <= fuse_max_h:
-                u = fused_uplevel(feat, u, fp.bnecks[short], fp.bnecks[merged])
+                u = k_uplevel(feat, u, fp.bnecks[short], fp.bnecks[merged])
             else:
                 d = bneck(feat, short)
                 u = bneck((d + upsample2x(u)).contiguous(), merged)

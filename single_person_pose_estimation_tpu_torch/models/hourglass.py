@@ -1,11 +1,12 @@
 """Stacked Hourglass Network (Newell et al., arXiv:1603.06937) in PyTorch.
 
 The plain counterpart of the JAX package's `models/hourglass.py`
-`StackedHourglass.apply(..., train=...)`, standard variant only. Child
-modules carry the flax names (`front_conv_1x1_1`,
-`hg0_downsample_f1_conv_1x1_1_bn`, ...), so `utils/weight_convert.py` maps
-variables one to one. The public layout is NHWC in and NHWC out with float32
-heatmaps, as in the JAX package; inside, the convs run NCHW.
+`StackedHourglass.apply(..., train=...)`, standard and mobile variants.
+Child modules carry the flax names (`front_conv_1x1_1`,
+`hg0_downsample_f1_conv_1x1_1_bn`, a mobile layer's `depthwise` and
+`pointwise`, ...), so `utils/weight_convert.py` maps variables one to
+one. The public layout is NHWC in and NHWC out with float32 heatmaps, as
+in the JAX package; inside, the convs run NCHW.
 
 Reference details kept:
   * each conv is followed by ReLU and then BatchNorm (eps 1e-3), the
@@ -16,6 +17,12 @@ Reference details kept:
     13,784,260 parameters (BN running statistics included, as Keras counts);
   * the sigmoid runs in float32; upsampling is nearest 2x;
   * H and W must be divisible by 64;
+  * `mobile=True` swaps every bottleneck conv, the front bottlenecks'
+    `_skip` convs included, for a `SeparableConv` (a depthwise conv with
+    no bias, then a 1x1 pointwise conv with a bias); the 7x7 front conv
+    and the heads stay plain convs. Mobile S4/256 counts 5,818,564
+    parameters. Only the JAX package's default "conv" depthwise lowering
+    is ported (its `mobile_depthwise` dials are not);
   * train-mode BatchNorm is flax's `nn.BatchNorm`, computed here by hand:
     batch mean and variance in float32 with the variance as E[x^2]-E[x]^2
     (biased, clipped at 0), normalise with that variance, and update the
@@ -46,34 +53,38 @@ def same_pad(n: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
-def bottleneck_specs(name: str, cin: int, cout: int):
-    """(child name, kind, in, out, kernel) of one reference bottleneck."""
+def bottleneck_specs(name: str, cin: int, cout: int, mobile: bool = False):
+    """(child name, kind, in, out, kernel) of one reference bottleneck;
+    kind is "conv", "sep" (a SeparableConv, mobile) or "bn"."""
+    kind = "sep" if mobile else "conv"
     specs = []
     if cin != cout:
-        specs.append((name + "_skip", "conv", cin, cout, 1))
+        specs.append((name + "_skip", kind, cin, cout, 1))
     half = cout // 2
     for suffix, ci, co, k in (("_conv_1x1_1", cin, half, 1),
                               ("_conv_3x3_2", half, half, 3),
                               ("_conv_1x1_3", half, cout, 1)):
-        specs.append((name + suffix, "conv", ci, co, k))
+        specs.append((name + suffix, kind, ci, co, k))
         specs.append((name + suffix + "_bn", "bn", co, co, 0))
     return specs
 
 
-def hourglass_specs(num_stacks: int, c: int, num_classes: int):
-    """Every child layer of the standard model, in flax creation order."""
+def hourglass_specs(num_stacks: int, c: int, num_classes: int,
+                    mobile: bool = False):
+    """Every child layer of the model, in flax creation order."""
     specs = [("front_conv_1x1_1", "conv", 3, 64, 7),
              ("front_conv_1x1_1_bn", "bn", 64, 64, 0)]
-    specs += bottleneck_specs("front_bottleneck_1", 64, c // 2)
-    specs += bottleneck_specs("front_bottleneck_2", c // 2, c // 2)
-    specs += bottleneck_specs("front_bottleneck_3", c // 2, c)
+    bneck = lambda name, ci, co: bottleneck_specs(name, ci, co, mobile)
+    specs += bneck("front_bottleneck_1", 64, c // 2)
+    specs += bneck("front_bottleneck_2", c // 2, c // 2)
+    specs += bneck("front_bottleneck_3", c // 2, c)
     for i in range(num_stacks):
         hg = f"hg{i}"
         for lvl in ("f1", "f2", "f4", "f8", "f8_1", "f8_2", "f8_3"):
-            specs += bottleneck_specs(f"{hg}_downsample_{lvl}", c, c)
+            specs += bneck(f"{hg}_downsample_{lvl}", c, c)
         for lvl in ("f8", "f4", "f2", "f1"):
-            specs += bottleneck_specs(f"{hg}_upsample_{lvl}_short", c, c)
-            specs += bottleneck_specs(f"{hg}_upsample_{lvl}_merged", c, c)
+            specs += bneck(f"{hg}_upsample_{lvl}_short", c, c)
+            specs += bneck(f"{hg}_upsample_{lvl}_merged", c, c)
         specs += [(hg + "_conv_1x1_1", "conv", c, c, 1),
                   (hg + "_conv_1x1_1_bn", "bn", c, c, 0),
                   (hg + "_conv_1x1_predict", "conv", c, num_classes, 1)]
@@ -81,6 +92,17 @@ def hourglass_specs(num_stacks: int, c: int, num_classes: int):
             specs += [(hg + "_conv_1x1_2", "conv", c, c, 1),
                       (hg + "_conv_1x1_3", "conv", num_classes, c, 1)]
     return specs
+
+
+class SeparableConv(nn.Module):
+    """flax `SeparableConv` (Keras SeparableConv2D): a k x k depthwise conv
+    (`groups=C`, no bias) then a 1x1 pointwise conv with a bias."""
+
+    def __init__(self, cin: int, cout: int, k: int):
+        super().__init__()
+        self.depthwise = nn.Conv2d(cin, cin, k, padding=k // 2, groups=cin,
+                                   bias=False)
+        self.pointwise = nn.Conv2d(cin, cout, 1)
 
 
 class StackedHourglass(nn.Module):
@@ -92,9 +114,6 @@ class StackedHourglass(nn.Module):
                  mobile: bool = False, front_s2d: bool = False,
                  remat=False, bn_momentum: float = 0.99):
         super().__init__()
-        if mobile:
-            raise NotImplementedError(
-                "mobile=True is not ported yet (ROADMAP Queue 1 item 13)")
         if front_s2d or remat:
             raise NotImplementedError(
                 "front_s2d and remat are not ported yet (ROADMAP Queue 1 "
@@ -102,13 +121,16 @@ class StackedHourglass(nn.Module):
         self.num_classes = num_classes
         self.num_stacks = num_stacks
         self.num_channels = num_channels
+        self.mobile = mobile
         self.compute_dtype = compute_dtype
         self.bn_momentum = bn_momentum
         for name, kind, cin, cout, k in hourglass_specs(
-                num_stacks, num_channels, num_classes):
+                num_stacks, num_channels, num_classes, mobile):
             if kind == "conv":
                 self.add_module(name, nn.Conv2d(cin, cout, k,
                                                 stride=2 if k == 7 else 1))
+            elif kind == "sep":
+                self.add_module(name, SeparableConv(cin, cout, k))
             else:
                 self.add_module(name, nn.BatchNorm2d(cout, eps=_BN_EPS))
         self.eval()
@@ -123,6 +145,10 @@ class StackedHourglass(nn.Module):
     def _conv(self, x, name, activation="relu"):
         conv = getattr(self, name)
         dt = self.compute_dtype
+        if isinstance(conv, SeparableConv):     # depthwise, then pointwise
+            dw = conv.depthwise.weight.to(dt)
+            x = F.conv2d(x, dw, padding=dw.shape[-1] // 2, groups=x.shape[1])
+            conv = conv.pointwise
         w = conv.weight.to(dt)
         k = w.shape[-1]
         if k == 7:

@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels of the inference, evaluation and training
-paths, each with its plain PyTorch version beside it (see each module's
-docstring)."""
+"""Hand-written CUDA kernels of the inference (standard and mobile),
+evaluation and training paths, each with its plain PyTorch version beside
+it (see each module's docstring)."""
 
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     fused_bottleneck,
@@ -14,6 +14,11 @@ from single_person_pose_estimation_tpu_torch.ops.cuda.head_kernel import (
 )
 from single_person_pose_estimation_tpu_torch.ops.cuda.heatmap_kernel import (
     render_heatmaps_batch,
+)
+from single_person_pose_estimation_tpu_torch.ops.cuda.mobile_kernel import (
+    fused_bottleneck_mobile,
+    fused_bottleneck_mobile_pool,
+    fused_uplevel_mobile,
 )
 from single_person_pose_estimation_tpu_torch.ops.cuda.uplevel_kernel import (
     fused_uplevel,
@@ -31,6 +36,9 @@ KERNEL_WRAPPERS = {
     "resample_last_axis": resample_last_axis,
     "render_heatmaps_batch": render_heatmaps_batch,
     "decode_batch": decode_batch,
+    "fused_bottleneck_mobile": fused_bottleneck_mobile,
+    "fused_bottleneck_mobile_pool": fused_bottleneck_mobile_pool,
+    "fused_uplevel_mobile": fused_uplevel_mobile,
 }
 
 

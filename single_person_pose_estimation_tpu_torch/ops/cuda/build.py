@@ -45,6 +45,9 @@ _SIGNATURES = {
     "spe_heatmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # img, params, out, B, C, L, K, stream
     "spe_resample": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # mode, bf16, x, ulo, w1, d2, w2, w3, vec, out, pooled, B, H, W, C, Cm,
+    # stream
+    "spe_mobile": [_I, _I] + [_P] * 9 + [_I] * 5 + [_P],
     # heatmaps, out, B, H, W, K, threshold, legacy, stream
     "spe_decode": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
 }

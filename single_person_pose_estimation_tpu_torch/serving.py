@@ -6,7 +6,9 @@ same API: callers `submit` single images from any thread and get a Future;
 a batcher thread drains the queue, pads each micro-batch to a bucket size
 of an ascending ladder, runs one step (forward to the last stack's heatmaps,
 then decode) on the device and hands the result to a resolver thread,
-which copies it to the host and resolves the futures.
+which copies it to the host and resolves the futures. The model is the
+standard stacked hourglass or the mobile (separable-conv) one; the
+forward takes each through its own kernels.
 
 - The batcher admits at most `max_batch` requests per step and waits at
   most `max_wait_s` for stragglers.
@@ -60,8 +62,8 @@ class PoseServer:
     """Micro-batching inference server for the stacked hourglass.
 
     Args:
-      model: a port StackedHourglass holding its weights; it is moved to
-        `device`.
+      model: a port StackedHourglass (standard or mobile=True) holding its
+        weights; it is moved to `device`.
       device: "cuda", "cuda:N" or "cpu"; required.
       buckets: ascending micro-batch sizes; a batch of n pads to the
         smallest bucket >= n. The largest bucket is max_batch.

@@ -7,6 +7,9 @@ or the flat `var/params/<layer>/<leaf>` keys of the golden fixtures
 
   conv  kernel (kh, kw, in, out) HWIO -> weight (out, in, kh, kw) OIHW
         bias                           -> bias
+  separable (mobile) depthwise/kernel (k, k, 1, C) -> depthwise.weight
+        (C, 1, k, k); pointwise/kernel (1, 1, C, out) -> pointwise.weight
+        (out, C, 1, 1); pointwise/bias -> pointwise.bias
   BN    scale / bias                   -> weight / bias
         mean / var (batch_stats)       -> running_mean / running_var
 
@@ -45,6 +48,15 @@ def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
     return out
 
 
+def _conv_entries(sd: dict, prefix: str, leaves: Mapping):
+    k = np.asarray(leaves["kernel"], np.float32)
+    sd[f"{prefix}.weight"] = torch.from_numpy(
+        np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    if "bias" in leaves:
+        sd[f"{prefix}.bias"] = torch.from_numpy(
+            np.asarray(leaves["bias"], np.float32).copy())
+
+
 def to_state_dict(variables: Mapping) -> dict:
     """Flax variables (nested or flat fixture keys) -> torch state_dict."""
     if "params" not in variables:
@@ -54,11 +66,10 @@ def to_state_dict(variables: Mapping) -> dict:
     sd = {}
     for layer, leaves in params.items():
         if "kernel" in leaves:
-            k = np.asarray(leaves["kernel"], np.float32)
-            sd[f"{layer}.weight"] = torch.from_numpy(
-                np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
-            sd[f"{layer}.bias"] = torch.from_numpy(
-                np.asarray(leaves["bias"], np.float32).copy())
+            _conv_entries(sd, layer, leaves)
+        elif set(leaves) == {"depthwise", "pointwise"}:
+            _conv_entries(sd, f"{layer}.depthwise", leaves["depthwise"])
+            _conv_entries(sd, f"{layer}.pointwise", leaves["pointwise"])
         elif "scale" in leaves:
             sd[f"{layer}.weight"] = torch.from_numpy(
                 np.asarray(leaves["scale"], np.float32).copy())
@@ -72,8 +83,7 @@ def to_state_dict(variables: Mapping) -> dict:
                     np.asarray(st["var"], np.float32).copy())
         else:
             raise ValueError(f"unsupported layer {layer!r}: leaves "
-                             f"{sorted(leaves)} (mobile separable convs are "
-                             "not ported yet, ROADMAP Queue 1 item 13)")
+                             f"{sorted(leaves)}")
     return sd
 
 
@@ -97,23 +107,40 @@ def load_train_state(model: torch.nn.Module, state):
 
 
 def init_variables(num_stacks: int, num_channels: int, seed: int = 0,
-                   num_classes: int = 17) -> dict:
-    """Flax-layout variables of the standard model, made with numpy.
+                   num_classes: int = 17, mobile: bool = False) -> dict:
+    """Flax-layout variables of the standard (or mobile) model, made with
+    numpy: test data, for both packages to load.
 
     Conv kernels are glorot-uniform and biases zero, as flax initialises
     the JAX model; BN scale is 1 and bias 0; the running mean and variance
-    are drawn uniformly from [0.5, 1.5] so the BN fold is exercised.
+    are drawn uniformly from [0.5, 1.5] so the BN fold is exercised. A
+    separable conv's pointwise kernel is a 1x1 conv's. Its depthwise kernel
+    (k, k, 1, C) is NOT drawn as flax draws it: it is glorot-uniform per
+    channel (fan-in and fan-out k*k). Flax's glorot counts fan-out k*k*C,
+    which draws the 1x1 depthwise scales within +-0.15 at C=256 and
+    shrinks every bottleneck's share of the residual stream; a random
+    mobile S4/256 drawn that way puts out last-stack heatmap channels that
+    are each a constant 0 or 1.
     """
     rng = np.random.default_rng(seed)
+
+    def glorot(k, cin, cout):
+        lim = np.sqrt(6.0 / (k * k * (cin + cout)))
+        return rng.uniform(-lim, lim, (k, k, cin, cout)).astype(np.float32)
+
     params, stats = {}, {}
     for name, kind, cin, cout, k in hourglass_specs(num_stacks, num_channels,
-                                                    num_classes):
+                                                    num_classes, mobile):
         if kind == "conv":
-            lim = np.sqrt(6.0 / (k * k * (cin + cout)))
+            params[name] = {"kernel": glorot(k, cin, cout),
+                            "bias": np.zeros(cout, np.float32)}
+        elif kind == "sep":
+            lim = np.sqrt(3.0 / (k * k))
             params[name] = {
-                "kernel": rng.uniform(-lim, lim, (k, k, cin, cout))
-                             .astype(np.float32),
-                "bias": np.zeros(cout, np.float32)}
+                "depthwise": {"kernel": rng.uniform(-lim, lim, (k, k, 1, cin))
+                                           .astype(np.float32)},
+                "pointwise": {"kernel": glorot(1, cin, cout),
+                              "bias": np.zeros(cout, np.float32)}}
         else:
             params[name] = {"scale": np.ones(cout, np.float32),
                             "bias": np.zeros(cout, np.float32)}

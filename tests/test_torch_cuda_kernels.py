@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the inference kernels at every main-path shape at batch 2, float32
-(TF32 off) and bfloat16, the training kernels (warp, heatmap) at the
-train step's batch 64, at chip_smoke.py's tolerances, and the decode
-kernel at batch 12, legacy and corrected, exactly. Skips on a host without
-a card."""
+card: the inference kernels (standard and mobile) at every main-path
+shape at batch 2, float32 (TF32 off) and bfloat16, the training kernels
+(warp, heatmap) at the train step's batch 64, at chip_smoke.py's
+tolerances, and the decode kernel at batch 12, legacy and corrected,
+exactly. Skips on a host without a card."""
 
 import numpy as np
 import pytest
@@ -27,11 +27,8 @@ def card():
         tf32
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernels_match_plain_versions_on_card(card, dtype):
-    dt = getattr(torch, dtype)
-    rng = np.random.default_rng(0)
-    for label, _, kern, plain in chip_smoke.kernel_cases(rng, dt, "cuda", 2):
+def _hold_cases(cases, dt):
+    for label, _, kern, plain in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -42,6 +39,22 @@ def test_kernels_match_plain_versions_on_card(card, dtype):
             assert g.shape == w.shape and g.dtype == w.dtype, label
             err, ok = chip_smoke.max_err(g, w, dt)
             assert ok, (label, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_match_plain_versions_on_card(card, dtype):
+    dt = getattr(torch, dtype)
+    _hold_cases(chip_smoke.kernel_cases(np.random.default_rng(0), dt, "cuda",
+                                        2), dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mobile_kernels_match_plain_versions_on_card(card, dtype):
+    """#8 at 64 and 4 px, #9 at 32, 16 and 8 px, #10 at 64, 32, 16 and
+    8 px."""
+    dt = getattr(torch, dtype)
+    _hold_cases(chip_smoke.mobile_kernel_cases(np.random.default_rng(1), dt,
+                                               "cuda", 2), dt)
 
 
 def test_training_kernels_match_plain_versions_on_card(card):

@@ -100,7 +100,7 @@ def test_other_routings_match_plain_model(case, flags):
 def test_unported_dials_raise(case):
     _, x, _, model = case
     fp = prepare_fused(model)
-    for flag in ("fuse_bottom", "fuse_front", "front_s2d", "mobile"):
+    for flag in ("fuse_bottom", "fuse_front", "front_s2d"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fused_apply(fp, torch.from_numpy(x), **{flag: 1})
 

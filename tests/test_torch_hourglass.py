@@ -93,7 +93,7 @@ def test_input_not_divisible_by_64_raises():
 
 
 def test_unported_variants_raise():
-    for kw in (dict(mobile=True), dict(front_s2d=True), dict(remat=True)):
+    for kw in (dict(front_s2d=True), dict(remat=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             StackedHourglass(num_stacks=1, num_channels=16, **kw)
 

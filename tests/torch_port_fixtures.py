@@ -18,12 +18,14 @@ from single_person_pose_estimation_tpu_torch.utils.weight_convert import (
 )
 
 
-def random_variables(num_stacks, num_channels, seed=0):
+def random_variables(num_stacks, num_channels, seed=0, mobile=False):
     """init_variables plus random conv biases and BN scales/shifts, so
-    every bias and affine of the reference is exercised."""
-    v = init_variables(num_stacks, num_channels, seed=seed)
+    every bias and affine of the reference is exercised (a separable
+    conv's bias is its pointwise one)."""
+    v = init_variables(num_stacks, num_channels, seed=seed, mobile=mobile)
     rng = np.random.default_rng(seed + 1)
     for leaves in v["params"].values():
+        leaves = leaves.get("pointwise", leaves)
         n = leaves["bias"].shape
         leaves["bias"] = rng.uniform(-.1, .1, n).astype(np.float32)
         if "scale" in leaves:
@@ -37,9 +39,9 @@ def images(b, size=64, seed=2):
 
 
 def torch_model(variables, num_stacks, num_channels,
-                compute_dtype=torch.float32):
+                compute_dtype=torch.float32, mobile=False):
     m = StackedHourglass(num_stacks=num_stacks, num_channels=num_channels,
-                         compute_dtype=compute_dtype)
+                         compute_dtype=compute_dtype, mobile=mobile)
     return load_variables(m, variables)
 
 
@@ -82,13 +84,14 @@ def make_spot_coco(root, split="val2017", n_images=4, seed=2, sigma=4.0):
     return ann_file
 
 
-def peaked_variables(num_stacks=1, num_channels=16, seed=2, scale=0.04):
+def peaked_variables(num_stacks=1, num_channels=16, seed=2, scale=0.04,
+                     mobile=False):
     """random_variables with the last stack's predict kernel made
     non-negative and scaled down: the sigmoid stays clear of saturation
     (no ties at 1.0), and on make_spot_coco's crops every channel's
     maximum leads its runner-up by more than 1e-4 (tests/
     test_torch_predict.py asserts it)."""
-    v = random_variables(num_stacks, num_channels, seed=seed)
+    v = random_variables(num_stacks, num_channels, seed=seed, mobile=mobile)
     p = v["params"][f"hg{num_stacks - 1}_conv_1x1_predict"]
     p["kernel"] = np.abs(p["kernel"]) * scale
     return v
