@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths through its ten hand-written CUDA kernels and
+Drives the port's paths through its sixteen hand-written CUDA kernels and
 checks every phase: single-crop inference with the S4/256 model served
 by `PoseServer` (four kernels and the decode kernel), the same with the
 mobile S4/256 model (the three mobile kernels, the head kernel and the
 decode kernel), evaluation from TFRecords by `predict_ds` (standard and
-mobile), and S4/256 training by `Trainer` (the warp and heatmap kernels).
+mobile), S4/256 training by `Trainer` (the warp and heatmap kernels), and
+S4/256 training with `model_backend="fused"` (the six train-unit kernels).
 It imports nothing of JAX or of the JAX package. Phases, each raising on
 failure:
 
@@ -72,7 +73,23 @@ failure:
    targets, fwd+bwd+Adam), a torch.profiler trace of two train steps
    (busy, span, idle share, top kernels), the warp on each backend, and
    each training kernel beside its plain version (per call, and on the
-   device alone).
+   device alone);
+13. fused_train_kernels: the six train-unit kernels (#14a-f) against their
+   plain versions at batch 8, C=256, Cm=128, at every level (64, 32, 16,
+   8, 4 px), float32 and bfloat16, each run twice for the same bits; at
+   64 px the cuda bottleneck backend against the plain one (forward,
+   backward on the same residuals, and end to end through autograd);
+14. fused_train: S4/256 bf16 at batch 64 through
+   `make_train_step(model_backend="fused")`, 3 augmented steps with finite
+   losses and exact launch counts (per step 120/60/60/60/60/60 calls of
+   #14a-f times each wrapper's launches per call, 2 warp, 1 heatmap, every
+   other kernel 0); 20 steps on one fixed batch must bring the loss down;
+   at float32 and batch 16 one fused step against one default step from
+   the same state (loss, grads, running statistics);
+15. fused_train_times: the fused step against the default step (median of
+   5 runs of 2 steps, alternating), the fused step's device busy time and
+   idle share, and #14a-f at the 64 px shapes of batch 64 beside their
+   plain versions, bounds and a library yardstick the port never calls.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -81,6 +98,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import os
 import shutil
@@ -133,6 +151,12 @@ REPLACES = {
         "single_person_pose_estimation_tpu/ops/pallas/mobile_kernel.py:154",
     "fused_uplevel_mobile":
         "single_person_pose_estimation_tpu/ops/pallas/mobile_kernel.py:189",
+    **{name: "single_person_pose_estimation_tpu/experimental/"
+             f"bottleneck_train_kernel.py:{line}"
+       for name, line in (("conv1x1_relu_stats", 72),
+                          ("conv3x3_relu_stats", 144),
+                          ("bn_bwd_reduce", 219), ("unit1x1_bwd", 286),
+                          ("unit3x3_bwd", 373), ("unit1_bwd", 433))},
 }
 SOURCES = {
     "fused_bottleneck": "single_person_pose_estimation_tpu_torch/csrc/bottleneck.cu",
@@ -146,6 +170,11 @@ SOURCES = {
     **dict.fromkeys(("fused_bottleneck_mobile", "fused_bottleneck_mobile_pool",
                      "fused_uplevel_mobile"),
                     "single_person_pose_estimation_tpu_torch/csrc/mobile.cu"),
+    **dict.fromkeys(("conv1x1_relu_stats", "conv3x3_relu_stats",
+                     "bn_bwd_reduce", "unit1x1_bwd", "unit3x3_bwd",
+                     "unit1_bwd"),
+                    "single_person_pose_estimation_tpu_torch/csrc/"
+                    "bottleneck_train.cu"),
 }
 
 
@@ -506,8 +535,8 @@ def phase_slice(report, model):
     want = {**{n: v * forwards for n, v in PER_FORWARD.items()},
             "decode_batch": forwards}
     log(f"slice launches: {all_counts} expected {want}")
-    if counts != want or any(all_counts[n] for n in (*TRAIN_KERNELS,
-                                                     *MOBILE_KERNELS)):
+    if counts != want or any(all_counts[n] for n in (
+            *TRAIN_KERNELS, *MOBILE_KERNELS, *FUSED_KERNELS)):
         raise AssertionError(f"launch counts {all_counts} != {want}")
     for name in PER_FORWARD:
         report.setdefault(name, {})["launches"] = counts[name]
@@ -1304,7 +1333,8 @@ def phase_eval(report):
         forwards = (N_EVAL // B_TIME) * (2 if flip else 1)
         want = {**{k: v * forwards for k, v in PER_FORWARD.items()},
                 "decode_batch": N_EVAL // B_TIME,
-                **{k: 0 for k in (*TRAIN_KERNELS, *MOBILE_KERNELS)}}
+                **{k: 0 for k in (*TRAIN_KERNELS, *MOBILE_KERNELS,
+                                  *FUSED_KERNELS)}}
         label = "flip-TTA" if flip else "plain"
         log(f"eval {label}: {len(preds)} predictions in {elapsed:.2f} s; "
             f"launches {counts} expected {want}; plain routes {routes}")
@@ -1542,6 +1572,29 @@ def mobile_bounds():
     }
 
 
+def offpath_bounds():
+    """Bounds of the kernels still to port (#5-#7), bf16 at B=128, at the
+    shapes their dials run: #5 a 128 px map at C=256 (inputs above 256
+    px); #6 front_bottleneck_3 at 64 px, 128 -> 256 channels with a 1x1
+    conv skip (the one channel-changing bottleneck `fuse_front` fuses);
+    #7 `fuse_bottom` at depth 2, the 9 bottlenecks of the 16, 8 and 4 px
+    levels in one launch (the 16 px map in and out, 9 weight sets)."""
+    b, e = B_TIME, 2
+    macs = C * CM + 9 * CM * CM + CM * C          # one bottleneck, a pixel
+    w = macs * e
+    px = lambda h: b * h * h
+    half = C // 2                                   # #6: 128 -> 256
+    macs6 = half * C + half * half + 9 * half * half + half * C
+    return {
+        "fused_bottleneck_rows": bound(2 * macs * px(128),
+                                       2 * px(128) * C * e + w, PEAK_BF16),
+        "fused_bottleneck_convskip": bound(
+            2 * macs6 * px(64), px(64) * (half + C) * e + macs6 * e,
+            PEAK_BF16),
+        "fused_bottom": bound(2 * macs * 3 * (px(16) + px(8) + px(4)),
+                              2 * px(16) * C * e + 9 * w, PEAK_BF16),
+    }
+
 def warp_inputs(rng, device):
     """B_TRAIN images and draws that cover flips, scales that push samples
     off the edge (0.5-1.6) and the full rotation range."""
@@ -1628,15 +1681,15 @@ def phase_train_kernels(report):
                              "versions: " + "; ".join(failures))
 
 
-def train_config(root):
+def train_config(root, stacks=4):
     from single_person_pose_estimation_tpu_torch import Config
 
-    return Config(hg_num_stacks=4, hg_num_channels=C, batch_size=B_TRAIN,
-                  compute_dtype="bfloat16", temporary_dir=root,
-                  augment_backend="auto", seed=0)
+    return Config(hg_num_stacks=stacks, hg_num_channels=C,
+                  batch_size=B_TRAIN, compute_dtype="bfloat16",
+                  temporary_dir=root, augment_backend="auto", seed=0)
 
 
-def build_s4_train(seed=0):
+def build_s4_train(seed=0, stacks=4):
     import torch
 
     from single_person_pose_estimation_tpu_torch.models.hourglass import (
@@ -1647,9 +1700,9 @@ def build_s4_train(seed=0):
         load_variables,
     )
 
-    model = StackedHourglass(num_stacks=4, num_channels=C,
+    model = StackedHourglass(num_stacks=stacks, num_channels=C,
                              compute_dtype=torch.bfloat16)
-    return load_variables(model, init_variables(4, C, seed=seed))
+    return load_variables(model, init_variables(stacks, C, seed=seed))
 
 
 def phase_train(report):
@@ -1715,6 +1768,7 @@ def phase_train(report):
         log(f"train epoch: loss {r['loss']:.5f} val_loss {r['val_loss']:.5f}")
     got = {n: counts[n] for n in TRAIN_KERNELS}
     if got != want or any(counts[n] for n in (*PER_FORWARD, *MOBILE_KERNELS,
+                                              *FUSED_KERNELS,
                                               "decode_batch")):
         raise AssertionError(f"train launch counts {counts} != {want}")
     for n in TRAIN_KERNELS:
@@ -1909,6 +1963,549 @@ def heatmap_bound(kx, ky, kv, height=64, width=64, sigma=1.0):
     return bound(5 * n + 5 * in_window, 4 * n + 12 * kx.numel(), PEAK_F32)
 
 
+# ---------------------------------------------------------------------------
+# Fused training: the six train-unit kernels (#14a-f) and the fused step.
+# ---------------------------------------------------------------------------
+
+FUSED_KERNELS = ("conv1x1_relu_stats", "conv3x3_relu_stats", "bn_bwd_reduce",
+                 "unit1x1_bwd", "unit3x3_bwd", "unit1_bwd")
+LEVELS = (64, 32, 16, 8, 4)
+# Launches per call (see ops/cuda/bottleneck_train_kernel.py) and calls per
+# bottleneck: 2 conv1x1 (units 1 and 3), one of each other function.
+LAUNCHES_PER_CALL = {"conv1x1_relu_stats": 2, "conv3x3_relu_stats": 2,
+                     "bn_bwd_reduce": 2, "unit1x1_bwd": 4, "unit3x3_bwd": 4,
+                     "unit1_bwd": 3}
+CALLS_PER_BNECK = {"conv1x1_relu_stats": 2, "conv3x3_relu_stats": 1,
+                   "bn_bwd_reduce": 1, "unit1x1_bwd": 1, "unit3x3_bwd": 1,
+                   "unit1_bwd": 1}
+BNECKS_PER_STEP = 60          # 15 identity-skip bottlenecks x 4 stacks
+# Tolerances of the train units. f32 (TF32 off): the kernels and the plain
+# versions compute the same float32 products and round at the same points
+# (the prologues bit for bit); only the order of the sums differs, over up
+# to 9*256 terms for an activation (1e-5 * max(1, |v|)) and up to 262,144
+# rows for a reduction (1e-4 of the output's largest |value|). bf16: one
+# ulp (2^-8) flips where a float32 sum lands on a rounding boundary, and a
+# flipped activation moves the reductions over it: every output, the
+# reductions too, within PR 1's 1.6e-2 * max(1, |v|) element by element.
+TOL_UNIT_ACT_F32 = 1e-5
+TOL_UNIT_RED_F32 = 1e-4
+TOL_UNIT_BF16 = 1.6e-2
+TOL_FUSED_GRAD = 5e-3        # of the largest |g| (ROADMAP Queue 3)
+TOL_FUSED_LOSS = 1e-5        # relative
+TOL_FUSED_STATS = 1e-4       # of each running statistic's largest value
+TOL_BACKEND_GRAD = 1e-4      # cuda vs plain bottleneck grads, f32, per tensor
+
+
+def train_unit_inputs(rng, dtype, device, b, h):
+    """One bottleneck's operands for the six units at C=256, Cm=128."""
+    import torch
+
+    def u(lo, hi, *shape, dt=torch.float32):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)) \
+            .to(device=device, dtype=dt)
+
+    act = lambda c: u(-1, 1, b, h, h, c, dt=dtype)
+    relu = lambda c: torch.relu(act(c))
+    lim1, lim2 = np.sqrt(6 / (C + CM)), np.sqrt(6 / (18 * CM))
+    kk = lambda c: torch.stack([u(.5, 1.5, c), u(-.1, .1, c), u(-.1, .1, c)])
+    aff = lambda c: torch.stack([u(.5, 1.5, c), u(-.3, .3, c)])
+    return dict(
+        x=act(C), g=act(C), dz1=act(CM), dz2=act(CM),
+        a1=relu(CM), a2=relu(CM), a3=relu(C),
+        w1=u(-lim1, lim1, C, CM), w2=u(-lim2, lim2, 3, 3, CM, CM),
+        w3=u(-lim1, lim1, CM, C), b1=u(-.1, .1, CM), b2=u(-.1, .1, CM),
+        b3=u(-.1, .1, C), aff1=aff(CM), aff2=aff(CM), k1=kk(CM), k2=kk(CM),
+        k3=kk(C))
+
+
+def train_unit_cases(rng, dtype, device, b, levels=LEVELS):
+    """(label, name, kernel call, plain call, output kinds) of #14a-f at
+    every level of the path; kinds "act" (an activation in the compute
+    dtype) or "red" (a float32 reduction: sums, dW, db)."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottleneck_train_kernel as tk,
+    )
+
+    cases = []
+    for h in levels:
+        p = train_unit_inputs(rng, dtype, device, b, h)
+        calls = {
+            "conv1x1_relu_stats@unit1": (
+                "conv1x1_relu_stats", (p["x"], p["w1"], p["b1"]), {},
+                ("act", "red")),
+            "conv1x1_relu_stats@unit3": (
+                "conv1x1_relu_stats", (p["a2"], p["w3"], p["b3"],
+                                       *p["aff2"]), {}, ("act", "red")),
+            "conv3x3_relu_stats": (
+                "conv3x3_relu_stats", (p["a1"], p["w2"], p["b2"],
+                                       *p["aff1"]), {}, ("act", "red")),
+            "bn_bwd_reduce": ("bn_bwd_reduce", (p["g"], p["a3"]), {},
+                              ("red",)),
+            "unit1x1_bwd": ("unit1x1_bwd", (p["g"], p["a3"], p["a2"],
+                                            p["w3"], p["k3"], p["aff2"]), {},
+                            ("act", "red", "red", "red")),
+            "unit3x3_bwd": ("unit3x3_bwd", (p["dz2"], p["a2"], p["a1"],
+                                            p["w2"], p["k2"], p["aff1"]), {},
+                            ("act", "red", "red", "red")),
+            "unit1_bwd": ("unit1_bwd", (p["dz1"], p["a1"], p["x"], p["g"],
+                                        p["w1"], p["k1"]), {},
+                          ("act", "red", "red")),
+        }
+        if h == levels[0]:
+            calls["unit1x1_bwd@no_next"] = (
+                "unit1x1_bwd", (p["g"], p["a3"], p["a2"], p["w3"], p["k3"],
+                                p["aff2"]),
+                dict(reduce_next=False), ("act", "red", "red", "red"))
+        for label, (name, args, kw, kinds) in calls.items():
+            kern, plain = getattr(tk, name), getattr(tk, name + "_plain")
+            cases.append((f"{label}@{h}", name,
+                          lambda k=kern, a=args, kw=kw: k(*a, **kw),
+                          lambda f=plain, a=args, kw=kw: f(*a, **kw), kinds))
+    return cases
+
+
+def unit_err(got, want, kind, dtype):
+    """(max |d|, the largest share of its limit that an element uses) of
+    one train-unit output; it passes when the share is at most 1."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        return float("inf"), float("inf")
+    d = (g - w).abs()
+    if kind == "red" and dtype == torch.float32:
+        lim = TOL_UNIT_RED_F32 * max(w.abs().max().item(), 1e-30)
+    else:
+        rel = TOL_UNIT_ACT_F32 if dtype == torch.float32 else TOL_UNIT_BF16
+        lim = rel * torch.clamp(w.abs(), min=1.0)
+    return d.max().item(), (d / lim).max().item()
+
+
+def phase_fused_train_kernels(report):
+    """#14a-f against their plain versions at every level, f32 and bf16,
+    at B=8 and at the train step's B=64 (where the 64 px 3x3 weight
+    gradient caps its partials at DW_WORKSPACE and its row slices straddle
+    images); a rerun of each kernel gives the same bits; at 64 px the cuda
+    bottleneck backend against the plain one (check_bottleneck_backends)."""
+    import torch
+
+    rng = np.random.default_rng(30)
+    failures = []
+    for b, dtype in itertools.product((B_CHECK, B_TRAIN),
+                                      (torch.float32, torch.bfloat16)):
+        for label, name, kern, plain, kinds in train_unit_cases(
+                rng, dtype, "cuda", b):
+            label = f"{label} B={b}"
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            again = again if isinstance(again, tuple) else (again,)
+            want = want if isinstance(want, tuple) else (want,)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            if not same:
+                failures.append(f"{label} {dtype}: a rerun differs")
+            for i, (g, w, kind) in enumerate(zip(got, want, kinds)):
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    failures.append(f"{label} out{i}: {g.shape}/{g.dtype} vs "
+                                    f"{w.shape}/{w.dtype}")
+                    continue
+                err, used = unit_err(g, w, kind, dtype)
+                ok = used <= 1.0
+                key = "max_abs_err_f32" if dtype == torch.float32 else \
+                    "max_abs_err"
+                ent = report.setdefault(name, {})
+                ent[key] = max(ent.get(key, 0.0), err)
+                log(f"kernel {label} {str(dtype)[6:]} out{i} ({kind}): "
+                    f"max|d| = {err:.3e}, {used:.3e} of its limit"
+                    f"{'' if same else ' RERUN DIFFERS'} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"{label} {dtype} out{i}: {err}")
+        torch.cuda.empty_cache()
+    failures += check_bottleneck_backends(rng, B_CHECK)
+    if failures:
+        raise AssertionError("train-unit kernels disagree: "
+                             + "; ".join(failures))
+
+
+def check_bottleneck_backends(rng, b, h=64):
+    """One bottleneck at float32, cuda backend against plain: (1) the
+    forwards' out and stats; (2) the backwards on the same residuals, each
+    of the 13 grads within TOL_BACKEND_GRAD of its largest |g|; (3) the
+    autograd function end to end. In (3) the two forwards differ by float32
+    summation order, which flips the ReLU mask of the few activations
+    within ~1e-6 of 0; each flip changes dy there by O(K1 * dz) and the
+    grads near it by O(1) (measured on the card: dx up to 2.2% of its
+    largest |g| from a 1.5e-6 difference in a2), so (3) is held by the
+    relative L2 distance of each grad, TOL_FUSED_GRAD. Returns the
+    failures."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.experimental import (
+        bottleneck_grad as bg,
+    )
+
+    p = train_unit_inputs(rng, torch.float32, "cuda", b, h)
+    u = lambda lo, hi, n: torch.from_numpy(
+        rng.uniform(lo, hi, n).astype(np.float32)).cuda()
+    args = [p["x"], p["w1"], p["b1"], p["w2"], p["b2"], p["w3"], p["b3"],
+            u(.5, 1.5, CM), u(-.3, .3, CM), u(.5, 1.5, CM), u(-.3, .3, CM),
+            u(.5, 1.5, C), u(-.3, .3, C)]
+    cot, failures = p["g"], []
+
+    def hold(label, got, want, tol_rel, l2=False):
+        d = (got.float() - want.float())
+        ref = want.float()
+        err = (d.norm() / ref.norm()).item() if l2 else \
+            d.abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        ok = bool(torch.isfinite(got).all()) and err <= tol_rel
+        log(f"bottleneck cuda vs plain @{h} f32 {label}: "
+            f"{'L2' if l2 else 'max'} rel {err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"bottleneck {label}: {err}")
+
+    out_c, st_c, res_c = bg.bottleneck_train_fwd_cuda(*args)
+    out_p, st_p, _ = bg.bottleneck_train_fwd(*args)
+    hold("forward out", out_c, out_p, TOL_UNIT_ACT_F32)
+    for i, (sc, sp) in enumerate(zip(st_c, st_p)):
+        hold(f"forward stats {i}", sc, sp, TOL_UNIT_RED_F32)
+    res = (*res_c, *st_c, args[1], args[3], args[5], *args[7:])
+    for i, (gc, gp) in enumerate(zip(bg.bottleneck_train_bwd_cuda(res, cot),
+                                     bg.bottleneck_train_bwd(res, cot))):
+        hold(f"backward, same residuals, grad {i}", gc, gp,
+             TOL_BACKEND_GRAD)
+    grads = []
+    for backend in ("cuda", "plain"):
+        leaves = [a.clone().requires_grad_() for a in args]
+        y, _ = bg.make_bottleneck_train(backend)(*leaves)
+        (y.float() * cot).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for i, (gc, gp) in enumerate(zip(*grads)):
+        hold(f"autograd end to end, grad {i}", gc, gp, TOL_FUSED_GRAD,
+             l2=True)
+    return failures
+
+FUSED_STEPS = 3
+B_FUSED_F32 = 16       # batch of the f32 fused-vs-default step comparisons
+F32_SEEDS = (12, 13, 14, 15, 16)
+# The (fused, plain) grads at f32, relative L2 (see check_fused_f32): by
+# stacks, 2x the largest reading of F32_SEEDS on the card (S1 1.40e-2, S4
+# 8.69e-2: PERF.md); and at most ULP_FACTOR times the distance between
+# the plain path's grads on the images and on the images one ulp away
+# (the largest ratio read: 0.93).
+TOL_FUSED_L2 = {1: 0.03, 4: 0.18}
+ULP_FACTOR = 2.0
+
+
+def fused_want(steps):
+    """Exact launch counts of `steps` fused train steps with augmentation."""
+    want = {n: steps * BNECKS_PER_STEP * CALLS_PER_BNECK[n]
+            * LAUNCHES_PER_CALL[n] for n in FUSED_KERNELS}
+    want.update(resample_last_axis=2 * steps, render_heatmaps_batch=steps)
+    return want
+
+
+def phase_fused_train(report):
+    """S4/256 bf16 B=64 through make_train_step(model_backend="fused"):
+    3 augmented steps with exact launch counts; a fixed batch whose loss
+    falls over 20 steps; at f32 and B=16, for each of F32_SEEDS, one fused
+    step against one default step from the same state, at S4 and at S1
+    (check_fused_f32)."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch import losses
+    from single_person_pose_estimation_tpu_torch.data.in_memory import (
+        synthetic_crops,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+
+    cfg = train_config(os.path.join(ROOT, "temp"))
+    new_state = lambda model, lr=2.5e-4: steps_lib.TrainState.create(
+        model, lambda m: steps_lib.make_optimizer(m, lr), seed=0,
+        device="cuda")
+    batch = lambda seed: {
+        k: torch.from_numpy(v).cuda()
+        for k, v in synthetic_crops(B_TRAIN, IMG, seed=seed).items()}
+    state = new_state(build_s4_train())
+    step = steps_lib.make_train_step(losses.weighted_mse, cfg, augment=True,
+                                     model_backend="fused")
+    b = batch(11)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = []
+    for _ in range(FUSED_STEPS):
+        state, m = step(state, b)
+        got.append(m["loss"])
+    got = torch.stack(got).tolist()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = fused_want(FUSED_STEPS)
+    log(f"fused_train: S4/256 bf16 B={B_TRAIN}, {FUSED_STEPS} steps in "
+        f"{elapsed:.1f} s, losses {got}; launches {counts}")
+    if {n: counts[n] for n in want} != want or any(
+            v for n, v in counts.items() if n not in want):
+        raise AssertionError(f"fused train launch counts {counts} != {want}")
+    if not np.isfinite(got).all():
+        raise AssertionError(f"non-finite fused losses: {got}")
+    for n in FUSED_KERNELS:
+        report.setdefault(n, {})["launches"] = counts[n]
+    del state
+
+    # One fixed batch, no augmentation: the loss must go down.
+    state = new_state(build_s4_train(), lr=1e-3)
+    step = steps_lib.make_train_step(losses.weighted_mse, cfg, augment=False,
+                                     model_backend="fused")
+    b = batch(7)
+    got = []
+    for _ in range(20):
+        state, m = step(state, b)
+        got.append(m["loss"])
+    got = torch.stack(got).tolist()
+    log("fused_train fixed batch, 20 steps: loss " + " ".join(
+        f"{v:.4f}" for v in got))
+    if not (np.isfinite(got).all() and np.mean(got[-5:]) < 0.95 * got[0]):
+        raise AssertionError(f"the fixed-batch fused loss did not go down: "
+                             f"{got}")
+    del state
+
+    for seed in F32_SEEDS:
+        check_fused_f32(cfg, seed, stacks=4)
+        check_fused_f32(train_config(os.path.join(ROOT, "temp"), stacks=1),
+                        seed, stacks=1)
+
+
+def fused_f32_runs(cfg, seed, stacks):
+    """At float32 from one state: the fused step (the kernels), the default
+    step, and the fused forward and loss on the plain backend, on
+    "cuda_bwd" (plain forward, kernel backward), on "cuda_fwd" (kernel
+    forward, plain backward), and on the plain backend with every pixel
+    moved by one ulp ("plain_ulp"). {name: (loss, grads, running
+    statistics)}."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch import losses
+    from single_person_pose_estimation_tpu_torch.data.in_memory import (
+        synthetic_crops,
+    )
+    from single_person_pose_estimation_tpu_torch.experimental.fused_train import (
+        fused_train_apply,
+    )
+    from single_person_pose_estimation_tpu_torch.ops.cuda.heatmap_kernel import (
+        render_heatmaps_batch,
+    )
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+
+    b = {k: torch.from_numpy(v).cuda() for k, v in
+         synthetic_crops(B_FUSED_F32, IMG, seed=seed).items()}
+    hms = render_heatmaps_batch(b["kx"], b["ky"], b["kv"])
+    base = build_s4_train(seed, stacks)
+    base.compute_dtype = torch.float32
+    runs = {}
+    for name in ("fused", "flax", "plain", "cuda_bwd", "cuda_fwd",
+                 "plain_ulp"):
+        st = steps_lib.TrainState.create(
+            copy.deepcopy(base), lambda m: steps_lib.make_optimizer(m, 2.5e-4),
+            seed=0, device="cuda")
+        if name in ("fused", "flax"):
+            step = steps_lib.make_train_step(losses.weighted_mse, cfg,
+                                             augment=False,
+                                             model_backend=name)
+            st, m = step(st, b)
+            loss = m["loss"].item()
+        else:
+            img = b["image"]
+            if name == "plain_ulp":
+                img = torch.nextafter(img, torch.full_like(img, np.inf))
+            outs = fused_train_apply(st.model, img, name.removesuffix("_ulp"))
+            total = losses.total_loss(losses.weighted_mse, hms, outs)
+            total.backward()
+            loss = total.item()
+        grads = torch.cat([p.grad.flatten()
+                           for _, p in sorted(st.model.named_parameters())])
+        stats = {n: t.clone() for n, t in st.model.state_dict().items()
+                 if "running" in n}
+        runs[name] = (loss, grads, stats)
+        del st
+    return runs
+
+
+def check_fused_f32(cfg, seed, stacks):
+    """One fused step against one default step at float32 from the same
+    state (seed), B=16. Held: the loss (TOL_FUSED_LOSS), the running
+    statistics (TOL_FUSED_STATS), the backward kernels inside the model by
+    "cuda_bwd" against "plain" (the same forward, so the grads differ by
+    summation order alone: TOL_FUSED_GRAD of the largest |g|), and the
+    kernel path (forward and backward) against "plain" in relative L2:
+    within TOL_FUSED_L2, and within ULP_FACTOR times what one ulp on the
+    input pixels moves the plain path's grads ("plain_ulp").
+
+    The grads of the fused step are not held against the default step's
+    within TOL_FUSED_GRAD: the forwards differ by float32 summation order,
+    and the grads are discontinuous in the forward where a ReLU mask
+    flips (an activation within ~1e-6 of 0 changes its dy by O(1)), which
+    the E[x^2]-E[x]^2 variance of the following BNs amplifies. The log
+    shows where the kernel path's gap comes from: "cuda_fwd" (the kernel
+    forward, plain backward) lies as far from "plain" as the kernel path.
+    """
+    runs = fused_f32_runs(cfg, seed, stacks)
+    gmax = runs["flax"][1].abs().max().item()
+
+    def gdiff(a, b):
+        d = runs[a][1] - runs[b][1]
+        return (d.abs().max().item() / gmax,
+                (d.norm() / runs[b][1].norm()).item())
+
+    pairs = {k: gdiff(*k) for k in (
+        ("fused", "flax"), ("plain", "flax"), ("cuda_bwd", "plain"),
+        ("fused", "plain"), ("cuda_fwd", "plain"), ("plain_ulp", "plain"))}
+    tag = f"fused_train f32 S{stacks} B={B_FUSED_F32} seed {seed}"
+    for (x, y), (mx, l2) in pairs.items():
+        log(f"{tag} grads {x} vs {y}: max|d| {mx:.3e} of the largest |g| "
+            f"{gmax:.3e}, L2 rel {l2:.3e}")
+    lf, lx = runs["fused"][0], runs["flax"][0]
+    lerr = abs(lf - lx) / abs(lx)
+    sf, sx = runs["fused"][2], runs["flax"][2]
+    serr = max((sf[n] - sx[n]).abs().max().item()
+               / max(sx[n].abs().max().item(), 1e-30) for n in sx)
+    log(f"{tag}, fused vs default step: loss {lf:.7f} vs {lx:.7f} (rel "
+        f"{lerr:.2e}), running stats {serr:.3e}")
+    ok = (lerr <= TOL_FUSED_LOSS and serr <= TOL_FUSED_STATS
+          and pairs[("cuda_bwd", "plain")][0] <= TOL_FUSED_GRAD
+          and pairs[("fused", "plain")][1] <= min(
+              TOL_FUSED_L2[stacks],
+              ULP_FACTOR * pairs[("plain_ulp", "plain")][1]))
+    if not ok:
+        raise AssertionError(f"{tag}: the fused step disagrees with the "
+                             f"default step: loss {lerr}, stats {serr}, "
+                             f"grads {pairs}")
+
+
+def fused_bounds(b=B_TRAIN, h=64):
+    """Bounds of #14a-f at the 64 px level (bf16): each activation read
+    once and written once, weights read once; 2 operations per
+    multiply-add."""
+    r, e = b * h * h, 2
+    w1, w2 = C * CM * e, 9 * CM * CM * e
+    return {
+        "conv1x1_relu_stats": bound(2 * r * C * CM, r * (C + CM) * e + w1,
+                                    PEAK_BF16),
+        "conv3x3_relu_stats": bound(2 * r * 9 * CM * CM, 2 * r * CM * e + w2,
+                                    PEAK_BF16),
+        "bn_bwd_reduce": bound(2 * r * C, 2 * r * C * e, PEAK_BF16),
+        "unit1x1_bwd": bound(4 * r * C * CM, r * (2 * C + 2 * CM) * e + w1,
+                             PEAK_BF16),
+        "unit3x3_bwd": bound(4 * r * 9 * CM * CM, 4 * r * CM * e + w2,
+                             PEAK_BF16),
+        "unit1_bwd": bound(4 * r * C * CM, r * (2 * CM + 3 * C) * e + w1,
+                           PEAK_BF16),
+    }
+
+
+def phase_fused_train_times(report, card):
+    """The fused step against the default step (S4/256 bf16 B=64, median of
+    5 runs of 2 steps, alternating), the fused step's device busy time and
+    idle share, and #14a-f at 64 px beside their plain versions, bounds
+    and a library yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from single_person_pose_estimation_tpu_torch import losses
+    from single_person_pose_estimation_tpu_torch.data.in_memory import (
+        synthetic_crops,
+    )
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottleneck_train_kernel as tk,
+    )
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+
+    cfg = train_config(os.path.join(ROOT, "temp"))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in synthetic_crops(B_TRAIN, IMG, seed=9).items()}
+    steps = {}
+    for backend in ("fused", "flax"):
+        st = steps_lib.TrainState.create(
+            build_s4_train(), lambda m: steps_lib.make_optimizer(m, 2.5e-4),
+            seed=0, device="cuda")
+        fn = steps_lib.make_train_step(losses.weighted_mse, cfg, augment=True,
+                                       model_backend=backend)
+        steps[backend] = (lambda st=st, fn=fn: fn(st, batch))
+        steps[backend]()
+    times = {n: [] for n in steps}
+    for i in range(5):
+        for name in (("fused", "flax") if i % 2 == 0 else ("flax", "fused")):
+            times[name].append(cuda_ms(steps[name], iters=2, warmup=0))
+    med = {n: statistics.median(ts) for n, ts in times.items()}
+    for name, ms in med.items():
+        log(f"fused_train_times S4/256 bf16 B={B_TRAIN} step "
+            f"model_backend={name}: median {ms:.3f} ms ({B_TRAIN / ms * 1e3:.1f}"
+            f" img/s) over 5 runs {[round(t, 3) for t in times[name]]} "
+            f"[{card}]")
+    report["_fused_step_ms"] = med["fused"]
+    report["_default_step_ms"] = med["flax"]
+    span, busy, per, _ = device_trace(steps["fused"], calls=2)
+    log(f"trace S4/256 bf16 B={B_TRAIN} fused train step: device span "
+        f"{span:.2f} ms/step, busy {busy:.2f} ms, idle share "
+        f"{1 - busy / span:.4f} [{card}]")
+    for kname, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:14]:
+        log(f"  {ms:9.3f} ms/step {ms / busy:6.1%} x{n:6.1f}  {kname}")
+    del steps
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(31)
+    p = train_unit_inputs(rng, torch.bfloat16, "cuda", B_TRAIN, 64)
+    bf = torch.bfloat16
+    nchw = lambda t: t.permute(0, 3, 1, 2)
+    w1c = p["w1"].to(bf).T[:, :, None, None]          # (Cm, C, 1, 1)
+    w2c = p["w2"].to(bf).permute(3, 2, 0, 1)
+    w3b, w1b = p["w3"].to(bf), p["w1"].to(bf)
+    flat = lambda t: t.reshape(-1, t.shape[-1])
+    cases = {
+        "conv1x1_relu_stats": (
+            (p["x"], p["w1"], p["b1"]), {},
+            lambda: F.conv2d(nchw(p["x"]), w1c)),
+        "conv3x3_relu_stats": (
+            (p["a1"], p["w2"], p["b2"], *p["aff1"]), {},
+            lambda: F.conv2d(nchw(p["a1"]), w2c, padding=1)),
+        "bn_bwd_reduce": ((p["g"], p["a3"]), {}, None),
+        "unit1x1_bwd": (
+            (p["g"], p["a3"], p["a2"], p["w3"], p["k3"], p["aff2"]), {},
+            lambda: (flat(p["g"]) @ w3b.T, flat(p["a2"]).T @ flat(p["g"]))),
+        "unit3x3_bwd": (
+            (p["dz2"], p["a2"], p["a1"], p["w2"], p["k2"], p["aff1"]), {},
+            lambda: torch.ops.aten.convolution_backward(
+                nchw(p["dz2"]), nchw(p["a1"]), w2c, None, [1, 1], [1, 1],
+                [1, 1], False, [0, 0], 1, [True, True, False])),
+        "unit1_bwd": (
+            (p["dz1"], p["a1"], p["x"], p["g"], p["w1"], p["k1"]), {},
+            lambda: (flat(p["dz1"]) @ w1b.T, flat(p["x"]).T @ flat(p["dz1"]))),
+    }
+    bounds = fused_bounds()
+    for name, (args, kw, lib) in cases.items():
+        kern = lambda f=getattr(tk, name), a=args: f(*a, **kw)
+        plain = lambda f=getattr(tk, name + "_plain"), a=args: f(*a, **kw)
+        before = getattr(tk, name).launches
+        ms, plain_ms = cuda_ms(kern, iters=10), cuda_ms(plain, iters=10)
+        device_ms = kernel_device_ms(kern, name)
+        lib_ms = cuda_ms(lib, iters=10) if lib is not None else None
+        getattr(tk, name).launches = before
+        bms, by = bounds[name]
+        report.setdefault(name, {}).update(
+            ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms)
+        log(f"times {name} bf16 B={B_TRAIN} 64 px: kernel {ms:.4f} ms per "
+            f"call ({device_ms:.4f} ms on the device), plain {plain_ms:.4f} "
+            f"ms, library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f", bound {bms:.4f} ms ({by}) [{card}]")
+
+
 def main():
     import torch
 
@@ -1955,14 +2552,25 @@ def main():
     phase_train_kernels(report)
     phase_train(report)
     phase_train_times(report, card)
+    torch.cuda.empty_cache()
+    phase_fused_train_kernels(report)
+    phase_fused_train(report)
+    torch.cuda.empty_cache()
+    phase_fused_train_times(report, card)
     for name, (bms, by) in inference_bounds().items():
         report[name].update(bound_ms=bms, bound_by=by, library_ms=None)
+    for name, (bms, by) in offpath_bounds().items():
+        log(f"bound of {name} (still to port): {bms:.4f} ms ({by})")
     log(json.dumps({"forward_img_per_s_b128_bf16": report.pop("_forward"),
                     "eval_img_per_s_b128_bf16": report.pop("_eval"),
                     "mobile_forward_img_per_s_b128_bf16":
                         report.pop("_mobile_forward"),
                     "mobile_eval_img_per_s_b128_bf16":
                         report.pop("_mobile_eval"),
+                    "fused_train_step_ms_b64_bf16":
+                        report.pop("_fused_step_ms"),
+                    "default_train_step_ms_b64_bf16":
+                        report.pop("_default_step_ms"),
                     "card": card}))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

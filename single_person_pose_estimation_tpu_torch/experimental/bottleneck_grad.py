@@ -1,0 +1,261 @@
+"""Training-mode hourglass bottleneck with a hand-derived backward pass.
+
+The counterpart of the JAX package's `experimental/bottleneck_grad.py`.
+Forward (identity skip, train-mode BN with flax's semantics: float32
+stats, variance E[x^2]-E[x]^2 clamped at 0, normalize in float32, cast to
+the compute dtype):
+
+    y1 = x @ W1 + b1;  a1 = relu(y1);  z1 = gamma1*(a1-mu1)*s1 + beta1
+    y2 = conv3x3(z1, W2) + b2;  a2 = relu(y2);  z2 = BN2(a2)
+    y3 = z2 @ W3 + b3;  a3 = relu(y3);  z3 = BN3(a3)
+    out = x + z3                                   (s_i = rsqrt(var_i + eps))
+
+Backward per unit, given dz, n = B*H*W: dbeta = sum(dz), dgamma =
+sum(dz*xhat), da = gamma*s*(dz - dbeta/n - xhat*dgamma/n), dy = da*(y>0),
+dW = in^T dy, db = sum(dy), din = dy W^T; dx = g + din1. The residuals are
+the post-ReLU activations (x, a1, a2, a3): the ReLU mask and xhat derive
+from them.
+
+`make_bottleneck_train(backend)` wraps a forward and a backward in a
+`torch.autograd.Function`. The backends, with the JAX package's names:
+
+    port        JAX            forward   backward
+    "plain"     "jnp"          plain     plain
+    "cuda"      "pallas"       kernels   kernels
+    "cuda_fwd"  "pallas_fwd"   kernels   plain
+    "cuda_bwd"  "pallas_bwd"   plain     kernels
+
+The plain forward computes each conv in the compute dtype with the bias
+added in that dtype, as flax does; the plain backward leaves the 3x3
+grads to one library conv-grad call, as the JAX package leaves them to
+XLA's conv-grad emitters. The kernel wiring (`*_cuda`) runs the six
+kernels of `ops/cuda/bottleneck_train_kernel.py`; on CPU tensors those
+wrappers run their plain versions. Layout is NHWC; weights (C, Cm),
+(3, 3, Cm, Cm), (Cm, C).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from single_person_pose_estimation_tpu_torch.ops.cuda import (
+    bottleneck_train_kernel as ker,
+)
+
+_BN_EPS = 1e-3
+BACKENDS = ("plain", "cuda", "cuda_fwd", "cuda_bwd")
+
+
+# ---------------------------------------------------------------------------
+# Forward pieces (plain; flax semantics).
+# ---------------------------------------------------------------------------
+
+def _bn_stats(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float32 batch mean and variance E[a^2]-E[a]^2, clamped at 0."""
+    a32 = a.float()
+    mu = a32.mean(dim=(0, 1, 2))
+    mu2 = (a32 * a32).mean(dim=(0, 1, 2))
+    return mu, torch.clamp(mu2 - mu * mu, min=0.0)
+
+
+def _bn_apply(a, mu, var, gamma, beta, out_dtype):
+    s = torch.rsqrt(var + _BN_EPS)
+    return ((a.float() - mu) * (s * gamma) + beta).to(out_dtype)
+
+
+def _conv1x1(x, w, b):
+    return x @ w.to(x.dtype) + b.to(x.dtype)
+
+
+def _conv3x3(x, w, b):
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
+                 padding=1).permute(0, 2, 3, 1)
+    return y + b.to(x.dtype)
+
+
+def bottleneck_train_fwd(x, w1, b1, w2, b2, w3, b3,
+                         g1, be1, g2, be2, g3, be3):
+    """Returns (out, (mu1, var1, mu2, var2, mu3, var3), (x, a1, a2, a3))."""
+    dt = x.dtype
+    a1 = torch.relu(_conv1x1(x, w1, b1))
+    mu1, var1 = _bn_stats(a1)
+    z1 = _bn_apply(a1, mu1, var1, g1, be1, dt)
+    a2 = torch.relu(_conv3x3(z1, w2, b2))
+    mu2, var2 = _bn_stats(a2)
+    z2 = _bn_apply(a2, mu2, var2, g2, be2, dt)
+    a3 = torch.relu(_conv1x1(z2, w3, b3))
+    mu3, var3 = _bn_stats(a3)
+    z3 = _bn_apply(a3, mu3, var3, g3, be3, dt)
+    return x + z3, (mu1, var1, mu2, var2, mu3, var3), (x, a1, a2, a3)
+
+
+def _stats_from_sums(sums, n):
+    """(2, C) float32 [sum, sum of squares] -> (mu, var)."""
+    mu = sums[0] / n
+    return mu, torch.clamp(sums[1] / n - mu * mu, min=0.0)
+
+
+def _fold_affine(mu, var, gamma, beta):
+    """Train-mode BN as a per-channel affine: bn(a) = a*scale + shift."""
+    scale = torch.rsqrt(var + _BN_EPS) * gamma
+    return scale, beta - mu * scale
+
+
+def bottleneck_train_fwd_cuda(x, w1, b1, w2, b2, w3, b3,
+                              g1, be1, g2, be2, g3, be3):
+    """The contract of bottleneck_train_fwd, each conv->relu unit one
+    kernel with the previous BN folded into its prologue and its batch
+    sums in its epilogue."""
+    B, H, W, _ = x.shape
+    n = B * H * W
+    a1, sums1 = ker.conv1x1_relu_stats(x, w1, b1)
+    mu1, var1 = _stats_from_sums(sums1, n)
+    sc1, sh1 = _fold_affine(mu1, var1, g1, be1)
+    a2, sums2 = ker.conv3x3_relu_stats(a1, w2, b2, sc1, sh1)
+    mu2, var2 = _stats_from_sums(sums2, n)
+    sc2, sh2 = _fold_affine(mu2, var2, g2, be2)
+    a3, sums3 = ker.conv1x1_relu_stats(a2, w3, b3, sc2, sh2)
+    mu3, var3 = _stats_from_sums(sums3, n)
+    sc3, sh3 = _fold_affine(mu3, var3, g3, be3)
+    out = x + (a3.float() * sc3 + sh3).to(x.dtype)
+    return out, (mu1, var1, mu2, var2, mu3, var3), (x, a1, a2, a3)
+
+
+# ---------------------------------------------------------------------------
+# Backward (plain).
+# ---------------------------------------------------------------------------
+
+def _unit_bwd(dz, a, mu, var, gamma):
+    """(dy, dgamma, dbeta) of one conv->relu->BN unit from its saved
+    post-ReLU activation a; dy in a's dtype."""
+    n = dz.shape[0] * dz.shape[1] * dz.shape[2]
+    s = torch.rsqrt(var + _BN_EPS)
+    xhat = (a.float() - mu) * s
+    dz32 = dz.float()
+    dbeta = dz32.sum(dim=(0, 1, 2))
+    dgamma = (dz32 * xhat).sum(dim=(0, 1, 2))
+    da = (gamma * s) * (dz32 - dbeta / n - xhat * (dgamma / n))
+    return torch.where(a > 0, da, 0.0).to(a.dtype), dgamma, dbeta
+
+
+def _conv1x1_grads(x, dy, w, out_dtype):
+    """dW = x^T dy over the rows (float32 products of the compute-dtype
+    operands) and din = dy W^T (float32 sums rounded once)."""
+    xf = x.reshape(-1, x.shape[-1])
+    dyf = dy.reshape(-1, dy.shape[-1]).to(x.dtype)
+    dw = xf.float().T @ dyf.float()
+    db = dyf.float().sum(0)
+    din = dyf @ w.to(x.dtype).T
+    return dw, db, din.reshape(*x.shape[:3], -1).to(out_dtype)
+
+
+def _conv3x3_grads(x, dy, w, out_dtype):
+    """The 3x3 SAME conv's grads by one library conv-grad call."""
+    dyc = dy.to(x.dtype).permute(0, 3, 1, 2)
+    din, dw, _ = torch.ops.aten.convolution_backward(
+        dyc, x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
+        None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, False])
+    db = dy.reshape(-1, dy.shape[-1]).float().sum(0)
+    return (dw.permute(2, 3, 1, 0).float(), db,
+            din.permute(0, 2, 3, 1).to(out_dtype))
+
+
+def bottleneck_train_bwd(res, g):
+    """Grads of the 13 inputs (x, w1, b1, w2, b2, w3, b3, g1, be1, g2, be2,
+    g3, be3) from the residuals and the output cotangent g."""
+    (x, a1, a2, a3, mu1, var1, mu2, var2, mu3, var3,
+     w1, w2, w3, g1, be1, g2, be2, g3, be3) = res
+    dt = x.dtype
+    dy3, dg3, dbe3 = _unit_bwd(g, a3, mu3, var3, g3)
+    z2 = _bn_apply(a2, mu2, var2, g2, be2, dt)
+    dw3, db3, dz2 = _conv1x1_grads(z2, dy3, w3, dt)
+    dy2, dg2, dbe2 = _unit_bwd(dz2, a2, mu2, var2, g2)
+    z1 = _bn_apply(a1, mu1, var1, g1, be1, dt)
+    dw2, db2, dz1 = _conv3x3_grads(z1, dy2, w2, dt)
+    dy1, dg1, dbe1 = _unit_bwd(dz1, a1, mu1, var1, g1)
+    dw1, db1, din = _conv1x1_grads(x, dy1, w1, dt)
+    dx = (g.float() + din.float()).to(dt)
+    return (dx, dw1, db1, dw2, db2, dw3, db3,
+            dg1, dbe1, dg2, dbe2, dg3, dbe3)
+
+
+def _bwd_consts(r0, r1, mu, var, gamma, n):
+    """(K1, K2, K3) rows of da = K1*dz + K2*a + K3, and (dgamma, dbeta),
+    from the reductions r0 = sum(dz), r1 = sum(dz*a)."""
+    s = torch.rsqrt(var + _BN_EPS)
+    dbeta = r0
+    dgamma = s * (r1 - mu * r0)
+    k1 = gamma * s
+    k2 = -gamma * s * s * dgamma / n
+    k3 = -k1 * dbeta / n + gamma * s * s * mu * dgamma / n
+    return torch.stack([k1, k2, k3]), dgamma, dbeta
+
+
+def bottleneck_train_bwd_cuda(res, g):
+    """The contract of bottleneck_train_bwd on the kernels: one reduction
+    and three unit backwards, each folding the next unit's reductions into
+    its epilogue."""
+    (x, a1, a2, a3, mu1, var1, mu2, var2, mu3, var3,
+     w1, w2, w3, g1, be1, g2, be2, g3, be3) = res
+    B, H, W, _ = x.shape
+    n = B * H * W
+    sums3 = ker.bn_bwd_reduce(g, a3)
+    k3c, dg3, dbe3 = _bwd_consts(sums3[0], sums3[1], mu3, var3, g3, n)
+    aff2 = torch.stack(_fold_affine(mu2, var2, g2, be2))
+    dz2, dw3, db3, sums2 = ker.unit1x1_bwd(g, a3, a2, w3, k3c, aff2)
+    k2c, dg2, dbe2 = _bwd_consts(sums2[0], sums2[1], mu2, var2, g2, n)
+    aff1 = torch.stack(_fold_affine(mu1, var1, g1, be1))
+    dz1, dw2, db2, sums1 = ker.unit3x3_bwd(dz2, a2, a1, w2, k2c, aff1)
+    k1c, dg1, dbe1 = _bwd_consts(sums1[0], sums1[1], mu1, var1, g1, n)
+    dx, dw1, db1 = ker.unit1_bwd(dz1, a1, x, g, w1, k1c)
+    return (dx, dw1, db1[0], dw2, db2[0], dw3, db3[0],
+            dg1, dbe1, dg2, dbe2, dg3, dbe3)
+
+
+# ---------------------------------------------------------------------------
+# The autograd wiring.
+# ---------------------------------------------------------------------------
+
+class _BottleneckTrain(torch.autograd.Function):
+    """out, mu1, var1, mu2, var2, mu3, var3 = f(fwd, bwd, x, w1, ..., be3);
+    the stats carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *args):
+        out, stats, residuals = fwd(*args)
+        ctx.bwd = bwd
+        ctx.save_for_backward(*residuals, *stats, args[1], args[3], args[5],
+                              *args[7:])
+        ctx.mark_non_differentiable(*stats)
+        return (out, *stats)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        grads = ctx.bwd(ctx.saved_tensors, g.contiguous())
+        return (None, None, *grads)
+
+
+@lru_cache(maxsize=None)
+def make_bottleneck_train(backend: str = "plain"):
+    """The train-mode bottleneck as a differentiable function:
+    f(x, w1, b1, w2, b2, w3, b3, g1, be1, g2, be2, g3, be3) -> (out,
+    (mu1, var1, mu2, var2, mu3, var3)), differentiable in all 13 inputs.
+    backend: "plain", "cuda", "cuda_fwd" or "cuda_bwd" (module docstring);
+    unknown names raise."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown bottleneck backend: {backend!r}; use one "
+                         f"of {BACKENDS}")
+    fwd = bottleneck_train_fwd_cuda if backend in ("cuda", "cuda_fwd") \
+        else bottleneck_train_fwd
+    bwd = bottleneck_train_bwd_cuda if backend in ("cuda", "cuda_bwd") \
+        else bottleneck_train_bwd
+
+    def f(*args):
+        out, *stats = _BottleneckTrain.apply(fwd, bwd, *args)
+        return out, tuple(stats)
+
+    return f

@@ -53,6 +53,17 @@ def same_pad(n: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
+def update_running(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                   var: torch.Tensor, momentum: float) -> None:
+    """A train-mode BN's running statistics: r = m*r + (1-m)*batch, with
+    flax's momentum convention."""
+    with torch.no_grad():
+        bn.running_mean.copy_(momentum * bn.running_mean
+                              + (1.0 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var
+                             + (1.0 - momentum) * var)
+
+
 def bottleneck_specs(name: str, cin: int, cout: int, mobile: bool = False):
     """(child name, kind, in, out, kernel) of one reference bottleneck;
     kind is "conv", "sep" (a SeparableConv, mobile) or "bn"."""
@@ -173,10 +184,7 @@ class StackedHourglass(nn.Module):
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
                           min=0.0)
-        with torch.no_grad():
-            m = self.bn_momentum
-            bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean)
-            bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var)
+        update_running(bn, mean, var, self.bn_momentum)
         col = lambda v: v[None, :, None, None]
         mul = torch.rsqrt(var + bn.eps) * bn.weight
         y = (xf - col(mean)) * col(mul) + col(bn.bias)

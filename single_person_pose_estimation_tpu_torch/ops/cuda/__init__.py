@@ -1,10 +1,18 @@
 """Hand-written CUDA kernels of the inference (standard and mobile),
-evaluation and training paths, each with its plain PyTorch version beside
+evaluation and training paths (the fused train-mode bottleneck included), each with its plain PyTorch version beside
 it (see each module's docstring)."""
 
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     fused_bottleneck,
     fused_bottleneck_pool,
+)
+from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_train_kernel import (
+    bn_bwd_reduce,
+    conv1x1_relu_stats,
+    conv3x3_relu_stats,
+    unit1_bwd,
+    unit1x1_bwd,
+    unit3x3_bwd,
 )
 from single_person_pose_estimation_tpu_torch.ops.cuda.decode_kernel import (
     decode_batch,
@@ -39,6 +47,12 @@ KERNEL_WRAPPERS = {
     "fused_bottleneck_mobile": fused_bottleneck_mobile,
     "fused_bottleneck_mobile_pool": fused_bottleneck_mobile_pool,
     "fused_uplevel_mobile": fused_uplevel_mobile,
+    "conv1x1_relu_stats": conv1x1_relu_stats,
+    "conv3x3_relu_stats": conv3x3_relu_stats,
+    "bn_bwd_reduce": bn_bwd_reduce,
+    "unit1x1_bwd": unit1x1_bwd,
+    "unit3x3_bwd": unit3x3_bwd,
+    "unit1_bwd": unit1_bwd,
 }
 
 

@@ -50,6 +50,14 @@ _SIGNATURES = {
     "spe_mobile": [_I, _I] + [_P] * 9 + [_I] * 5 + [_P],
     # heatmaps, out, B, H, W, K, threshold, legacy, stream
     "spe_decode": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # bf16, ks, pro, epi, x, a, pv, w, bias, aux, out, ws, sums, B, H, W, K,
+    # N, stream
+    "spe_train_unit": [_I] * 4 + [_P] * 9 + [_I] * 5 + [_P],
+    # bf16, dz, a, ws, sums, R, C, stream
+    "spe_train_reduce": [_I, _P, _P, _P, _P, _I, _I, _P],
+    # bf16, ks, aff, dz, a, k, cin, aff, ws, out, B, H, W, Ci, Co, slices,
+    # rows, stream
+    "spe_train_dw": [_I] * 3 + [_P] * 7 + [_I] * 7 + [_P],
 }
 
 

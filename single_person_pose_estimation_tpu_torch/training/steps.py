@@ -35,6 +35,9 @@ import torch
 
 from single_person_pose_estimation_tpu_torch import losses as losses_lib
 from single_person_pose_estimation_tpu_torch.configs.default_config import Config
+from single_person_pose_estimation_tpu_torch.experimental.fused_train import (
+    fused_train_apply,
+)
 from single_person_pose_estimation_tpu_torch.ops import augment as augment_lib
 from single_person_pose_estimation_tpu_torch.ops.cuda.heatmap_kernel import (
     render_heatmaps_batch,
@@ -205,11 +208,23 @@ def _to_device(batch, device):
     return images, kx.float(), ky.float(), kv
 
 
-def forward_loss(model, loss_fn, images, heatmaps, bn_mode: str = "batch"):
+MODEL_BACKENDS = ("flax", "fused")
+
+
+def forward_loss(model, loss_fn, images, heatmaps, bn_mode: str = "batch",
+                 model_backend: str = "flax"):
     """(total, per-stack losses). bn_mode "batch" normalises with batch
     statistics and updates the running ones; "frozen" normalises with the
-    running statistics and leaves them as they are."""
-    outs = model(images, train=bn_mode == "batch")
+    running statistics and leaves them as they are, whatever the backend.
+    model_backend "flax" runs the model's forward under autograd (the JAX
+    package's name for `nn.Module.apply`); "fused" runs
+    `experimental.fused_train.fused_train_apply` (train-mode BN only)."""
+    if bn_mode == "frozen":
+        outs = model(images, train=False)
+    elif model_backend == "fused":
+        outs = fused_train_apply(model, images)
+    else:
+        outs = model(images, train=True)
     per_stack = losses_lib.per_stack_losses(loss_fn, heatmaps, outs)
     return torch.stack(per_stack).sum(), per_stack
 
@@ -222,8 +237,16 @@ def _metrics(total, per_stack):
 
 
 def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
-                    bn_mode: str = "batch", accum_steps: int = 1):
+                    bn_mode: str = "batch", accum_steps: int = 1,
+                    model_backend: str = "flax"):
     """Build the train step, (state, batch) -> (state, metrics).
+
+    model_backend: "flax" (the model's forward and autograd; cuDNN convs)
+    or "fused" (`experimental.fused_train.fused_train_apply`: every
+    identity-skip hourglass bottleneck through the hand-derived backward
+    and, on the card, the six train-unit CUDA kernels; the non-mobile
+    hourglass only, a mobile model raises ValueError at the step).
+    bn_mode="frozen" runs the eval-mode forward whatever the backend.
 
     accum_steps: the batch is split into N equal microbatches; their grads
     are summed and divided by N, and one optimizer update follows. With
@@ -239,11 +262,17 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
         raise ValueError(f"bn_mode must be 'batch' or 'frozen': {bn_mode!r}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1: {accum_steps}")
+    if model_backend not in MODEL_BACKENDS:
+        raise ValueError(f"model_backend must be one of {MODEL_BACKENDS}: "
+                         f"{model_backend!r}")
     label_h, label_w = config.label_height, config.label_width
     sigma = config.hm_sigma
 
     def step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
+        if model_backend == "fused" and model.mobile:
+            raise ValueError("model_backend='fused' supports the non-mobile "
+                             "hourglass only")
         images, kx, ky, kv = _to_device(batch, state.device)
         if augment:
             images, kx, ky, kv = augment_lib.augment_batch(
@@ -265,7 +294,7 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
             for imgs_m, hms_m in zip(images.chunk(accum_steps),
                                      heatmaps.chunk(accum_steps)):
                 tot_m, ps_m = forward_loss(model, loss_fn, imgs_m, hms_m,
-                                           bn_mode)
+                                           bn_mode, model_backend)
                 tot_m.backward()
                 totals.append(tot_m.detach())
                 stacks.append(torch.stack(ps_m).detach())
@@ -276,7 +305,7 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
             per_stack = list(torch.stack(stacks).mean(0))
         else:
             total, per_stack = forward_loss(model, loss_fn, images, heatmaps,
-                                            bn_mode)
+                                            bn_mode, model_backend)
             total.backward()
         opt.step()
         state.step += 1

@@ -2,8 +2,10 @@
 card: the inference kernels (standard and mobile) at every main-path
 shape at batch 2, float32 (TF32 off) and bfloat16, the training kernels
 (warp, heatmap) at the train step's batch 64, at chip_smoke.py's
-tolerances, and the decode kernel at batch 12, legacy and corrected,
-exactly. Skips on a host without a card."""
+tolerances, the decode kernel at batch 12, legacy and corrected,
+exactly, and the six train-unit kernels (#14a-f) at every level at batch
+2, float32 and bfloat16, with the same bits on a rerun. Skips on a host
+without a card."""
 
 import numpy as np
 import pytest
@@ -94,3 +96,24 @@ def test_decode_kernel_matches_plain_version_on_card(card, legacy):
     torch.cuda.synchronize()
     assert dk.decode_batch.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("batch", [2, chip_smoke.B_TRAIN])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_unit_kernels_match_plain_versions_on_card(card, dtype, batch):
+    """#14a-f on chip_smoke's cases (64, 32, 16, 8 and 4 px), at batch 2
+    and at the train step's batch, within its train-unit tolerances; a
+    rerun gives the same bits."""
+    dt = getattr(torch, dtype)
+    for label, _, kern, plain, kinds in chip_smoke.train_unit_cases(
+            np.random.default_rng(2), dt, "cuda", batch):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, a, w, kind in zip(got, again, want, kinds):
+            assert g.shape == w.shape and g.dtype == w.dtype, label
+            assert torch.equal(g, a), label
+            err, used = chip_smoke.unit_err(g, w, kind, dt)
+            assert used <= 1.0, (label, err, used)

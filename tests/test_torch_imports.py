@@ -51,15 +51,18 @@ def test_ban_catches_the_jax_package_but_not_the_port():
 
 
 def test_new_modules_are_scanned():
-    """Every module of the evaluation and mobile slices is among the
-    scanned sources."""
+    """Every module of the evaluation, mobile and fused-training slices is
+    among the scanned sources."""
     for rel in ("data/example_codec.py", "data/tfrecord.py",
                 "data/images.py", "data/pipeline.py", "data/coco.py",
                 "ops/cuda/decode_kernel.py", "evaluation/predict.py",
                 "evaluation/oks.py", "evaluation/pck.py",
                 "utils/model_utils.py", "ops/cuda/mobile_kernel.py",
                 "models/hourglass.py", "models/fused_inference.py",
-                "utils/weight_convert.py"):
+                "utils/weight_convert.py", "experimental/__init__.py",
+                "experimental/bottleneck_grad.py",
+                "experimental/fused_train.py",
+                "ops/cuda/bottleneck_train_kernel.py"):
         path = os.path.join(PORT_DIR, rel)
         assert os.path.exists(path), rel
         assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
@@ -89,7 +92,10 @@ def test_serving_and_training_import_with_jax_blocked():
             ".model_utils import load_model_from_checkpoint\n"
             "from single_person_pose_estimation_tpu_torch.ops.cuda"
             ".mobile_kernel import fused_uplevel_mobile\n"
+            "from single_person_pose_estimation_tpu_torch.experimental"
+            ".fused_train import fused_train_apply\n"
             "assert s.PoseServer and t.Trainer and predict_ds\n"
+            "assert fused_train_apply\n"
             "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax',\n"
             "               'orbax', 'single_person_pose_estimation_tpu')\n"
             "               and sys.modules[m] for m in sys.modules)\n"
