@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths through its sixteen hand-written CUDA kernels and
+Drives the port's paths through its nineteen hand-written CUDA kernels and
 checks every phase: single-crop inference with the S4/256 model served
-by `PoseServer` (four kernels and the decode kernel), the same with the
+by `PoseServer` (four kernels and the decode kernel), the same forward
+with the `fuse_front` and `fuse_bottom` dials (the conv-skip and subtree
+kernels) and the row-blocked bottleneck at 128 px, the same with the
 mobile S4/256 model (the three mobile kernels, the head kernel and the
 decode kernel), evaluation from TFRecords by `predict_ds` (standard and
 mobile), S4/256 training by `Trainer` (the warp and heatmap kernels), and
@@ -31,6 +33,18 @@ failure:
    beside its plain version's;
 7. trace: torch.profiler over 3 forwards of each path at batch 128: device
    busy time, span and idle share, and the device time of each kernel;
+7'. dial_kernels: the conv-skip bottleneck (#6) at 64 px, 128 -> 256
+   channels, the subtree (#7) at depths 1, 2 and 3 (8, 16 and 32 px
+   inputs) and the row-blocked bottleneck (#5) at 128 px, C=256, batch 8,
+   against their plain versions in float32 and bfloat16, each run twice
+   for the same bits (#7 in bfloat16 as SUBTREE_ULP_FACTOR says);
+   dial_slice: S4/256 bf16 at batch 128 through `fused_apply` with the
+   main flags plus `fuse_front`, and plus `fuse_bottom` = 1, 2 and 3, with
+   exact launch counts (`dial_want`) and finite heatmaps, then at float32
+   and batch 8 each dial's last stack against the main flags' kernel path;
+   dial_times: the forward's img/s with each dial (median of 10,
+   alternating), #5-#7 beside their plain versions and bounds, and #5 at
+   128 px against the plain bf16 bottleneck (cuDNN convs);
 7a. mobile_kernels: the mobile kernels (#8-#10) against their plain
    versions at batch 8, C=256, at every level the mobile path runs them:
    #8 at 64 and 4 px, #9 at 32, 16 and 8 px, #10 at 64, 32, 16 and 8 px,
@@ -157,6 +171,12 @@ REPLACES = {
                           ("conv3x3_relu_stats", 144),
                           ("bn_bwd_reduce", 219), ("unit1x1_bwd", 286),
                           ("unit3x3_bwd", 373), ("unit1_bwd", 433))},
+    "fused_bottleneck_convskip":
+        "single_person_pose_estimation_tpu/ops/pallas/bottleneck_kernel.py:383",
+    "fused_subtree":
+        "single_person_pose_estimation_tpu/ops/pallas/bottom_kernel.py:119",
+    "fused_bottleneck_rows":
+        "single_person_pose_estimation_tpu/ops/pallas/bottleneck_kernel.py:196",
 }
 SOURCES = {
     "fused_bottleneck": "single_person_pose_estimation_tpu_torch/csrc/bottleneck.cu",
@@ -175,6 +195,11 @@ SOURCES = {
                      "unit1_bwd"),
                     "single_person_pose_estimation_tpu_torch/csrc/"
                     "bottleneck_train.cu"),
+    "fused_bottleneck_convskip":
+        "single_person_pose_estimation_tpu_torch/csrc/bottleneck.cu",
+    "fused_subtree": "single_person_pose_estimation_tpu_torch/csrc/bottom.cu",
+    "fused_bottleneck_rows":
+        "single_person_pose_estimation_tpu_torch/csrc/bottleneck.cu",
 }
 
 
@@ -367,18 +392,27 @@ def max_err(got, want, dtype):
     return d.max().item(), bool((d <= bound).all().item())
 
 
-def phase_kernels(report, make_cases=kernel_cases, seed=0):
+def phase_kernels(report, make_cases=kernel_cases, seed=0, twice=False):
+    """Each case's kernel against its plain version, f32 and bf16, by
+    `max_err` or by the case's own hold (a fifth element); with `twice`,
+    the kernel runs again and must give the same bits."""
     import torch
 
     rng = np.random.default_rng(seed)
     failures = []
     for dtype in (torch.float32, torch.bfloat16):
-        for label, name, kern, plain in make_cases(rng, dtype, "cuda",
-                                                   B_CHECK):
+        for label, name, kern, plain, *hold in make_cases(rng, dtype, "cuda",
+                                                          B_CHECK):
+            hold = hold[0] if hold else max_err
             got, want = kern(), plain()
+            again = kern() if twice else got
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
+            again = again if isinstance(again, tuple) else (again,)
+            if not all(g is a or torch.equal(g, a)
+                       for g, a in zip(got, again)):
+                failures.append(f"{label} {dtype}: a rerun gave other bits")
             for i, (g, w) in enumerate(zip(got, want)):
                 if w is None:
                     continue
@@ -386,7 +420,7 @@ def phase_kernels(report, make_cases=kernel_cases, seed=0):
                     failures.append(f"{label} out{i}: {g.shape}/{g.dtype} vs "
                                     f"{w.shape}/{w.dtype}")
                     continue
-                err, ok = max_err(g, w, dtype)
+                err, ok = hold(g, w, dtype)
                 key = "max_abs_err_f32" if dtype == torch.float32 else \
                     "max_abs_err"
                 ent = report.setdefault(name, {})
@@ -536,7 +570,8 @@ def phase_slice(report, model):
             "decode_batch": forwards}
     log(f"slice launches: {all_counts} expected {want}")
     if counts != want or any(all_counts[n] for n in (
-            *TRAIN_KERNELS, *MOBILE_KERNELS, *FUSED_KERNELS)):
+            *TRAIN_KERNELS, *MOBILE_KERNELS, *FUSED_KERNELS,
+            *DIAL_KERNELS)):
         raise AssertionError(f"launch counts {all_counts} != {want}")
     for name in PER_FORWARD:
         report.setdefault(name, {})["launches"] = counts[name]
@@ -1334,7 +1369,7 @@ def phase_eval(report):
         want = {**{k: v * forwards for k, v in PER_FORWARD.items()},
                 "decode_batch": N_EVAL // B_TIME,
                 **{k: 0 for k in (*TRAIN_KERNELS, *MOBILE_KERNELS,
-                                  *FUSED_KERNELS)}}
+                                  *FUSED_KERNELS, *DIAL_KERNELS)}}
         label = "flip-TTA" if flip else "plain"
         log(f"eval {label}: {len(preds)} predictions in {elapsed:.2f} s; "
             f"launches {counts} expected {want}; plain routes {routes}")
@@ -1530,16 +1565,39 @@ def bound(flops, nbytes, peak):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def subtree_bound(depth, b=B_TIME, e=2):
+    """#7 at `depth` (bf16): the 3*depth+3 bottlenecks of the levels from
+    its input side 4 << depth down to the 4 px bottom, the input map read
+    and the output map written once, each weight set read once."""
+    macs = C * CM + 9 * CM * CM + CM * C          # one bottleneck, a pixel
+    top = 4 << depth
+    pixels = sum(3 * b * (top >> k) ** 2 for k in range(depth + 1))
+    return bound(2 * macs * pixels,
+                 2 * b * top * top * C * e + (3 * depth + 3) * macs * e,
+                 PEAK_BF16)
+
+
 def inference_bounds():
-    """Bounds of #1-#4 at phase_times' shapes (bf16, B=128), counting each
-    input (activations and weights) read once and each output written
-    once."""
+    """Bounds of #1-#7 at phase_times' and phase_dial_times' shapes (bf16,
+    B=128), counting each input (activations and weights) read once and
+    each output written once: #5 a 128 px map at C=256; #6
+    front_bottleneck_3 at 64 px, 128 -> 256 channels with a 1x1 conv skip;
+    #7 at depth 2 (the 16, 8 and 4 px levels; subtree_bound gives each
+    depth)."""
     b, e = B_TIME, 2
     w_bneck = (C * CM + 9 * CM * CM + CM * C) * e
     f_bneck = lambda h: 2 * b * h * h * (C * CM + 9 * CM * CM + CM * C)
     act = lambda h, c=C: b * h * h * c * e
     m = b * 64 * 64
+    half = C // 2                                   # #6: 128 -> 256
+    macs6 = half * C + half * half + 9 * half * half + half * C
     return {
+        "fused_bottleneck_rows": bound(f_bneck(128), 2 * act(128) + w_bneck,
+                                       PEAK_BF16),
+        "fused_bottleneck_convskip": bound(
+            2 * macs6 * b * 64 * 64, act(64, half) + act(64) + macs6 * e,
+            PEAK_BF16),
+        "fused_subtree": subtree_bound(2),
         "fused_bottleneck": bound(f_bneck(64), 2 * act(64) + w_bneck,
                                   PEAK_BF16),
         "fused_bottleneck_pool": bound(
@@ -1571,29 +1629,6 @@ def mobile_bounds():
                                       PEAK_BF16),
     }
 
-
-def offpath_bounds():
-    """Bounds of the kernels still to port (#5-#7), bf16 at B=128, at the
-    shapes their dials run: #5 a 128 px map at C=256 (inputs above 256
-    px); #6 front_bottleneck_3 at 64 px, 128 -> 256 channels with a 1x1
-    conv skip (the one channel-changing bottleneck `fuse_front` fuses);
-    #7 `fuse_bottom` at depth 2, the 9 bottlenecks of the 16, 8 and 4 px
-    levels in one launch (the 16 px map in and out, 9 weight sets)."""
-    b, e = B_TIME, 2
-    macs = C * CM + 9 * CM * CM + CM * C          # one bottleneck, a pixel
-    w = macs * e
-    px = lambda h: b * h * h
-    half = C // 2                                   # #6: 128 -> 256
-    macs6 = half * C + half * half + 9 * half * half + half * C
-    return {
-        "fused_bottleneck_rows": bound(2 * macs * px(128),
-                                       2 * px(128) * C * e + w, PEAK_BF16),
-        "fused_bottleneck_convskip": bound(
-            2 * macs6 * px(64), px(64) * (half + C) * e + macs6 * e,
-            PEAK_BF16),
-        "fused_bottom": bound(2 * macs * 3 * (px(16) + px(8) + px(4)),
-                              2 * px(16) * C * e + 9 * w, PEAK_BF16),
-    }
 
 def warp_inputs(rng, device):
     """B_TRAIN images and draws that cover flips, scales that push samples
@@ -1768,7 +1803,7 @@ def phase_train(report):
         log(f"train epoch: loss {r['loss']:.5f} val_loss {r['val_loss']:.5f}")
     got = {n: counts[n] for n in TRAIN_KERNELS}
     if got != want or any(counts[n] for n in (*PER_FORWARD, *MOBILE_KERNELS,
-                                              *FUSED_KERNELS,
+                                              *FUSED_KERNELS, *DIAL_KERNELS,
                                               "decode_batch")):
         raise AssertionError(f"train launch counts {counts} != {want}")
     for n in TRAIN_KERNELS:
@@ -2506,6 +2541,333 @@ def phase_fused_train_times(report, card):
             f", bound {bms:.4f} ms ({by}) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# The fused front and subtree dials (#6, #7) and the row-blocked
+# bottleneck (#5).
+# ---------------------------------------------------------------------------
+
+DIAL_KERNELS = ("fused_bottleneck_convskip", "fused_subtree",
+                "fused_bottleneck_rows")
+DEPTHS = (1, 2, 3)
+# The dial forwards on top of MAIN_FLAGS, and the launches each adds to or
+# takes from a main-flags S4 forward (per stack: fuse_bottom=d keeps 1 of
+# #1, 3-d of #2 and 4-d up-levels, and adds 1 of #7; fuse_front adds 1 of
+# #1 and 1 of #6 per forward).
+DIALS = {"front": dict(fuse_front=True),
+         **{f"bottom{d}": dict(fuse_bottom=d) for d in DEPTHS}}
+# #7 in bfloat16 chains 6-12 bottlenecks, and a one-ulp flip of a t1 or t2
+# value where the kernel's float32 sums and cuDNN's land on either side of
+# a rounding boundary moves every value it feeds downstream: at B=8 the
+# kernel lies up to 0.5-0.75 from the plain walk and up to 0.4% of the
+# values leave TOL_BF16_REL's band, while the one-ulp input control moves
+# the plain walk as far (PERF.md, section 6). So #7 in bf16 is held (1) bit
+# for bit to the same walk composed of #1 and #3's up-add launches, which
+# phase 3 holds to TOL_BF16_REL one bottleneck at a time, and (2) within
+# SUBTREE_ULP_FACTOR times, in relative L2, what one ulp on every input
+# value moves the plain walk (readings 0.23-0.64).
+SUBTREE_ULP_FACTOR = 1.0
+
+
+def dial_want(flags, stacks=4):
+    """Exact launches of one S4 forward with MAIN_FLAGS plus `flags`."""
+    d = flags.get("fuse_bottom", 0)
+    want = {"fused_bottleneck": stacks * (1 if d else 4),
+            "fused_bottleneck_pool": stacks * (3 - d),
+            "fused_uplevel": stacks * 2 * (4 - d), "fused_head": stacks,
+            "fused_subtree": stacks * bool(d),
+            "fused_bottleneck_convskip": 0}
+    if flags.get("fuse_front"):
+        want["fused_bottleneck"] += 1
+        want["fused_bottleneck_convskip"] += 1
+    return want
+
+
+def convskip_params(rng, dtype, device):
+    """front_bottleneck_3's operands: 128 -> 256 channels, Cm 128."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
+        ConvSkipParams,
+        bn_affine,
+    )
+    import torch
+
+    def u(lo, hi, *shape):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    cin = C // 2
+    lim1, lim2 = np.sqrt(6 / (cin + CM)), np.sqrt(6 / (18 * CM))
+    affs = [bn_affine(u(.5, 1.5, n), u(-.3, .3, n), u(-.5, .5, n),
+                      u(.5, 1.5, n)) for n in (CM, CM, C)]
+    return ConvSkipParams.pack(
+        u(-lim1, lim1, cin, C), u(-.1, .1, C),
+        u(-lim1, lim1, cin, CM), u(-.1, .1, CM), u(-lim2, lim2, 3, 3, CM, CM),
+        u(-.1, .1, CM), u(-lim1, lim1, CM, C), u(-.1, .1, C),
+        *affs[0], *affs[1], *affs[2], dtype=dtype, device=device)
+
+
+def subtree_params(rng, dtype, device, depth):
+    from single_person_pose_estimation_tpu_torch.ops.cuda.bottom_kernel import (
+        SubtreeParams,
+        bneck_order,
+    )
+
+    return SubtreeParams.pack(
+        {f"hg0_{s}": bneck_params(rng, dtype, device)
+         for s in bneck_order(depth)}, "hg0", depth)
+
+
+def subtree_composed(x, sp, depth):
+    """#7's walk composed of single-bottleneck kernel launches (#1, and
+    #3's first launch for the up-add), tiled as #7 tiles each level."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottleneck_kernel as bk,
+        bottom_kernel as bt,
+    )
+
+    def upadd(f, inner, p):
+        s = torch.empty_like(f)
+        bk.launch_bottleneck(bk.MODE_UPADD, f, p, s, u_lo=inner)
+        return s
+
+    return bt.subtree_walk(x, sp, depth, bk.fused_bottleneck, upadd)
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def subtree_hold(x, sp, depth):
+    """The hold of #7 against its plain walk (see SUBTREE_ULP_FACTOR):
+    float32 as max_err; bfloat16 bit-equal to `subtree_composed` and
+    within SUBTREE_ULP_FACTOR of the one-ulp input control."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottom_kernel as bt,
+    )
+
+    def hold(got, want, dtype):
+        if dtype == torch.float32:
+            return max_err(got, want, dtype)
+        x_ulp = (x.view(torch.int16) + 1).view(torch.bfloat16)
+        ctrl = rel_l2(bt.fused_subtree_plain(x_ulp, sp, depth), want)
+        same = torch.equal(got, subtree_composed(x, sp, depth))
+        err, in_band = max_err(got, want, dtype)
+        d = (got.float() - want.float()).abs()
+        share = (d <= TOL_BF16_REL * want.float().abs().clamp(min=1.0)
+                 ).float().mean().item()
+        log(f"  #7 depth {depth} bf16: bit-equal to the composed launches "
+            f"{same}; rel L2 {rel_l2(got, want):.3e} vs one-ulp control "
+            f"{ctrl:.3e}; {share:.6f} of the values within TOL_BF16_REL")
+        return err, bool(same and torch.isfinite(got).all().item()
+                         and rel_l2(got, want) <= SUBTREE_ULP_FACTOR * ctrl)
+
+    return hold
+
+
+def dial_kernel_cases(rng, dtype, device, b):
+    """(name, kernel call, plain call[, hold]) of #5-#7 at the dials'
+    shapes: #6 at 64 px (128 -> 256), #7 at depths 1-3 (8, 16 and 32 px
+    inputs, with `subtree_hold`), #5 at 128 px."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottleneck_kernel as bk,
+        bottom_kernel as bt,
+    )
+
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, 64, 64, C // 2))
+                         .astype(np.float32)).to(device=device, dtype=dtype)
+    p = convskip_params(rng, dtype, device)
+    cases = [("fused_bottleneck_convskip@64", "fused_bottleneck_convskip",
+              lambda: bk.fused_bottleneck_convskip(x, p),
+              lambda: bk.fused_bottleneck_convskip_plain(x, p))]
+    for d in DEPTHS:
+        xd = nhwc(rng, b, 4 << d, dtype, device)
+        sp = subtree_params(rng, dtype, device, d)
+        cases.append((f"fused_subtree@depth{d}", "fused_subtree",
+                      lambda xd=xd, sp=sp, d=d: bt.fused_subtree(xd, sp, d),
+                      lambda xd=xd, sp=sp, d=d:
+                          bt.fused_subtree_plain(xd, sp, d),
+                      subtree_hold(xd, sp, d)))
+    x128, p128 = nhwc(rng, b, 128, dtype, device), bneck_params(rng, dtype,
+                                                                device)
+    cases.append(("fused_bottleneck_rows@128", "fused_bottleneck_rows",
+                  lambda: bk.fused_bottleneck_rows(x128, p128),
+                  lambda: bk.fused_bottleneck_rows_plain(x128, p128)))
+    return cases
+
+
+def phase_dial_slice(report, model):
+    """S4/256 bf16 at B=128 through fused_apply with each dial: exact
+    launch counts, finite heatmaps; then at f32 and B=8 each dial's last
+    stack against the main flags' kernel path."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+
+    fp = fi.prepare_fused(model)
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.uniform(0, 1, (B_TIME, 256, 256, 3))
+                         .astype(np.float32)).cuda()
+    totals = dict.fromkeys(DIAL_KERNELS, 0)
+    with torch.inference_mode():
+        for label, flags in DIALS.items():
+            kernels.reset_launch_counts()
+            fi.plain_routes.update(forward=0, level=0)
+            hm = fi.fused_apply(fp, x, **MAIN_FLAGS, **flags)[-1]
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            want = dial_want(flags)
+            got = {n: counts[n] for n in want}
+            others = {n: c for n, c in counts.items()
+                      if n not in want and c}
+            log(f"dial_slice {label}: launches {got} expected {want}")
+            if got != want or others or any(fi.plain_routes.values()):
+                raise AssertionError(f"dial {label}: launches {counts}, "
+                                     f"plain routes {fi.plain_routes}")
+            if hm.shape != (B_TIME, 64, 64, K) or not torch.isfinite(
+                    hm).all():
+                raise AssertionError(f"dial {label}: bad heatmaps")
+            for n in DIAL_KERNELS:
+                totals[n] += counts[n]
+    for n in DIAL_KERNELS[:2]:
+        report.setdefault(n, {})["launches"] = totals[n]
+    log(f"dial_slice launches of the dial kernels over the four dial "
+        f"forwards: {totals}")
+
+    # f32 (TF32 off): each dial against the main flags' kernel path, the
+    # phase_slice tolerances.
+    x8 = x[:8]
+    model.compute_dtype = torch.float32
+    try:
+        fp32 = fi.prepare_fused(model)
+        with torch.inference_mode():
+            base = fi.fused_apply(fp32, x8, **MAIN_FLAGS)[-1]
+            for label, flags in DIALS.items():
+                hm = fi.fused_apply(fp32, x8, **MAIN_FLAGS, **flags)[-1]
+                d = (hm - base).abs()
+                log(f"dial_slice {label} f32 B=8 vs main flags: max|d| = "
+                    f"{d.max().item():.3e}, mean|d| = "
+                    f"{d.mean().item():.3e}")
+                if not (d.max().item() <= TOL_S4_F32_MAX
+                        and d.mean().item() <= TOL_S4_F32_MEAN):
+                    raise AssertionError(f"dial {label} f32: max "
+                                         f"{d.max().item()}, mean "
+                                         f"{d.mean().item()}")
+    finally:
+        model.compute_dtype = torch.bfloat16
+
+
+def phase_dial_times(report, model, card):
+    """S4/256 bf16 forward img/s at B=128 with each dial (median of 10,
+    alternating); #5-#7 at B=128 beside their plain versions; #5 at
+    128 px against the plain cuDNN bottleneck."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottleneck_kernel as bk,
+        bottom_kernel as bt,
+    )
+
+    fp = fi.prepare_fused(model)
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.uniform(0, 1, (B_TIME, 256, 256, 3))
+                         .astype(np.float32)).cuda()
+    variants = {"main": {}, **DIALS}
+    runs = {k: (lambda f=f: fi.fused_apply(fp, x, **MAIN_FLAGS, **f)[-1])
+            for k, f in variants.items()}
+    times = {k: [] for k in runs}
+    names = list(runs)
+    with torch.inference_mode():
+        for fn in runs.values():
+            fn()
+        for i in range(10):
+            for name in (names if i % 2 == 0 else names[::-1]):
+                times[name].append(cuda_ms(runs[name], iters=1, warmup=0))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    for name, ms in med.items():
+        log(f"dial_times S4/256 bf16 forward B={B_TIME} {name}: median "
+            f"{ms:.2f} ms over 10 runs = {B_TIME / ms * 1e3:.1f} img/s, "
+            f"{med['main'] / ms:.4f}x main flags [{card}]")
+    report["_dial_forward"] = {k: B_TIME / ms * 1e3 for k, ms in med.items()}
+
+    dt = torch.bfloat16
+    xs = torch.from_numpy(rng.uniform(-1, 1, (B_TIME, 64, 64, C // 2))
+                          .astype(np.float32)).to(device="cuda", dtype=dt)
+    cp = fp.bnecks["front_bottleneck_3"]
+    cases = {"fused_bottleneck_convskip": (
+        "64x64 128->256", lambda: bk.fused_bottleneck_convskip(xs, cp),
+        lambda: bk.fused_bottleneck_convskip_plain(xs, cp),
+        inference_bounds()["fused_bottleneck_convskip"])}
+    for d in DEPTHS:
+        xd = nhwc(rng, B_TIME, 4 << d, dt, "cuda")
+        sp = fp.subtree(0, d)
+        cases[f"fused_subtree@depth{d}"] = (
+            f"{4 << d}x{4 << d} in", lambda xd=xd, sp=sp, d=d:
+                bt.fused_subtree(xd, sp, d),
+            lambda xd=xd, sp=sp, d=d: bt.fused_subtree_plain(xd, sp, d),
+            subtree_bound(d))
+    x128 = nhwc(rng, B_TIME, 128, dt, "cuda")
+    name128 = "hg0_downsample_f1"
+    pr = fp.bnecks[name128]
+    cases["fused_bottleneck_rows"] = (
+        "128x128", lambda: bk.fused_bottleneck_rows(x128, pr),
+        lambda: bk.fused_bottleneck_rows_plain(x128, pr),
+        inference_bounds()["fused_bottleneck_rows"])
+    with torch.inference_mode():
+        for label, (shape, kern, plain, (bms, by)) in cases.items():
+            ms = cuda_ms(kern, iters=5)
+            plain_ms = cuda_ms(plain, iters=5)
+            device_ms = kernel_device_ms(kern, label)
+            log(f"dial_times {label} bf16 B={B_TIME} {shape}: kernel "
+                f"{ms:.3f} ms ({device_ms:.3f} ms on the device), plain "
+                f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+            if label in DIAL_KERNELS or label == "fused_subtree@depth2":
+                report.setdefault(label.split("@")[0], {}).update(
+                    ms=ms, plain_ms=plain_ms, device_ms=device_ms)
+
+        # JAX's scripts/bench_rows_bneck_ab.py question on this card: #5 at
+        # 128 px against the plain bf16 bottleneck (cuDNN convs), in turns.
+        # The kernel's launches in this run are #5's count: no forward
+        # reaches it.
+        cudnn = lambda: fi._bottleneck_plain(fp, x128, name128, C)
+        kernels.reset_launch_counts()
+        ab = {"kernel": [], "cudnn": []}
+        for i in range(4):
+            for k in (("kernel", "cudnn") if i % 2 == 0 else
+                      ("cudnn", "kernel")):
+                ab[k].append(cuda_ms(cases["fused_bottleneck_rows"][1]
+                                     if k == "kernel" else cudnn, iters=3,
+                                     warmup=1))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["fused_bottleneck_rows"]
+    if launches != 4 * (3 + 1):          # 4 turns of 1 warm-up + 3 calls
+        raise AssertionError(f"#5 launched {launches} times in the A/B")
+    report["fused_bottleneck_rows"]["launches"] = launches
+    k_ms, c_ms = (statistics.median(ab[k]) for k in ("kernel", "cudnn"))
+    log(f"dial_times rows A/B bf16 B={B_TIME} 128x128 C={C}: kernel "
+        f"{k_ms:.3f} ms, plain cuDNN bottleneck {c_ms:.3f} ms, kernel/"
+        f"cuDNN {k_ms / c_ms:.3f} (medians of 4, {launches} launches of "
+        f"#5) [{card}]")
+
+
+def timed(name, fn, *args, **kwargs):
+    """Run one phase and log its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -2520,48 +2882,55 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     report = {}
-    phase_build()
-    phase_kernels(report)
-    phase_golden()
+    timed("build", phase_build)
+    timed("kernels", phase_kernels, report)
+    timed("golden", phase_golden)
     model = build_s4().to("cuda")
-    phase_decode_kernel(report, model)
-    phase_slice(report, model)
-    phase_times(report, model, card)
-    phase_trace(model, card)
+    timed("decode_kernel", phase_decode_kernel, report, model)
+    timed("slice", phase_slice, report, model)
+    timed("times", phase_times, report, model, card)
+    timed("trace", phase_trace, model, card)
+    timed("dial_kernels", phase_kernels, report, dial_kernel_cases, seed=30,
+          twice=True)
+    timed("dial_slice", phase_dial_slice, report, model)
+    timed("dial_times", phase_dial_times, report, model, card)
     del model
     torch.cuda.empty_cache()
-    phase_kernels(report, mobile_kernel_cases, seed=20)
-    phase_mobile_golden()
+    timed("mobile_kernels", phase_kernels, report, mobile_kernel_cases,
+          seed=20)
+    timed("mobile_golden", phase_mobile_golden)
     model = build_s4_mobile().to("cuda")
-    phase_mobile_slice(report, model)
-    phase_mobile_times(report, model, card)
+    timed("mobile_slice", phase_mobile_slice, report, model)
+    timed("mobile_times", phase_mobile_times, report, model, card)
     del model
     torch.cuda.empty_cache()
     try:
-        cfg, val = phase_eval(report)
+        cfg, val = timed("eval", phase_eval, report)
         torch.cuda.empty_cache()
-        phase_eval_times(report, cfg, card)
+        timed("eval_times", phase_eval_times, report, cfg, card)
         torch.cuda.empty_cache()
-        phase_mobile_eval(report, cfg, val, card)
+        timed("mobile_eval", phase_mobile_eval, report, cfg, val, card)
     finally:
         shutil.rmtree(EVAL_ROOT, ignore_errors=True)
     torch.cuda.empty_cache()
-    phase_train_kernels(report)
-    phase_train(report)
-    phase_train_times(report, card)
+    timed("train_kernels", phase_train_kernels, report)
+    timed("train", phase_train, report)
+    timed("train_times", phase_train_times, report, card)
     torch.cuda.empty_cache()
-    phase_fused_train_kernels(report)
-    phase_fused_train(report)
+    timed("fused_train_kernels", phase_fused_train_kernels, report)
+    timed("fused_train", phase_fused_train, report)
     torch.cuda.empty_cache()
-    phase_fused_train_times(report, card)
+    timed("fused_train_times", phase_fused_train_times, report, card)
     for name, (bms, by) in inference_bounds().items():
         report[name].update(bound_ms=bms, bound_by=by, library_ms=None)
-    for name, (bms, by) in offpath_bounds().items():
-        log(f"bound of {name} (still to port): {bms:.4f} ms ({by})")
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"forward_img_per_s_b128_bf16": report.pop("_forward"),
+                    "dial_forward_img_per_s_b128_bf16":
+                        report.pop("_dial_forward"),
                     "eval_img_per_s_b128_bf16": report.pop("_eval"),
                     "mobile_forward_img_per_s_b128_bf16":
                         report.pop("_mobile_forward"),

@@ -84,9 +84,11 @@ __device__ __forceinline__ void zero_acc(float (&acc)[kNP][kNC]) {
 }
 
 // Rows of C values of the LH x LW region whose top-left pixel is (y0, x0)
-// in an H x W image (xb, NHWC) into dst, zeros outside the image.
+// in an H x W image (xb, NHWC) into dst, zeros outside the image. xb is
+// not __restrict__: bottom.cu reads maps that its block wrote earlier in
+// the same launch, which the read-only (non-coherent) cache may not serve.
 template <typename T>
-__device__ __forceinline__ void load_region(T* dst, const T* __restrict__ xb,
+__device__ __forceinline__ void load_region(T* dst, const T* xb,
                                             int y0, int x0, int LH, int LW,
                                             int H, int W, int C) {
   using V4 = typename Store<T>::V4;

@@ -14,15 +14,20 @@ For a CPU tensor every kernel wrapper runs its plain PyTorch version, so
 the CPU tests reach this module's routing; for a CUDA tensor each wrapper
 launches its kernel or raises.
 
-Not ported (they raise): `fuse_bottom`, `fuse_front` and `front_s2d`
-(ROADMAP Queue 1 item 17, Queue 2 items 7 and 9). Under `mobile` the
-first two are turned off, as the JAX package turns them off.
+The JAX package's two experimental dials run here too, off by default
+as there: `fuse_front` sends `front_bottleneck_2` to the bottleneck
+kernel and `front_bottleneck_3` to the conv-skip kernel
+(`front_bottleneck_1`, at 128 px, stays plain); `fuse_bottom=d` runs the
+innermost d levels of each hourglass as one subtree launch
+(`ops/cuda/bottom_kernel.py`). Under `mobile` both are turned off, as the
+JAX package turns them off. `front_s2d` is not ported and raises (ROADMAP
+Queue 1 item 17).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,11 +38,18 @@ from single_person_pose_estimation_tpu_torch.models.hourglass import (
 )
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     BottleneckParams,
+    ConvSkipParams,
     bn_affine,
     fused_bottleneck,
+    fused_bottleneck_convskip,
     fused_bottleneck_pool,
     maxpool2x2,
     upsample2x,
+)
+from single_person_pose_estimation_tpu_torch.ops.cuda.bottom_kernel import (
+    LEVELS,
+    SubtreeParams,
+    fused_subtree,
 )
 from single_person_pose_estimation_tpu_torch.ops.cuda.head_kernel import (
     HeadParams,
@@ -77,7 +89,10 @@ class FusedParams:
 
     `convs` / `affines` hold every layer in the compute dtype for the plain
     layers (front, and levels above `fuse_max_h`); `bnecks` and `heads`
-    hold the kernels' layouts (`MobileParams` for a mobile model).
+    hold the kernels' layouts (`MobileParams` for a mobile model; for a
+    standard one also `front_bottleneck_2` and, as `ConvSkipParams`,
+    `front_bottleneck_3`). `subtree(stack, depth)` packs a stack's subtree
+    weights on first use and caches them in `subtrees`.
     """
 
     num_stacks: int
@@ -89,6 +104,15 @@ class FusedParams:
     bnecks: Dict[str, Union[BottleneckParams, MobileParams]] = field(
         default_factory=dict)
     heads: List[HeadParams] = field(default_factory=list)
+    subtrees: Dict[Tuple[int, int], SubtreeParams] = field(
+        default_factory=dict)
+
+    def subtree(self, stack: int, depth: int) -> SubtreeParams:
+        key = (stack, depth)
+        if key not in self.subtrees:
+            self.subtrees[key] = SubtreeParams.pack(self.bnecks,
+                                                    f"hg{stack}", depth)
+        return self.subtrees[key]
 
 
 @torch.no_grad()
@@ -128,6 +152,18 @@ def prepare_fused(model, dtype: Optional[torch.dtype] = None) -> FusedParams:
                 *out.affines[n + "_conv_3x3_2_bn"],
                 *out.affines[n + "_conv_1x1_3_bn"])
 
+    def bneck(n, cls=BottleneckParams, *skip):
+        return cls.pack(*skip, w(n + "_conv_1x1_1"), b(n + "_conv_1x1_1"),
+                        w(n + "_conv_3x3_2"), b(n + "_conv_3x3_2"),
+                        w(n + "_conv_1x1_3"), b(n + "_conv_1x1_3"),
+                        *affines(n), dtype=dt, device=dev)
+
+    if not out.mobile:      # the fuse_front kernels' weights
+        out.bnecks["front_bottleneck_2"] = bneck("front_bottleneck_2")
+        n = "front_bottleneck_3"
+        out.bnecks[n] = bneck(n, ConvSkipParams, w(n + "_skip"),
+                              b(n + "_skip"))
+
     for i in range(model.num_stacks):
         for suffix in _HG_BOTTLENECKS:
             n = f"hg{i}_{suffix}"
@@ -137,11 +173,7 @@ def prepare_fused(model, dtype: Optional[torch.dtype] = None) -> FusedParams:
                     *sep("_conv_1x1_1"), *sep("_conv_3x3_2"),
                     *sep("_conv_1x1_3"), *affines(n), dtype=dt, device=dev)
             else:
-                out.bnecks[n] = BottleneckParams.pack(
-                    w(n + "_conv_1x1_1"), b(n + "_conv_1x1_1"),
-                    w(n + "_conv_3x3_2"), b(n + "_conv_3x3_2"),
-                    w(n + "_conv_1x1_3"), b(n + "_conv_1x1_3"),
-                    *affines(n), dtype=dt, device=dev)
+                out.bnecks[n] = bneck(n)
         hg = f"hg{i}"
         glue = {}
         if i < model.num_stacks - 1:
@@ -194,12 +226,15 @@ def _bottleneck_plain(fp: FusedParams, x, name, channels):
     return skip + y
 
 
-def _front(fp: FusedParams, x):
+def _front(fp: FusedParams, x, fuse_front=False):
     c = fp.num_channels
     y = torch.relu(_conv(fp, x, "front_conv_1x1_1", stride=2))
     y = _bn(fp, y, "front_conv_1x1_1_bn")
     y = _bottleneck_plain(fp, y, "front_bottleneck_1", c // 2)
     y = maxpool2x2(y)
+    if fuse_front:
+        y = fused_bottleneck(y.contiguous(), fp.bnecks["front_bottleneck_2"])
+        return fused_bottleneck_convskip(y, fp.bnecks["front_bottleneck_3"])
     y = _bottleneck_plain(fp, y, "front_bottleneck_2", c // 2)
     return _bottleneck_plain(fp, y, "front_bottleneck_3", c)
 
@@ -235,6 +270,11 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
     not a fallback on error; each such bottleneck adds one to
     `plain_routes["level"]`. The main path (256 px input, fuse_max_h=64)
     never takes it.
+    fuse_front runs front_bottleneck_2 through `fused_bottleneck` and
+    front_bottleneck_3 through `fused_bottleneck_convskip`; fuse_bottom=d
+    (0-4 at the four-level hourglass) runs the outer 4 - d levels as above
+    and the innermost d, with the bottom block, as one `fused_subtree`
+    launch per stack.
     For fp prepared from a mobile model (`fp.mobile`, the JAX function's
     `mobile=True`) the bottlenecks, pools and up-levels run the mobile
     kernels (`ops/cuda/mobile_kernel.py`), the heads the same `fused_head`,
@@ -245,18 +285,16 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
     if front_s2d:
         raise NotImplementedError("front_s2d is not ported yet (ROADMAP "
                                   "Queue 1 item 17)")
-    if fuse_bottom:
-        raise NotImplementedError("fuse_bottom is not ported yet (ROADMAP "
-                                  "Queue 2 item 9)")
-    if fuse_front:
-        raise NotImplementedError("fuse_front is not ported yet (ROADMAP "
-                                  "Queue 2 item 7)")
+    depth = int(fuse_bottom)
+    if not 0 <= depth <= len(LEVELS):
+        raise ValueError(f"fuse_bottom must be 0..{len(LEVELS)}, got "
+                         f"{fuse_bottom}")
     if images.dim() != 4 or images.shape[1] % 64 or images.shape[2] % 64:
         raise ValueError(f"input must be (B, H, W, 3) with H and W "
                          f"divisible by 64; got {tuple(images.shape)}")
     c = fp.num_channels
     x = images.to(fp.compute_dtype)
-    y = _front(fp, x).contiguous()
+    y = _front(fp, x, fuse_front).contiguous()
 
     if fp.mobile:
         k_bneck, k_pool, k_uplevel = (fused_bottleneck_mobile,
@@ -287,12 +325,15 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
         name = f"hg{i}"
         skips = []
         pd = y
-        for lvl in ("f1", "f2", "f4", "f8"):
+        for lvl in LEVELS[::-1][:4 - depth]:
             f, pd = down(pd, f"{name}_downsample_{lvl}")
             skips.append((f, lvl))
         u = pd.contiguous()
-        for lvl in ("f8_1", "f8_2", "f8_3"):
-            u = bneck(u, f"{name}_downsample_{lvl}")
+        if depth:
+            u = fused_subtree(u, fp.subtree(i, depth), depth)
+        else:
+            for lvl in ("f8_1", "f8_2", "f8_3"):
+                u = bneck(u, f"{name}_downsample_{lvl}")
         for feat, lvl in reversed(skips):
             short = f"{name}_upsample_{lvl}_short"
             merged = f"{name}_upsample_{lvl}_merged"

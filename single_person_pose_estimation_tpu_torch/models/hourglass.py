@@ -15,7 +15,11 @@ Reference details kept:
     inputs (torch's padding=3 would shift the output by a pixel);
   * the last stack's next-stage convs are pruned, so S4/256 counts
     13,784,260 parameters (BN running statistics included, as Keras counts);
-  * the sigmoid runs in float32; upsampling is nearest 2x;
+  * `predict_activation` ("sigmoid", the default, "linear" or "relu")
+    is applied to each stack's prediction as the reference's `_activate`
+    applies it: the sigmoid in float32, the other two in the compute
+    dtype; the inter-stack feedback reads the activated prediction;
+  * upsampling is nearest 2x;
   * H and W must be divisible by 64;
   * `mobile=True` swaps every bottleneck conv, the front bottlenecks'
     `_skip` convs included, for a `SeparableConv` (a depthwise conv with
@@ -37,13 +41,14 @@ and weights of every conv, as flax's `dtype=` does.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 _BN_EPS = 1e-3
+_ACTIVATIONS = ("sigmoid", "linear", "relu")
 
 
 def same_pad(n: int, k: int, s: int):
@@ -123,12 +128,17 @@ class StackedHourglass(nn.Module):
                  num_channels: int = 256,
                  compute_dtype: torch.dtype = torch.float32,
                  mobile: bool = False, front_s2d: bool = False,
-                 remat=False, bn_momentum: float = 0.99):
+                 remat=False, bn_momentum: float = 0.99,
+                 predict_activation: str = "sigmoid"):
         super().__init__()
         if front_s2d or remat:
             raise NotImplementedError(
                 "front_s2d and remat are not ported yet (ROADMAP Queue 1 "
                 "item 17)")
+        if predict_activation not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {predict_activation}; "
+                             f"expected one of {_ACTIVATIONS}")
+        self.predict_activation = predict_activation
         self.num_classes = num_classes
         self.num_stacks = num_stacks
         self.num_channels = num_channels
@@ -217,7 +227,8 @@ class StackedHourglass(nn.Module):
             u = self._bottleneck(u, f"{hg}_upsample_{lvl}_merged", c, train)
         head = self._bn(self._conv(u, hg + "_conv_1x1_1"),
                         hg + "_conv_1x1_1_bn", train)
-        pred = self._conv(head, hg + "_conv_1x1_predict", "sigmoid")
+        pred = self._conv(head, hg + "_conv_1x1_predict",
+                          self.predict_activation)
         if is_last:
             return x, pred
         h2 = self._conv(head, hg + "_conv_1x1_2", "linear")
@@ -254,3 +265,23 @@ class StackedHourglass(nn.Module):
             y, pred = self._hourglass(y, i, i == self.num_stacks - 1, train)
             outputs.append(pred.float().permute(0, 2, 3, 1))
         return outputs
+
+
+def create_hourglass_model(num_classes: int, num_stacks: int,
+                           num_channels: int,
+                           input_shape: Sequence[int] = (256, 256, 3),
+                           predict_activation: str = "sigmoid",
+                           mobile: bool = False,
+                           compute_dtype: torch.dtype = torch.float32,
+                           remat: bool = False) -> StackedHourglass:
+    """The reference's factory (JAX `models/hourglass.py`
+    `create_hourglass_model`), with its signature. Returns the model with
+    freshly initialised torch weights; load flax-layout variables with
+    `utils.weight_convert.load_variables`. `input_shape` is implied by the
+    input tensor, and `remat` other than False raises."""
+    del input_shape
+    return StackedHourglass(num_classes=num_classes, num_stacks=num_stacks,
+                            num_channels=num_channels,
+                            compute_dtype=compute_dtype, mobile=mobile,
+                            remat=remat,
+                            predict_activation=predict_activation)

@@ -1,10 +1,13 @@
-"""Hand-written CUDA kernels of the inference (standard and mobile),
-evaluation and training paths (the fused train-mode bottleneck included), each with its plain PyTorch version beside
-it (see each module's docstring)."""
+"""Hand-written CUDA kernels of the inference (standard and mobile, with
+the fused front and subtree dials), evaluation and training paths (the
+fused train-mode bottleneck included), each with its plain PyTorch version
+beside it (see each module's docstring)."""
 
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     fused_bottleneck,
+    fused_bottleneck_convskip,
     fused_bottleneck_pool,
+    fused_bottleneck_rows,
 )
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_train_kernel import (
     bn_bwd_reduce,
@@ -13,6 +16,9 @@ from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_train_kernel im
     unit1_bwd,
     unit1x1_bwd,
     unit3x3_bwd,
+)
+from single_person_pose_estimation_tpu_torch.ops.cuda.bottom_kernel import (
+    fused_subtree,
 )
 from single_person_pose_estimation_tpu_torch.ops.cuda.decode_kernel import (
     decode_batch,
@@ -53,6 +59,9 @@ KERNEL_WRAPPERS = {
     "unit1x1_bwd": unit1x1_bwd,
     "unit3x3_bwd": unit3x3_bwd,
     "unit1_bwd": unit1_bwd,
+    "fused_bottleneck_convskip": fused_bottleneck_convskip,
+    "fused_subtree": fused_subtree,
+    "fused_bottleneck_rows": fused_bottleneck_rows,
 }
 
 

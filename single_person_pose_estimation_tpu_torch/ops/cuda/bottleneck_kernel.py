@@ -1,4 +1,4 @@
-"""Fused identity-skip bottleneck (inference), as a hand-written CUDA kernel.
+"""Fused hourglass bottlenecks (inference), as hand-written CUDA kernels.
 
     t1  = bn1(relu(x @ W1 + b1))            1x1, C -> Cm
     t2  = bn2(relu(conv3x3(t1, W2) + b2))   3x3, Cm -> Cm
@@ -6,9 +6,12 @@
     out = x + t3
 
 Replaces `single_person_pose_estimation_tpu/ops/pallas/bottleneck_kernel.py`
-`fused_bottleneck` and `fused_bottleneck_pool` (the latter also returns the
-2x2/s2 maxpool of `out`). The kernel is `csrc/bottleneck.cu`; its source
-note says what bounds it on the H100 and how it is tiled.
+`fused_bottleneck`, `fused_bottleneck_pool` (which also returns the 2x2/s2
+maxpool of `out`), `fused_bottleneck_rows` (the same function as
+`fused_bottleneck`, on maps too tall for one TPU block) and
+`fused_bottleneck_convskip` (a 1x1 conv + ReLU skip from Cin to C channels
+in place of the identity). The kernels are in `csrc/bottleneck.cu`; its
+source note says what bounds them on the H100 and how they are tiled.
 
 Layout is NHWC, as in the JAX package. Weights are (C, Cm), (3, 3, Cm, Cm)
 and (Cm, C) in the storage dtype (float32 or bfloat16); biases and the
@@ -65,9 +68,34 @@ class BottleneckParams:
 
     def stages(self):
         """(b1, a1, c1, b2, a2, c2) over Cm and (b3, a3, c3) over C."""
-        cm, c = self.w1.shape[1], self.w1.shape[0]
+        cm, c = self.w3.shape
         return (self.vec[:6 * cm].view(6, cm).unbind(0)
-                + self.vec[6 * cm:].view(3, c).unbind(0))
+                + self.vec[6 * cm:6 * cm + 3 * c].view(3, c).unbind(0))
+
+
+@dataclass
+class ConvSkipParams(BottleneckParams):
+    """A conv-skip bottleneck's weights: `BottleneckParams` with w1 (Cin,
+    Cm) and w3 (Cm, C), plus the skip's ws (Cin, C) in the storage dtype
+    and its bias bs appended to vec (C floats)."""
+
+    ws: torch.Tensor = None
+
+    @classmethod
+    def pack(cls, ws, bs, w1, b1, w2, b2, w3, b3, a1, c1, a2, c2, a3, c3, *,
+             dtype, device=None):
+        p = BottleneckParams.pack(w1, b1, w2, b2, w3, b3, a1, c1, a2, c2,
+                                  a3, c3, dtype=dtype, device=device)
+        bs = torch.as_tensor(bs).reshape(-1).to(dtype=torch.float32,
+                                                device=device)
+        return cls(p.w1, p.w2, p.w3, torch.cat([p.vec, bs]).contiguous(),
+                   torch.as_tensor(ws).to(dtype=dtype,
+                                          device=device).contiguous())
+
+    @property
+    def bs(self):
+        cm, c = self.w3.shape
+        return self.vec[6 * cm + 3 * c:]
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +137,21 @@ def fused_bottleneck_pool_plain(x, p: BottleneckParams):
     return out, maxpool2x2(out)
 
 
+def fused_bottleneck_rows_plain(x, p: BottleneckParams, hb: int = 32):
+    """#5's function: `fused_bottleneck_plain` after the strip check."""
+    _rows_check(x, hb)
+    return fused_bottleneck_plain(x, p)
+
+
+def fused_bottleneck_convskip_plain(x, p: ConvSkipParams):
+    """skip = round(relu(x @ Ws + bs)); out = skip + round(t3), added in
+    the storage dtype (the TPU kernel's rounding points)."""
+    dt = x.dtype
+    skip = torch.relu(x.float() @ p.ws.float() + p.bs).to(dt)
+    _, t3 = _bneck_t3(x, p)
+    return (skip.float() + t3.to(dt).float()).to(dt)
+
+
 def bottleneck_upadd_plain(x, u_lo, p: BottleneckParams):
     """round(round(x + t3) + up2x(u_lo)): the first half of an up-level."""
     xf, t3 = _bneck_t3(x, p)
@@ -120,13 +163,27 @@ def bottleneck_upadd_plain(x, u_lo, p: BottleneckParams):
 # Kernel launch.
 # ---------------------------------------------------------------------------
 
-def _check(x, p: BottleneckParams):
+def _check_x(x):
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"expected a contiguous NHWC tensor, got shape "
                          f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"storage dtype must be float32 or bfloat16, got "
                         f"{x.dtype}")
+
+
+def _check_weights(x, p, names):
+    for name in names:
+        w = getattr(p, name)
+        if w.dtype != x.dtype or w.device != x.device:
+            raise TypeError(f"{name} is {w.dtype} on {w.device}; x is "
+                            f"{x.dtype} on {x.device}")
+    if p.vec.dtype != torch.float32 or p.vec.device != x.device:
+        raise TypeError("vec must be float32 on x's device")
+
+
+def _check(x, p: BottleneckParams):
+    _check_x(x)
     # The kernel spreads Cm/4 and C/4 channel groups over its 256 threads;
     # more groups than threads would leave t1/t2 unwritten.
     C, Cm = p.w1.shape
@@ -134,13 +191,34 @@ def _check(x, p: BottleneckParams):
         raise ValueError(f"channels must be a multiple of 16 (<= 1024) "
                          f"with Cm = C/2: x {tuple(x.shape)}, w1 "
                          f"{tuple(p.w1.shape)}")
-    for name in ("w1", "w2", "w3"):
-        w = getattr(p, name)
-        if w.dtype != x.dtype or w.device != x.device:
-            raise TypeError(f"{name} is {w.dtype} on {w.device}; x is "
-                            f"{x.dtype} on {x.device}")
-    if p.vec.dtype != torch.float32 or p.vec.device != x.device:
-        raise TypeError("vec must be float32 on x's device")
+    _check_weights(x, p, ("w1", "w2", "w3"))
+
+
+def _check_convskip(x, p: ConvSkipParams):
+    _check_x(x)
+    # Cin, C and Cm as the kernel's thread groups cover them (see _check).
+    cin, cm = p.w1.shape
+    c = p.w3.shape[1]
+    if (x.shape[-1] != cin or p.ws.shape != (cin, c) or p.w3.shape[0] != cm
+            or cin % 16 or c % 16 or cm != c // 2 or max(cin, c) > 1024):
+        raise ValueError(f"expected x (..., Cin), ws (Cin, C), w1 (Cin, "
+                         f"C/2), w3 (C/2, C) with Cin and C multiples of 16 "
+                         f"(<= 1024): x {tuple(x.shape)}, ws "
+                         f"{tuple(p.ws.shape)}, w1 {tuple(p.w1.shape)}, w3 "
+                         f"{tuple(p.w3.shape)}")
+    _check_weights(x, p, ("ws", "w1", "w2", "w3"))
+    if p.vec.numel() != 6 * cm + 4 * c:
+        raise ValueError(f"vec must hold {6 * cm + 4 * c} values (with bs), "
+                         f"got {p.vec.numel()}")
+
+
+def _rows_check(x, hb):
+    """The TPU kernel's strip contract: HB = min(hb, H) divides H."""
+    H = x.shape[1]
+    HB = min(hb, H)
+    if HB < 1 or H % HB:
+        raise ValueError(f"the strip height min(hb, H) = {HB} must divide "
+                         f"H = {H} (hb={hb})")
 
 
 def _require_cuda(x):
@@ -198,5 +276,60 @@ def fused_bottleneck_pool(x, p: BottleneckParams):
     return out, pooled
 
 
+def fused_bottleneck_rows(x, p: BottleneckParams, hb: int = 32):
+    """#5, the row-blocked bottleneck: x (B, H, W, C) -> (B, H, W, C), the
+    function of `fused_bottleneck`, with the TPU kernel's contract:
+    HB = min(hb, H) must divide H, or ValueError. Replaces the JAX
+    package's `ops/pallas/bottleneck_kernel.py` `fused_bottleneck_rows`;
+    like #1 it is bound by its operations (0.903 ms at 128 px, C=256,
+    B=128 in bf16), and runs them as FMA on the CUDA cores.
+
+    `hb` is the TPU's strip height, a VMEM blocking choice like
+    `pick_nimg`. It is checked, and the kernel does not tile by it: the
+    CUDA kernel cuts every map in 8x8 tiles with a one-pixel halo, so a
+    map of any height runs the `fused_bottleneck` kernel (csrc/
+    bottleneck.cu says why strips do not carry over). Launches count on
+    `fused_bottleneck_rows.launches`, apart from `fused_bottleneck`'s."""
+    _rows_check(x, hb)
+    _check(x, p)
+    if x.device.type == "cpu":
+        return fused_bottleneck_rows_plain(x, p, hb)
+    out = torch.empty_like(x)
+    launch_bottleneck(MODE_PLAIN, x, p, out)
+    fused_bottleneck_rows.launches += 1
+    return out
+
+
+def fused_bottleneck_convskip(x, p: ConvSkipParams):
+    """#6, the conv-skip bottleneck: x (B, H, W, Cin) -> (B, H, W, C),
+    out = round(relu(x @ Ws + bs)) + round(t3) in the storage dtype.
+
+    Replaces the JAX package's `ops/pallas/bottleneck_kernel.py`
+    `fused_bottleneck_convskip` (`front_bottleneck_3` under `fuse_front`:
+    64 px, 128 -> 256 channels). Bound by its operations (0.243 ms at
+    B=128 in bf16); the kernel runs them as FMA on the CUDA cores, one 8x8
+    tile per block, and keeps the Cin-wide x halo in shared memory beside
+    t1 and t2 for the skip product (csrc/bottleneck.cu)."""
+    _check_convskip(x, p)
+    if x.device.type == "cpu":
+        return fused_bottleneck_convskip_plain(x, p)
+    _require_cuda(x)
+    B, H, W, cin = x.shape
+    cm, c = p.w3.shape
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the kernel grid's 65535 images")
+    out = torch.empty((B, H, W, c), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = build.lib().spe_convskip(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), p.ws.data_ptr(),
+        p.w1.data_ptr(), p.w2.data_ptr(), p.w3.data_ptr(), p.vec.data_ptr(),
+        out.data_ptr(), B, H, W, cin, c, cm, stream)
+    build.check(err, "conv-skip bottleneck kernel")
+    fused_bottleneck_convskip.launches += 1
+    return out
+
+
 fused_bottleneck.launches = 0
 fused_bottleneck_pool.launches = 0
+fused_bottleneck_rows.launches = 0
+fused_bottleneck_convskip.launches = 0

@@ -38,6 +38,11 @@ _SIGNATURES = {
     # mode, bf16, x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, stream
     "spe_bottleneck": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P],
+    # bf16, x, ws, w1, w2, w3, vec, out, B, H, W, Cin, C, Cm, stream
+    "spe_convskip": [_I] + [_P] * 7 + [_I] * 6 + [_P],
+    # bf16, x, w1s, w2s, w3s, vecs, out, ws, B, H, C, Cm, depth, ws_image,
+    # stream
+    "spe_subtree": [_I] + [_P] * 7 + [_I] * 5 + [ctypes.c_longlong, _P],
     # mid, bf16, u, y, wh, wpT, w2, w3p, vec, pred, ynext, M, C, K, stream
     "spe_head": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _P],
@@ -135,6 +140,8 @@ def lib():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            handle.spe_subtree_ws_elems.argtypes = [_I, _I, _I]
+            handle.spe_subtree_ws_elems.restype = ctypes.c_longlong
             handle.spe_error_string.argtypes = [_I]
             handle.spe_error_string.restype = ctypes.c_char_p
             _lib = handle

@@ -3,7 +3,9 @@
 The counterpart of the JAX package's `training/trainer.py`, with the same
 API (reference trainer.py:19-245): ``Trainer(model, ds_builder, epochs,
 learning_rate, loss_str, config)``, ``.train()``, ``.resume_training()``,
-``.get_best_weights_model()``, ``.get_latest_weights_model()``. Steps come
+``.get_best_weights_model()``, ``.get_latest_weights_model()`` (also under
+the reference's spelling ``get_lattest_weights_model``),
+``.get_loss_from_string()`` and the ``epoch_callback`` hook. Steps come
 from training/steps.py and checkpoints from training/checkpoint.py (the
 full state: params, BN statistics, Adam moments and the generator survive
 a resume).
@@ -98,6 +100,9 @@ class Trainer:
         self.ckpt = CheckpointManager(config.checkpoints_path)
         self.logger = metrics_lib.HistoryLogger(config.logs_path)
         self.num_stacks = model.num_stacks
+        # Called with the 1-based epoch number after each epoch, once its
+        # checkpoint is saved (reference trainer.py:132, :205-206).
+        self.epoch_callback = None
 
     # ------------------------------------------------------------------
 
@@ -150,6 +155,8 @@ class Trainer:
                     or epoch + 1 == final_epoch:
                 self.ckpt.save(epoch + 1, self.state, meta)
             self.ckpt.maybe_promote_best(row["val_loss"], self.state, meta)
+            if self.epoch_callback is not None:
+                self.epoch_callback(epoch + 1)
 
     # ------------------------------------------------------------------
 
@@ -232,6 +239,13 @@ class Trainer:
         """Restore the most recent checkpoint. Returns (model, state)."""
         self.state, _ = self.ckpt.restore(self.state)
         return self.model, self.state
+
+    # The reference's spelling (reference trainer.py:326).
+    get_lattest_weights_model = get_latest_weights_model
+
+    @staticmethod
+    def get_loss_from_string(loss_str: str):
+        return losses_lib.get_loss_from_string(loss_str)
 
     def get_ema_params(self):
         """Polyak-averaged params (requires Trainer(ema_decay=...))."""

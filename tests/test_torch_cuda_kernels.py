@@ -4,8 +4,11 @@ shape at batch 2, float32 (TF32 off) and bfloat16, the training kernels
 (warp, heatmap) at the train step's batch 64, at chip_smoke.py's
 tolerances, the decode kernel at batch 12, legacy and corrected,
 exactly, and the six train-unit kernels (#14a-f) at every level at batch
-2, float32 and bfloat16, with the same bits on a rerun. Skips on a host
-without a card."""
+2, float32 and bfloat16, with the same bits on a rerun, and the dial
+kernels #5-#7 (the row-blocked bottleneck at 128 px, the conv-skip
+bottleneck at 64 px, the subtree at depths 1-3) at batch 2, float32 and
+bfloat16, also with the same bits on a rerun. Skips on a host without a
+card."""
 
 import numpy as np
 import pytest
@@ -30,7 +33,8 @@ def card():
 
 
 def _hold_cases(cases, dt):
-    for label, _, kern, plain in cases:
+    for label, _, kern, plain, *hold in cases:
+        hold = hold[0] if hold else chip_smoke.max_err
         got, want = kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -39,7 +43,7 @@ def _hold_cases(cases, dt):
             if w is None:
                 continue
             assert g.shape == w.shape and g.dtype == w.dtype, label
-            err, ok = chip_smoke.max_err(g, w, dt)
+            err, ok = hold(g, w, dt)
             assert ok, (label, err)
 
 
@@ -48,6 +52,18 @@ def test_kernels_match_plain_versions_on_card(card, dtype):
     dt = getattr(torch, dtype)
     _hold_cases(chip_smoke.kernel_cases(np.random.default_rng(0), dt, "cuda",
                                         2), dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dial_kernels_match_plain_versions_on_card(card, dtype):
+    """#6 at 64 px (128 -> 256), #7 at depths 1, 2 and 3, #5 at 128 px;
+    a rerun gives the same bits."""
+    dt = getattr(torch, dtype)
+    cases = chip_smoke.dial_kernel_cases(np.random.default_rng(3), dt,
+                                         "cuda", 2)
+    _hold_cases(cases, dt)
+    for label, _, kern, *_ in cases:
+        assert torch.equal(kern(), kern()), label
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

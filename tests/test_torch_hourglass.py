@@ -15,6 +15,7 @@ from single_person_pose_estimation_tpu.models.hourglass import (
 )
 from single_person_pose_estimation_tpu_torch.models.hourglass import (
     StackedHourglass,
+    create_hourglass_model,
     same_pad,
 )
 from single_person_pose_estimation_tpu_torch.utils.weight_convert import (
@@ -39,6 +40,43 @@ def test_plain_model_matches_flax_f32():
         assert got[s].shape == (2, 16, 16, 17) and got[s].dtype == torch.float32
         np.testing.assert_allclose(got[s].numpy(), np.asarray(want[s]),
                                    atol=1e-4, err_msg=f"stack {s}")
+
+
+@pytest.mark.parametrize("activation", ["linear", "relu"])
+def test_predict_activation_matches_flax_f32(activation):
+    """`predict_activation` applied as the reference's `_activate`: S1 and
+    S2 from the same flax variables (S2 also runs the inter-stack
+    feedback, which reads the activated prediction), built by
+    `create_hourglass_model`, against flax `model.apply`."""
+    x = jnp.asarray(images(2, seed=12))
+    for stacks in (1, 2):
+        v = random_variables(stacks, 16, seed=11)
+        want = FlaxHourglass(num_stacks=stacks, num_channels=16,
+                             predict_activation=activation).apply(
+            v, x, train=False)
+        model = load_variables(create_hourglass_model(
+            17, stacks, 16, input_shape=(64, 64, 3),
+            predict_activation=activation), v)
+        assert model.predict_activation == activation
+        with torch.no_grad():
+            got = model(torch.from_numpy(np.asarray(x)))
+        for s in range(stacks):
+            assert got[s].dtype == torch.float32
+            np.testing.assert_allclose(got[s].numpy(), np.asarray(want[s]),
+                                       atol=1e-4, err_msg=f"S{stacks} {s}")
+        if activation == "linear":      # a sigmoid would bound the outputs
+            assert float(got[-1].min()) < 0
+
+
+def test_create_hourglass_model_defaults_and_rejects():
+    m = create_hourglass_model(17, 1, 16)
+    assert isinstance(m, StackedHourglass)
+    assert (m.predict_activation, m.mobile, m.compute_dtype) == (
+        "sigmoid", False, torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_hourglass_model(17, 1, 16, remat="conv_out")
+    with pytest.raises(ValueError, match="unknown activation"):
+        create_hourglass_model(17, 1, 16, predict_activation="tanh")
 
 
 def test_golden_fixture_matches_reference_outputs():

@@ -104,3 +104,42 @@ def test_serving_and_training_import_with_jax_blocked():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_lazy_public_names_resolve_with_jax_blocked():
+    """The JAX package's top-level names: importing the package loads no
+    submodule beyond `configs`; each lazy name then resolves, with JAX and
+    the JAX package blocked."""
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'jaxlib', 'optax', 'orbax',\n"
+            "          'single_person_pose_estimation_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import single_person_pose_estimation_tpu_torch as p\n"
+            "loaded = sorted(m for m in sys.modules\n"
+            "                if m.startswith(p.__name__ + '.'))\n"
+            "assert all(m.startswith(p.__name__ + '.configs')\n"
+            "           for m in loaded), loaded\n"
+            "assert p.__all__ == ['Config', 'COCO_INDEX_FLIP_PAIRS',\n"
+            "    'COCO_KEYPOINT_LABELS', 'COCO_SKELETON', 'StackedHourglass',\n"
+            "    'create_hourglass_model', 'Trainer', 'DatasetBuilder',\n"
+            "    'PoseServer'], p.__all__\n"
+            "got = {n: getattr(p, n) for n in p.__all__}\n"
+            "from single_person_pose_estimation_tpu_torch.models.hourglass"
+            " import StackedHourglass, create_hourglass_model\n"
+            "assert got['StackedHourglass'] is StackedHourglass\n"
+            "assert got['create_hourglass_model'] is create_hourglass_model\n"
+            "assert got['Trainer'].get_lattest_weights_model\n"
+            "assert got['PoseServer'].__name__ == 'PoseServer'\n"
+            "assert got['DatasetBuilder'].__name__ == 'DatasetBuilder'\n"
+            "assert len(got['COCO_KEYPOINT_LABELS']) == 17\n"
+            "try:\n"
+            "    p.NoSuchName\n"
+            "except AttributeError:\n"
+            "    pass\n"
+            "else:\n"
+            "    raise AssertionError('unknown name resolved')\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from single_person_pose_estimation_tpu.training import metrics as jmetrics
-from single_person_pose_estimation_tpu_torch import Config
+from single_person_pose_estimation_tpu_torch import Config, losses
 from single_person_pose_estimation_tpu_torch.data.device_prefetch import (
     DevicePrefetcher,
 )
@@ -65,10 +65,14 @@ def trained(tmp_path_factory):
     """Two epochs, then a one-epoch resume in a new Trainer."""
     tmp = tmp_path_factory.mktemp("trainer")
     first = _trainer(tmp, 2)
+    first.epochs_seen = []
+    first.epoch_callback = first.epochs_seen.append
     first.train()
     saved = _state_tensors(first.state)
     first.close()
     second = _trainer(tmp, 1, seed=5)
+    second.epochs_seen = []
+    second.epoch_callback = second.epochs_seen.append
     before = _state_tensors(second.state)
     second.ckpt.restore(second.state)
     restored = _state_tensors(second.state)
@@ -83,6 +87,26 @@ def test_epoch_accounting_and_steps(trained):
     assert (first.steps_per_epoch, first.valid_steps) == (2, 1)
     assert first.state.step == 4 and second.state.step == 6
     assert second.epochs == 3 and second.ckpt.latest_epoch() == 3
+
+
+def test_epoch_callback_gets_each_1_based_epoch(trained):
+    """Called once per epoch, after its checkpoint, in train() and in
+    resume_training() (reference trainer.py:205-206)."""
+    _, first, second, _, _, _ = trained
+    assert first.epochs_seen == [1, 2]
+    assert second.epochs_seen == [3]
+
+
+def test_reference_names_on_the_trainer(trained):
+    _, _, second, _, _, _ = trained
+    assert Trainer.get_lattest_weights_model is \
+        Trainer.get_latest_weights_model
+    model, state = second.get_lattest_weights_model()
+    assert model is second.model and state.step == 6
+    assert Trainer.get_loss_from_string("weighted_mse") is \
+        losses.get_loss_from_string("weighted_mse")
+    with pytest.raises(ValueError, match="Unknown loss"):
+        Trainer.get_loss_from_string("bogus")
 
 
 def test_resume_restores_the_full_state(trained):
