@@ -89,10 +89,12 @@ failure:
    each training kernel beside its plain version (per call, and on the
    device alone);
 13. fused_train_kernels: the six train-unit kernels (#14a-f) against their
-   plain versions at batch 8, C=256, Cm=128, at every level (64, 32, 16,
-   8, 4 px), float32 and bfloat16, each run twice for the same bits; at
-   64 px the cuda bottleneck backend against the plain one (forward,
-   backward on the same residuals, and end to end through autograd);
+   plain versions at batch 8 and 64, C=256, Cm=128, at every level (64,
+   32, 16, 8, 4 px), float32 and bfloat16, each run twice for the same
+   bits; at 64 px the cuda bottleneck backend against the plain one
+   (forward, backward on the same residuals, and end to end through
+   autograd); then the 3x3 units (#14b, #14e; in bfloat16 on the tensor
+   cores) at the contract's edges, UNIT3_EDGES;
 14. fused_train: S4/256 bf16 at batch 64 through
    `make_train_step(model_backend="fused")`, 3 augmented steps with finite
    losses and exact launch counts (per step 120/60/60/60/60/60 calls of
@@ -102,7 +104,8 @@ failure:
    the same state (loss, grads, running statistics);
 15. fused_train_times: the fused step against the default step (median of
    5 runs of 2 steps, alternating), the fused step's device busy time and
-   idle share, and #14a-f at the 64 px shapes of batch 64 beside their
+   idle share with the per-step time of the 3x3 forward, din and dW
+   kernels, and #14a-f at the 64 px shapes of batch 64 beside their
    plain versions, bounds and a library yardstick the port never calls.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -2099,6 +2102,86 @@ def train_unit_cases(rng, dtype, device, b, levels=LEVELS):
     return cases
 
 
+# The 3x3 units (#14b, #14e) at the edges of the kernels' contract, as
+# (batch, side, channels): 16 and 48 channels (one input chunk, narrow and
+# odd warp widths), 1024 (sixteen input chunks, eight output chunks), and
+# batch 11, which leaves a partial last group of images at 8 px (two images
+# a tile) and at 4 px (eight a tile).
+UNIT3_EDGES = ((2, 16, 16), (2, 16, 48), (2, 4, 1024), (11, 8, CM),
+               (11, 4, CM))
+
+
+def unit3_edge_cases(rng, dtype, device, edges=UNIT3_EDGES):
+    """(label, name, kernel call, plain call, output kinds) of #14b and
+    #14e at each of `edges`, with operands drawn as train_unit_inputs
+    draws the 3x3 unit's at c channels."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottleneck_train_kernel as tk,
+    )
+
+    def u(lo, hi, *shape, dt=torch.float32):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)) \
+            .to(device=device, dtype=dt)
+
+    cases = []
+    for b, h, c in edges:
+        act = u(-1, 1, b, h, h, c, dt=dtype)
+        a1, a2 = torch.relu(u(-1, 1, b, h, h, c, dt=dtype)), torch.relu(act)
+        lim = np.sqrt(6 / (18 * c))
+        w2, b2 = u(-lim, lim, 3, 3, c, c), u(-.1, .1, c)
+        aff = torch.stack([u(.5, 1.5, c), u(-.3, .3, c)])
+        k = torch.stack([u(.5, 1.5, c), u(-.1, .1, c), u(-.1, .1, c)])
+        dz = u(-1, 1, b, h, h, c, dt=dtype)
+        for name, args, kinds in (
+                ("conv3x3_relu_stats", (a1, w2, b2, *aff), ("act", "red")),
+                ("unit3x3_bwd", (dz, a2, a1, w2, k, aff),
+                 ("act", "red", "red", "red"))):
+            kern, plain = getattr(tk, name), getattr(tk, name + "_plain")
+            cases.append((f"{name}@{h} C={c} B={b}", name,
+                          lambda f=kern, a=args: f(*a),
+                          lambda f=plain, a=args: f(*a), kinds))
+    return cases
+
+
+def hold_unit_cases(report, cases, dtype, suffix):
+    """Hold each train-unit case's outputs against its plain version's
+    (unit_err), and its rerun to the same bits; the largest |d| goes to
+    the report. Returns the failures."""
+    import torch
+
+    failures = []
+    for label, name, kern, plain, kinds in cases:
+        label += suffix
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        if not same:
+            failures.append(f"{label} {dtype}: a rerun differs")
+        for i, (g, w, kind) in enumerate(zip(got, want, kinds)):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                failures.append(f"{label} out{i}: {g.shape}/{g.dtype} vs "
+                                f"{w.shape}/{w.dtype}")
+                continue
+            err, used = unit_err(g, w, kind, dtype)
+            ok = used <= 1.0
+            key = "max_abs_err_f32" if dtype == torch.float32 else \
+                "max_abs_err"
+            ent = report.setdefault(name, {})
+            ent[key] = max(ent.get(key, 0.0), err)
+            log(f"kernel {label} {str(dtype)[6:]} out{i} ({kind}): "
+                f"max|d| = {err:.3e}, {used:.3e} of its limit"
+                f"{'' if same else ' RERUN DIFFERS'} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{label} {dtype} out{i}: {err}")
+    return failures
+
+
 def unit_err(got, want, kind, dtype):
     """(max |d|, the largest share of its limit that an element uses) of
     one train-unit output; it passes when the share is at most 1."""
@@ -2121,43 +2204,21 @@ def phase_fused_train_kernels(report):
     at B=8 and at the train step's B=64 (where the 64 px 3x3 weight
     gradient caps its partials at DW_WORKSPACE and its row slices straddle
     images); a rerun of each kernel gives the same bits; at 64 px the cuda
-    bottleneck backend against the plain one (check_bottleneck_backends)."""
+    bottleneck backend against the plain one (check_bottleneck_backends);
+    then #14b and #14e at the contract's edges (UNIT3_EDGES)."""
     import torch
 
     rng = np.random.default_rng(30)
     failures = []
     for b, dtype in itertools.product((B_CHECK, B_TRAIN),
                                       (torch.float32, torch.bfloat16)):
-        for label, name, kern, plain, kinds in train_unit_cases(
-                rng, dtype, "cuda", b):
-            label = f"{label} B={b}"
-            got, again, want = kern(), kern(), plain()
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            again = again if isinstance(again, tuple) else (again,)
-            want = want if isinstance(want, tuple) else (want,)
-            same = all(torch.equal(x, y) for x, y in zip(got, again))
-            if not same:
-                failures.append(f"{label} {dtype}: a rerun differs")
-            for i, (g, w, kind) in enumerate(zip(got, want, kinds)):
-                if g.shape != w.shape or g.dtype != w.dtype:
-                    failures.append(f"{label} out{i}: {g.shape}/{g.dtype} vs "
-                                    f"{w.shape}/{w.dtype}")
-                    continue
-                err, used = unit_err(g, w, kind, dtype)
-                ok = used <= 1.0
-                key = "max_abs_err_f32" if dtype == torch.float32 else \
-                    "max_abs_err"
-                ent = report.setdefault(name, {})
-                ent[key] = max(ent.get(key, 0.0), err)
-                log(f"kernel {label} {str(dtype)[6:]} out{i} ({kind}): "
-                    f"max|d| = {err:.3e}, {used:.3e} of its limit"
-                    f"{'' if same else ' RERUN DIFFERS'} "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failures.append(f"{label} {dtype} out{i}: {err}")
+        failures += hold_unit_cases(
+            report, train_unit_cases(rng, dtype, "cuda", b), dtype, f" B={b}")
         torch.cuda.empty_cache()
     failures += check_bottleneck_backends(rng, B_CHECK)
+    for dtype in (torch.float32, torch.bfloat16):
+        failures += hold_unit_cases(
+            report, unit3_edge_cases(rng, dtype, "cuda"), dtype, "")
     if failures:
         raise AssertionError("train-unit kernels disagree: "
                              + "; ".join(failures))
@@ -2421,6 +2482,13 @@ def check_fused_f32(cfg, seed, stacks):
                              f"grads {pairs}")
 
 
+# The bf16 3x3 units' tensor-core kernels as the fused step's trace names
+# them: #14b's conv, #14e's din, #14e's dW and db.
+UNIT3_KERNELS = {"3x3 forward": "unit3_tc_kernel<1, 0>",
+                 "3x3 din": "unit3_tc_kernel<2, 2>",
+                 "3x3 dW": "dw3_tc_kernel"}
+
+
 def fused_bounds(b=B_TRAIN, h=64):
     """Bounds of #14a-f at the 64 px level (bf16): each activation read
     once and written once, weights read once; 2 operations per
@@ -2445,8 +2513,9 @@ def fused_bounds(b=B_TRAIN, h=64):
 def phase_fused_train_times(report, card):
     """The fused step against the default step (S4/256 bf16 B=64, median of
     5 runs of 2 steps, alternating), the fused step's device busy time and
-    idle share, and #14a-f at 64 px beside their plain versions, bounds
-    and a library yardstick the port never calls."""
+    idle share with the per-step time of the 3x3 units' tensor-core
+    kernels (UNIT3_KERNELS), and #14a-f at 64 px beside their plain
+    versions, bounds and a library yardstick the port never calls."""
     import torch
     import torch.nn.functional as F
 
@@ -2491,6 +2560,13 @@ def phase_fused_train_times(report, card):
         f"{1 - busy / span:.4f} [{card}]")
     for kname, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {ms:9.3f} ms/step {ms / busy:6.1%} x{n:6.1f}  {kname}")
+    for label, key in UNIT3_KERNELS.items():
+        ms = sum(v[0] for k, v in per.items() if key in k)
+        n = sum(v[1] for k, v in per.items() if key in k)
+        log(f"trace fused train step, {label} ({key}): {ms:.3f} ms/step "
+            f"{ms / busy:.1%} of busy, x{n:.1f} [{card}]")
+        if not n:
+            raise AssertionError(f"the fused step's trace shows no {key}")
     del steps
     torch.cuda.empty_cache()
 

@@ -13,24 +13,38 @@
 //       cin; unit1: dx = round(g + din);
 //       dW[tap] = Σ shift_tap(z)^T · dy,  db = Σ dy   (z = cin re-normalized)
 //
-// Four kernel bodies serve the six functions:
-//   unit_kernel<KS, PRO, EPI>  a tiled conv whose prologue makes its input
-//       (z from x, or dy from dz and a) on the tile and its one-pixel halo in
-//       shared memory, and whose epilogue is relu + bias + stats (forward)
-//       or round + next sums or skip add (din: the conv of dy with the
-//       flipped, transposed weights);
+// Six kernel bodies serve the six functions:
+//   unit_kernel<T, KS, PRO, EPI>  a tiled conv whose prologue makes its
+//       input (z from x, or dy from dz and a) on the tile and its one-pixel
+//       halo in shared memory, and whose epilogue is relu + bias + stats
+//       (forward) or round + next sums or skip add (din: the conv of dy
+//       with the flipped, transposed weights); FMA on the CUDA cores, for
+//       every 1x1 unit and for the float32 3x3 units;
+//   unit3_tc_kernel<PRO, EPI>  the bfloat16 3x3 unit (#14b, and #14e's din)
+//       on the tensor cores: an implicit GEMM, M = output pixels, N = Cout,
+//       K = 9 * Cin (see its note below);
 //   reduce_kernel              the two per-channel sums of bn_bwd_reduce;
-//   dw_kernel<KS, AFF>         split-K weight gradient: a block owns a 64x64
+//   dw_kernel<T, KS, AFF>      split-K weight gradient: a block owns a 64x64
 //       tile of one tap's dW over one slice of the rows, and recomputes dy
-//       and the shifted z of that slice on the fly;
-//   finalize_kernel            sums the per-block partials of the three
-//       above in a fixed order.
+//       and the shifted z of that slice on the fly (FMA; the 1x1 units and
+//       the float32 3x3 unit);
+//   dw3_tc_kernel              the bfloat16 3x3 weight gradient (#14e's dW
+//       and db) on the tensor cores, split over rows; a block computes dy
+//       and z once per tile for all 9 taps;
+//   finalize_kernel            sums the per-block partials of the others in
+//       a fixed order.
 //
 // Bound on the H100 (B=64, 64 px, C=256, Cm=128, bf16): the 1x1 units and
 // the reductions are bound by HBM bytes (~0.06-0.16 ms), the 3x3 units by
-// tensor-core operations (~0.08-0.16 ms). This first version runs the
-// products as FMA on the CUDA cores in float32, so it is bound by the FMA
-// rate, far above those bounds.
+// tensor-core operations (~0.08-0.16 ms). The FMA bodies run the products
+// in float32 on the CUDA cores, far above those bounds. The bf16 3x3
+// bodies run them as mma.sync.m16n8k16 bf16 with float32 accumulation
+// (csrc/mma.cuh): per k16 step a warp loads its A and B fragments with
+// ldmatrix from padded shared-memory rows (no bank conflicts) and issues
+// 16 products. What holds them above the bound is instruction issue and
+// latency at 2 blocks (unit3) or 1 block (dw3) per SM: the prologues'
+// float32 work, the barriers, and mma.sync's share of the tensor cores'
+// rate (wgmma is the rest).
 //
 // Design: the TPU kernels carry their sums and dW/db across a sequential
 // batch grid in VMEM. Blocks on Hopper run in parallel in no order, so each
@@ -41,7 +55,43 @@
 // elementwise prologues round every float32 multiply and add (__fmul_rn,
 // __fadd_rn) in the plain versions' order, so z and dy equal theirs bit
 // for bit; only the order of the sums differs. Nothing is allocated here.
+//
+// The tensor-core 3x3 bodies take their plan as integers from
+// ops/cuda/bottleneck_train_kernel.py (unit3_plan, dw3_plan), which the CPU
+// tests check. Choices:
+//   * Output tile: kTcM = 128 pixels, 8 x 16 on maps at least 16 wide
+//     (halo 10 x 18: 1.41 halo pixels per output pixel, against 1.56 for
+//     8 x 8), whole images from 8 px down (two of 8 x 8, eight of 4 x 4),
+//     so every level of the fused step fills the tile; a warp's 16 ldmatrix
+//     rows are 16 pixels of one tile row, or whole rows of small images.
+//   * Halo: channel-contiguous, rows padded to CK + 8 bf16 (CK + 8 = 72: a
+//     144-byte stride, so the 8 rows of an ldmatrix tile fall in 8
+//     distinct 16-byte bank groups for any tap's shift); Cin in chunks of
+//     CK = 64 (or 48/32/16, the widest that divides it), so any width that
+//     is a multiple of 16 up to 1024 fits. Its raw values arrive by
+//     cp.async with zero fill, all in flight at once, and the prologue
+//     runs in place; per-block tables of the tile geometry replace the
+//     integer divisions.
+//   * Weights: one tap's (CK x NT) slice per stage, rows padded to NT + 8,
+//     through a cp.async ring of up to TC_STAGES stages (as many as leave
+//     room for two blocks per SM), one barrier per stage. NT = 128 (the
+//     widest chunk of Cout that divides it), halved down to 32 on the small
+//     maps so that a launch has at least TC_MIN_WORK work items.
+//   * Grid: row_grid's persistent grid, capped at kMaxParts, a fixed order
+//     of work items per block; the column sums of a work item go through a
+//     fixed warp butterfly and a fixed order over warps into the block's
+//     partial row.
+//   * dW: warp w owns tap w (9 warps), the block a 32 x 64 (Ci x Co) tile
+//     for all 9 taps: 9 x 32 x 64 accumulators are 64 registers a lane, and
+//     dy and z are computed once per tile and channel tile (at C=128: dy 4
+//     times over the 4 Ci tiles, z twice over the 2 Co tiles, against 18
+//     times in dw_kernel), from a three-stage cp.async ring; the row
+//     slices are as many as make about 264 blocks (twice the H100's 132
+//     SMs) within DW_WORKSPACE.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace spe {
 namespace train {
@@ -49,6 +99,12 @@ namespace train {
 constexpr int kMaxParts = 1024;  // ops/cuda/bottleneck_train_kernel.py MAX_PARTS
 constexpr int kDwRows = 32;      // rows of one dw_kernel step
 constexpr int kDwTile = 64;      // dW tile side
+constexpr int kTcM = 128;        // output pixels of a tensor-core tile (TC_M)
+constexpr int kTcThreads = 256;  // unit3_tc_kernel: 8 warps, 4 along M x 2 along N
+constexpr int kTcNt8 = 8;        // n8 tiles of one warp, at most
+constexpr int kTcCk16 = 4;       // k16 steps of one input chunk, at most (TC_CK)
+constexpr int kDwTcThreads = 288;  // dw3_tc_kernel: 9 warps, one per tap
+static_assert(kTcThreads == kThreads, "row_grid sizes blocks of kThreads");
 
 enum Pro { kProNone = 0, kProAffine = 1, kProDy = 2 };
 enum Epi { kEpiReluStats = 0, kEpiDin = 1, kEpiDinSums = 2, kEpiDinSkip = 3 };
@@ -394,11 +450,13 @@ cudaError_t dispatch_unit(int ks, int pro, int epi, const void* x,
                                            sums, B, H, W, K, N, s);
   SPE_UNIT(1, kProNone, kEpiReluStats)
   SPE_UNIT(1, kProAffine, kEpiReluStats)
-  SPE_UNIT(3, kProAffine, kEpiReluStats)
   SPE_UNIT(1, kProDy, kEpiDin)
   SPE_UNIT(1, kProDy, kEpiDinSums)
   SPE_UNIT(1, kProDy, kEpiDinSkip)
-  SPE_UNIT(3, kProDy, kEpiDinSums)
+  if constexpr (std::is_same<T, float>::value) {  // bf16: unit3_tc_kernel
+    SPE_UNIT(3, kProAffine, kEpiReluStats)
+    SPE_UNIT(3, kProDy, kEpiDinSums)
+  }
 #undef SPE_UNIT
   return cudaErrorInvalidValue;
 }
@@ -447,9 +505,575 @@ cudaError_t dispatch_dw(int ks, int aff, const void* dz, const void* a,
     return launch_dw<T, 1, true>(dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
   if (ks == 1)
     return launch_dw<T, 1, false>(dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
-  if (ks == 3 && aff)
-    return launch_dw<T, 3, true>(dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
+  if constexpr (std::is_same<T, float>::value)
+    if (ks == 3 && aff)
+      return launch_dw<T, 3, true>(dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The 3x3 units in bfloat16 on the tensor cores.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// A tile is ni images x th rows x tw columns of output pixels (at most
+// kTcM), its halo ni x (th + 2) x (tw + 2) pixels; tiles run image group
+// by image group, row of tiles by row of tiles.
+struct TcTiles {
+  int B, H, W, ni, th, tw, tiles_x, tiles_y, ntiles;
+};
+
+inline TcTiles make_tiles(int B, int H, int W, int ni, int th, int tw) {
+  TcTiles g{B, H, W, ni, th, tw, (W + tw - 1) / tw, (H + th - 1) / th, 0};
+  g.ntiles = ((B + ni - 1) / ni) * g.tiles_y * g.tiles_x;
+  return g;
+}
+
+__device__ __forceinline__ void tile_origin(const TcTiles& g, int t, int& b0,
+                                            int& y0, int& x0) {
+  const int per_group = g.tiles_y * g.tiles_x, r = t % per_group;
+  b0 = (t / per_group) * g.ni;
+  y0 = (r / g.tiles_x) * g.th;
+  x0 = (r % g.tiles_x) * g.tw;
+}
+
+// Output pixel m of a tile: image i, row r, column c within it.
+__device__ __forceinline__ void tile_pixel(const TcTiles& g, int m, int& i,
+                                           int& r, int& c) {
+  c = m % g.tw;
+  r = (m / g.tw) % g.th;
+  i = m / (g.tw * g.th);
+}
+
+// The halo index of pixel (i, r, c) at tap (0, 0); tap (p, q) adds
+// p * (tw + 2) + q.
+__device__ __forceinline__ int halo_index(const TcTiles& g, int i, int r, int c) {
+  return (i * (g.th + 2) + r) * (g.tw + 2) + c;
+}
+
+// Each block tabulates its tile geometry once: hpk[q] = packed (image,
+// row, column) of halo pixel q (row and column from the halo's corner),
+// mpk[m] = packed (image, row, column) of tile row m, -1 past P; 8 bits
+// for the row and for the column (th <= kTcM, tw <= 16). A lookup then
+// takes the place of three integer divisions per pixel.
+__device__ __forceinline__ int pack_irc(int i, int r, int c) {
+  return (i << 16) | (r << 8) | c;
+}
+
+__device__ __forceinline__ void build_tables(const TcTiles& g, int* hpk,
+                                             int* mpk) {
+  const int LH = g.th + 2, LW = g.tw + 2, P = g.ni * g.th * g.tw;
+  for (int q = threadIdx.x; q < g.ni * LH * LW; q += blockDim.x)
+    hpk[q] = pack_irc(q / (LH * LW), (q / LW) % LH, q % LW);
+  for (int m = threadIdx.x; m < kTcM; m += blockDim.x) {
+    int i, r, c;
+    tile_pixel(g, m, i, r, c);
+    mpk[m] = m < P ? pack_irc(i, r, c) : -1;
+  }
+}
+
+// The NHWC pixel index of a tile row (packed, or -1) of the tile at (b0,
+// y0, x0), or -1 outside the batch or the image.
+__device__ __forceinline__ int row_pix(const TcTiles& g, int pk, int b0,
+                                       int y0, int x0) {
+  const int b = b0 + (pk >> 16), y = y0 + ((pk >> 8) & 255), x = x0 + (pk & 255);
+  if (pk < 0 || b >= g.B || y >= g.H || x >= g.W) return -1;
+  return (b * g.H + y) * g.W + x;
+}
+
+// The NHWC pixel index of a halo pixel (packed) of the tile at (b0, y0,
+// x0), or -1 outside (the prologue's zero padding).
+__device__ __forceinline__ int halo_pix(const TcTiles& g, int pk, int b0,
+                                        int y0, int x0) {
+  const int b = b0 + (pk >> 16), y = y0 + ((pk >> 8) & 255) - 1,
+            x = x0 + (pk & 255) - 1;
+  if (b >= g.B || y < 0 || y >= g.H || x < 0 || x >= g.W) return -1;
+  return (b * g.H + y) * g.W + x;
+}
+
+__host__ __device__ inline size_t tables_bytes(int nhalo) {
+  return align16((size_t)(nhalo + kTcM) * 4);
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+__device__ __forceinline__ float round_bf(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// prologue<bf16, PRO> of 8 consecutive channels from their raw values (x,
+// and a for kProDy, 8 packed bf16 each) and the constants v0[c], v1[c],
+// v2[c] of c = c0..c0+7, as 8 packed bf16: the same float32 operations in
+// the same order as prologue<T, PRO>, so the same bits.
+template <int PRO>
+__device__ __forceinline__ uint4 prologue8(uint4 xr, uint4 ar,
+                                           const float* v0, const float* v1,
+                                           const float* v2, int c0) {
+  const uint32_t xw[4] = {xr.x, xr.y, xr.z, xr.w};
+  const uint32_t aw[4] = {ar.x, ar.y, ar.z, ar.w};
+  uint32_t ow[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float o[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 2 * k + h;
+      const float xv = h ? bf_hi(xw[k]) : bf_lo(xw[k]);
+      if (PRO == kProAffine) {
+        o[h] = __fadd_rn(__fmul_rn(xv, v0[c]), v1[c]);
+      } else {
+        const float av = h ? bf_hi(aw[k]) : bf_lo(aw[k]);
+        const float da = __fadd_rn(
+            __fadd_rn(__fmul_rn(v0[c], xv), __fmul_rn(v1[c], av)), v2[c]);
+        o[h] = av > 0.f ? da : 0.f;
+      }
+    }
+    ow[k] = mma::pack_bf16(o[0], o[1]);
+  }
+  return make_uint4(ow[0], ow[1], ow[2], ow[3]);
+}
+
+__device__ __forceinline__ uint4 lds16(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void sts16(bf16* p, uint4 v) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// One block walks work items t = blockIdx.x, + gridDim.x, ...: item t is
+// tile t / (N / NT) and the NT output channels of chunk t % (N / NT). Per
+// input chunk of CK channels, the halo's raw values (x, and a for kProDy)
+// arrive by cp.async, all in flight together, and each thread runs the
+// prologue in place on the values it copied; the 9 taps' (CK x NT) weight
+// slices stream through an NST-stage cp.async ring, NST - 1 stages ahead.
+// Warp (wm, wn) owns rows wm*32..+31 of the tile's kTcM and columns
+// wn*NT/2..+NT/2 of the chunk: 2 x NT/16 m16n8 accumulators.
+template <int PRO, int EPI>
+__global__ void __launch_bounds__(kTcThreads, 2)
+unit3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
+                const float* __restrict__ pv, const bf16* __restrict__ w,
+                const float* __restrict__ bias, const bf16* __restrict__ aux,
+                bf16* __restrict__ out, float* __restrict__ part, TcTiles g,
+                int K, int N, int CK, int NT, int NST) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int LH = g.th + 2, LW = g.tw + 2, nhalo = g.ni * LH * LW;
+  const int SH = CK + 8, SW = NT + 8;  // padded rows: ldmatrix is conflict-free
+  const size_t halo_bytes = align16((size_t)nhalo * SH * 2);
+  int* hpk = reinterpret_cast<int*>(smem_raw);
+  int* mpk = hpk + nhalo;
+  unsigned char* base = smem_raw + tables_bytes(nhalo);
+  bf16* halo = reinterpret_cast<bf16*>(base);  // raw x, then z or dy
+  bf16* araw = reinterpret_cast<bf16*>(base + halo_bytes);  // kProDy: a
+  bf16* ring = reinterpret_cast<bf16*>(base + halo_bytes * (PRO == kProDy ? 2 : 1));
+  float* colred = reinterpret_cast<float*>(ring + NST * CK * SW);  // [4][2][NT]
+  float* red = colred + 8 * NT;                                    // [2][N]
+  const int tid = threadIdx.x, lane = tid & 31, wm = (tid >> 5) & 3,
+            wn = tid >> 7;
+  const int P = g.ni * g.th * g.tw, nt8 = NT / 16, nch = N / NT;
+  const int nstage = 9 * (K / CK), nwork = g.ntiles * nch, c8 = CK / 8;
+  const float *v0 = pv, *v1 = pv + K, *v2 = pv + 2 * K;
+  const bool busy = wm * 32 < P;  // a warp whose rows all lie past P idles
+
+  for (int v = tid; v < 2 * N; v += kTcThreads) red[v] = 0.f;
+  build_tables(g, hpk, mpk);
+  __syncthreads();
+  // This thread copies halo pixels q = hq0, + qstep, ... (channels hc0..
+  // hc0+7 of the chunk) and weight rows kr0, + krstep, ... (columns
+  // wc0..wc0+7); threads past the last whole step idle.
+  const int qstep = kTcThreads / c8, hq0 = tid / c8, hc0 = (tid % c8) * 8;
+  const int qlim = tid < qstep * c8 ? nhalo : 0;
+  const int per_row = NT / 8, krstep = kTcThreads / per_row;
+  const int kr0 = tid / per_row, wc0 = (tid % per_row) * 8;
+  const int krlim = tid < krstep * per_row ? CK : 0;
+  // The halo rows this lane's ldmatrix reads for its two m16 tiles.
+  int arow[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int m = wm * 32 + mt * 16 + (lane & 15);
+    int i, r, c;
+    tile_pixel(g, m, i, r, c);
+    arow[mt] = m < P ? halo_index(g, i, r, c) : 0;
+  }
+  const int krow = ((lane >> 3) & 1) * 8 + (lane & 7);  // B rows of ldmatrix
+
+  for (int t = blockIdx.x; t < nwork; t += gridDim.x) {
+    const int nc = t % nch;
+    int b0, y0, x0;
+    tile_origin(g, t / nch, b0, y0, x0);
+    const bf16* wchunk = w + nc * NT;
+    float acc[2][kTcNt8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < kTcNt8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+    // Stage s: tap s % 9 of input chunk s / 9 into ring slot s % NST; one
+    // commit group per stage, empty past the last.
+    auto issue = [&](int s) {
+      if (s < nstage) {
+        const int kc = s / 9, tap = s % 9;
+        bf16* dst = ring + (s % NST) * CK * SW + wc0;
+        const bf16* src = wchunk + ((size_t)tap * K + kc * CK) * N + wc0;
+        for (int kr = kr0; kr < krlim; kr += krstep)
+          mma::cp_async16(mma::smem_u32(dst + kr * SW), src + (size_t)kr * N);
+      }
+      mma::cp_async_commit();
+    };
+    for (int s = 0; s < NST - 1; ++s) issue(s);
+    for (int s = 0; s < nstage; ++s) {
+      const int kc = s / 9, tap = s % 9;
+      if (tap == 0) {
+        // The halo of chunk kc, zeros outside the image.
+        if (s > 0) __syncthreads();  // the previous chunk's readers are done
+        const int c0 = kc * CK + hc0;
+        for (int q = hq0; q < qlim; q += qstep) {
+          const int pix = halo_pix(g, hpk[q], b0, y0, x0);
+          const size_t idx = (size_t)(pix >= 0 ? pix : 0) * K + c0;
+          mma::cp_async16_zfill(mma::smem_u32(halo + q * SH + hc0), x + idx, pix >= 0);
+          if (PRO == kProDy)
+            mma::cp_async16_zfill(mma::smem_u32(araw + q * SH + hc0), a + idx,
+                                  pix >= 0);
+        }
+        mma::cp_async_commit();
+        mma::cp_async_wait<0>();
+        for (int q = hq0; q < qlim; q += qstep) {
+          if (halo_pix(g, hpk[q], b0, y0, x0) < 0) continue;
+          const uint4 ar = PRO == kProDy ? lds16(araw + q * SH + hc0)
+                                         : make_uint4(0, 0, 0, 0);
+          sts16(halo + q * SH + hc0,
+                prologue8<PRO>(lds16(halo + q * SH + hc0), ar, v0, v1, v2, c0));
+        }
+      }
+      mma::cp_async_wait_n(NST - 2);  // stage s has landed
+      // Stage s and the halo are visible; every warp is done with stage
+      // s - 1, whose ring slot stage s + NST - 1 takes.
+      __syncthreads();
+      issue(s + NST - 1);
+      if (busy) {
+        const bf16* wb = ring + (s % NST) * CK * SW;
+        const int toff = (tap / 3) * LW + tap % 3;
+#pragma unroll
+        for (int ks = 0; ks < kTcCk16; ++ks) {
+          if (ks >= CK / 16) break;
+          uint32_t af[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma::ldmatrix_x4(af[mt], mma::smem_u32(
+                halo + (arow[mt] + toff) * SH + ks * 16 + (lane >> 4) * 8));
+          const bf16* brow = wb + (ks * 16 + krow) * SW + wn * (NT / 2);
+#pragma unroll
+          for (int j = 0; j < kTcNt8; j += 2) {
+            if (j >= nt8) break;
+            if (j + 1 < nt8) {
+              uint32_t bq[4];
+              mma::ldmatrix_x4_t(bq, mma::smem_u32(brow + j * 8 + (lane >> 4) * 8));
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma::mma_bf16(acc[mt][j], af[mt], bq[0], bq[1]);
+                mma::mma_bf16(acc[mt][j + 1], af[mt], bq[2], bq[3]);
+              }
+            } else {
+              uint32_t bq[2];
+              mma::ldmatrix_x2_t(bq, mma::smem_u32(brow + j * 8));
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt)
+                mma::mma_bf16(acc[mt][j], af[mt], bq[0], bq[1]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the last stage's readers are done with the ring
+
+    // Epilogue: this thread's rows (mt, h) are wm*32 + mt*16 + h*8 + lane/4.
+    int pix[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm * 32 + mt * 16 + h * 8 + (lane >> 2);
+        pix[mt][h] = row_pix(g, mpk[m], b0, y0, x0);
+      }
+#pragma unroll
+    for (int j = 0; j < kTcNt8; ++j) {
+      if (j >= nt8) break;
+      const int cl = wn * (NT / 2) + j * 8 + 2 * (lane & 3);  // in the chunk
+      const int n = nc * NT + cl;
+      float s[4] = {0.f, 0.f, 0.f, 0.f};  // [Σu] of n, n+1, then [Σu·v]
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (pix[mt][h] < 0) continue;
+          const size_t o = (size_t)pix[mt][h] * N + n;
+          float u[2], v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float c = acc[mt][j][2 * h + e];
+            u[e] = EPI == kEpiReluStats
+                       ? round_bf(fmaxf(__fadd_rn(c, bias[n + e]), 0.f))
+                       : round_bf(c);
+          }
+          *reinterpret_cast<uint32_t*>(out + o) = mma::pack_bf16(u[0], u[1]);
+          if (EPI == kEpiReluStats) {
+            v[0] = u[0];
+            v[1] = u[1];
+          } else {  // the next sums read the RAW cin
+            const uint32_t cw = *reinterpret_cast<const uint32_t*>(aux + o);
+            v[0] = bf_lo(cw);
+            v[1] = bf_hi(cw);
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[e] += u[e];
+            s[2 + e] = fmaf(u[e], v[e], s[2 + e]);
+          }
+        }
+      // The 8 lanes of one column pair, in a fixed butterfly.
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[e] += __shfl_xor_sync(0xffffffffu, s[e], off);
+      if (lane < 4) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          colred[(wm * 2) * NT + cl + e] = s[e];
+          colred[(wm * 2 + 1) * NT + cl + e] = s[2 + e];
+        }
+      }
+    }
+    __syncthreads();
+    for (int v = tid; v < 2 * NT; v += kTcThreads) {
+      const int r = v / NT, c = v % NT;
+      red[r * N + nc * NT + c] +=
+          ((colred[r * NT + c] + colred[(2 + r) * NT + c]) +
+           colred[(4 + r) * NT + c]) + colred[(6 + r) * NT + c];
+    }
+  }
+  __syncthreads();
+  for (int v = tid; v < 2 * N; v += kTcThreads)
+    part[(size_t)blockIdx.x * 2 * N + v] = red[v];
+}
+
+// The 3x3 weight gradient, split over rows: blockIdx.x picks a TI x TO
+// tile of (Ci, Co), blockIdx.y a slice of `per` tiles of output pixels.
+// Per tile the raw dz and a (TO channels, kTcM rows) and the raw cin halo
+// (TI channels) arrive by cp.async into one of three stages; each thread
+// runs the prologues in place on the values it copied (dy, z: once per
+// tile and channel tile). While the warps run tile t's products, tile t + 2
+// is in flight and each thread's prologues of tile t + 1 are interleaved
+// with its k steps, so the ALU work overlaps the tensor cores'. Warp w owns
+// tap w and reads both operands with ldmatrix.trans (A = shifted z^T, B =
+// dy). part row y (L floats): dW (tap, Ci, Co), then db (Co), summed by the
+// blocks of Ci tile 0 from the dy they make.
+__global__ void __launch_bounds__(kDwTcThreads)
+dw3_tc_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ a,
+              const float* __restrict__ kv, const bf16* __restrict__ cin,
+              const float* __restrict__ aff, float* __restrict__ part,
+              TcTiles g, int Ci, int Co, int TI, int TO, int per, int L) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int LW = g.tw + 2, nhalo = g.ni * (g.th + 2) * LW;
+  const int SZ = TI + 8, SD = TO + 8;
+  // The geometry tables, then three stages of [dz -> dy, a, cin -> z].
+  int* hpk = reinterpret_cast<int*>(smem_raw);
+  int* mpk = hpk + nhalo;
+  unsigned char* stages = smem_raw + tables_bytes(nhalo);
+  const size_t stage_bytes = align16((size_t)(2 * kTcM * SD + nhalo * SZ) * 2);
+  const int tid = threadIdx.x, lane = tid & 31, tap = tid >> 5;
+  const int tiles_o = Co / TO;
+  const int i0 = (blockIdx.x / tiles_o) * TI, o0 = (blockIdx.x % tiles_o) * TO;
+  const int P = g.ni * g.th * g.tw, nks = (P + 15) / 16;
+  const int mt16 = TI / 16, nt8 = TO / 8, d8 = TO / 8, z8 = TI / 8;
+  // This thread's dy vectors are tile rows m0, + mstep, ... (channels
+  // dcol..dcol+7), its z vectors halo pixels q0, + qstep, ... (channels
+  // zcol..zcol+7): kDwTcThreads is a multiple of d8 and z8, so each
+  // thread keeps its channels and their constants stay in registers.
+  const int mstep = kDwTcThreads / d8, m0 = tid / d8, dcol = (tid % d8) * 8;
+  const int qstep = kDwTcThreads / z8, q0 = tid / z8, zcol = (tid % z8) * 8;
+  build_tables(g, hpk, mpk);
+  float k1[8], k2[8], k3[8], sc[8], sh[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    k1[j] = kv[o0 + dcol + j];
+    k2[j] = kv[Co + o0 + dcol + j];
+    k3[j] = kv[2 * Co + o0 + dcol + j];
+    sc[j] = aff[i0 + zcol + j];
+    sh[j] = aff[Ci + i0 + zcol + j];
+  }
+  const bool db_sums = i0 == 0;
+  float dbp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  // The (shifted) halo row this lane's ldmatrix reads at each k step.
+  int ah[kTcM / 16];
+#pragma unroll
+  for (int ks = 0; ks < kTcM / 16; ++ks) {
+    const int m = ks * 16 + (lane >> 4) * 8 + (lane & 7);
+    int i, r, c;
+    tile_pixel(g, m, i, r, c);
+    ah[ks] = (m < P ? halo_index(g, i, r, c) : 0) + (tap / 3) * LW + tap % 3;
+  }
+  const int krow = ((lane >> 3) & 1) * 8 + (lane & 7);
+  float acc[2][kTcNt8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < kTcNt8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+  auto dy_of = [&](int slot) {
+    return reinterpret_cast<bf16*>(stages + slot * stage_bytes);
+  };
+  // Tile t's raw values into stage `slot`, zeros past the tile and outside
+  // the image; one commit group (empty past the slice).
+  auto issue = [&](int t, int t_end, int slot) {
+    if (t < t_end) {
+      int b0, y0, x0;
+      tile_origin(g, t, b0, y0, x0);
+      bf16* ds = dy_of(slot);
+      bf16* as = ds + kTcM * SD;
+      bf16* zs = as + kTcM * SD;
+      for (int m = m0; m < nks * 16; m += mstep) {
+        const int pix = row_pix(g, mpk[m], b0, y0, x0);
+        const size_t idx = (size_t)(pix >= 0 ? pix : 0) * Co + o0 + dcol;
+        mma::cp_async16_zfill(mma::smem_u32(ds + m * SD + dcol), dz + idx, pix >= 0);
+        mma::cp_async16_zfill(mma::smem_u32(as + m * SD + dcol), a + idx, pix >= 0);
+      }
+      for (int q = q0; q < nhalo; q += qstep) {
+        const int pix = halo_pix(g, hpk[q], b0, y0, x0);
+        const size_t idx = (size_t)(pix >= 0 ? pix : 0) * Ci + i0 + zcol;
+        mma::cp_async16_zfill(mma::smem_u32(zs + q * SZ + zcol), cin + idx, pix >= 0);
+      }
+    }
+    mma::cp_async_commit();
+  };
+  // Prologue unit k of the tile at (b0, y0, x0) in stage `slot`, in place:
+  // this thread's dy vector k (rows past the tile hold zeros, so their dy
+  // is 0) and its z vector k (z stays 0 outside the image), where they
+  // exist; k < kTcM / 16 covers them all.
+  auto prologue_unit = [&](int k, int slot, int b0, int y0, int x0) {
+    bf16* ds = dy_of(slot);
+    const int m = m0 + k * mstep, q = q0 + k * qstep;
+    if (m < nks * 16) {
+      bf16* p = ds + m * SD + dcol;
+      const uint4 dyv = prologue8<kProDy>(lds16(p), lds16(p + kTcM * SD), k1,
+                                          k2, k3, 0);
+      sts16(p, dyv);
+      if (db_sums) {
+        const uint32_t dw[4] = {dyv.x, dyv.y, dyv.z, dyv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dbp[2 * j] += bf_lo(dw[j]);
+          dbp[2 * j + 1] += bf_hi(dw[j]);
+        }
+      }
+    }
+    if (q < nhalo && halo_pix(g, hpk[q], b0, y0, x0) >= 0) {
+      bf16* p = ds + 2 * kTcM * SD + q * SZ + zcol;
+      sts16(p, prologue8<kProAffine>(lds16(p), make_uint4(0, 0, 0, 0), sc, sh,
+                                     nullptr, 0));
+    }
+  };
+
+  const int t_begin = blockIdx.y * per;
+  const int t_end = t_begin + per < g.ntiles ? t_begin + per : g.ntiles;
+  __syncthreads();  // the tables
+  issue(t_begin, t_end, 0);
+  issue(t_begin + 1, t_end, 1);
+  mma::cp_async_wait<1>();  // this thread's copies of the first tile
+  if (t_begin < t_end) {
+    int b0, y0, x0;
+    tile_origin(g, t_begin, b0, y0, x0);
+#pragma unroll
+    for (int k = 0; k < kTcM / 16; ++k) prologue_unit(k, 0, b0, y0, x0);
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    const int i = t - t_begin;
+    // Tile t's prologues are visible, and tile t - 1's readers are done
+    // with the stage that tile t + 2 takes.
+    __syncthreads();
+    issue(t + 2, t_end, (i + 2) % 3);
+    mma::cp_async_wait<1>();  // this thread's copies of tile t + 1
+    const bool next = t + 1 < t_end;
+    int b0 = 0, y0 = 0, x0 = 0;
+    if (next) tile_origin(g, t + 1, b0, y0, x0);
+    const bf16* ds = dy_of(i % 3);
+    const bf16* zs = ds + 2 * kTcM * SD;
+#pragma unroll
+    for (int ks = 0; ks < kTcM / 16; ++ks) {
+      if (ks < nks) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          if (mt < mt16)
+            mma::ldmatrix_x4_t(af[mt], mma::smem_u32(
+                zs + ah[ks] * SZ + mt * 16 + ((lane >> 3) & 1) * 8));
+        const bf16* brow = ds + (ks * 16 + krow) * SD;
+#pragma unroll
+        for (int j = 0; j < kTcNt8; j += 2) {
+          if (j >= nt8) break;  // TO % 16 == 0: nt8 is even
+          uint32_t bq[4];
+          mma::ldmatrix_x4_t(bq, mma::smem_u32(brow + j * 8 + (lane >> 4) * 8));
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            if (mt < mt16) {
+              mma::mma_bf16(acc[mt][j], af[mt], bq[0], bq[1]);
+              mma::mma_bf16(acc[mt][j + 1], af[mt], bq[2], bq[3]);
+            }
+        }
+      }
+      if (next) prologue_unit(ks, (i + 1) % 3, b0, y0, x0);
+    }
+  }
+  float* dst = part + (size_t)blockIdx.y * L;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < kTcNt8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (mt >= mt16 || j >= nt8) continue;
+        const int ci = i0 + mt * 16 + h * 8 + (lane >> 2);
+        const int co = o0 + j * 8 + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(dst + ((size_t)tap * Ci + ci) * Co + co) =
+            make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+      }
+  if (!db_sums) return;
+  // The kDwTcThreads / d8 partials of each channel, in thread order.
+  __syncthreads();  // the last tile's readers are done with the stages
+  float* red = reinterpret_cast<float*>(stages);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) red[tid * 8 + k] = dbp[k];
+  __syncthreads();
+  for (int c = tid; c < TO; c += kDwTcThreads) {
+    float sum = 0.f;
+    for (int r = c / 8 * 8; r < kDwTcThreads * 8; r += d8 * 8) sum += red[r + c % 8];
+    dst[(size_t)9 * Ci * Co + o0 + c] = sum;
+  }
+}
+
+template <int PRO, int EPI>
+cudaError_t launch_unit3_tc(const void* x, const void* a, const void* pv,
+                            const void* w, const void* bias, const void* aux,
+                            void* out, void* ws, void* sums, const TcTiles& g,
+                            int K, int N, int CK, int NT, int NST, size_t smem,
+                            cudaStream_t s) {
+  auto kernel = unit3_tc_kernel<PRO, EPI>;
+  cudaError_t err = allow_smem(kernel, smem);
+  int grid = 0;
+  if (err == cudaSuccess) err = row_grid(kernel, smem, g.ntiles * (N / NT), &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kTcThreads, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(a),
+      static_cast<const float*>(pv), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<const bf16*>(aux),
+      static_cast<bf16*>(out), static_cast<float*>(ws), g, K, N, CK, NT, NST);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_finalize(static_cast<const float*>(ws),
+                         static_cast<float*>(sums), grid, 2 * N, s);
 }
 
 }  // namespace train
@@ -480,6 +1104,56 @@ extern "C" int spe_train_reduce(int bf16, const void* dz, const void* a,
   if (bf16)
     return (int)spe::train::launch_reduce<__nv_bfloat16>(dz, a, ws, sums, R, C, s);
   return (int)spe::train::launch_reduce<float>(dz, a, ws, sums, R, C, s);
+}
+
+// A 3x3 unit in bf16 on the tensor cores: pro 1 (z = affine(x), relu +
+// stats: conv3x3_relu_stats) or 2 (dy, din + next sums: unit3x3_bwd's din),
+// then the finalize kernel into sums (2, N). The tile (ni, th, tw), the
+// input chunk ck, the output chunk nt, the weight ring's stages nst and
+// the shared memory come from
+// ops/cuda/bottleneck_train_kernel.py unit3_plan.
+extern "C" int spe_train_unit3_tc(int pro, const void* x, const void* a,
+                                  const void* pv, const void* w,
+                                  const void* bias, const void* aux, void* out,
+                                  void* ws, void* sums, int B, int H, int W,
+                                  int K, int N, int ni, int th, int tw, int ck,
+                                  int nt, int nst, int smem, void* stream) {
+  using namespace spe::train;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TcTiles g = make_tiles(B, H, W, ni, th, tw);
+  if (pro == kProAffine)
+    return (int)launch_unit3_tc<kProAffine, kEpiReluStats>(
+        x, a, pv, w, bias, aux, out, ws, sums, g, K, N, ck, nt, nst, smem, s);
+  if (pro == kProDy)
+    return (int)launch_unit3_tc<kProDy, kEpiDinSums>(
+        x, a, pv, w, bias, aux, out, ws, sums, g, K, N, ck, nt, nst, smem, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The 3x3 weight gradient in bf16 on the tensor cores: dw3_tc_kernel over
+// (Ci/ti) x (Co/to) channel tiles and `slices` slices of `per` pixel tiles.
+// With one slice it writes out (9*Ci*Co + Co floats) directly and ws is
+// unused; else its partials go to ws (slices rows) and the finalize kernel
+// adds them into out. Plan: ops/cuda/bottleneck_train_kernel.py dw3_plan.
+extern "C" int spe_train_dw3_tc(const void* dz, const void* a, const void* kv,
+                                const void* cin, const void* aff, void* ws,
+                                void* out, int B, int H, int W, int Ci, int Co,
+                                int ni, int th, int tw, int ti, int to,
+                                int slices, int per, int smem, void* stream) {
+  using namespace spe::train;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TcTiles g = make_tiles(B, H, W, ni, th, tw);
+  const int L = 9 * Ci * Co + Co;
+  cudaError_t err = spe::allow_smem(dw3_tc_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  float* dst = static_cast<float*>(slices > 1 ? ws : out);
+  dw3_tc_kernel<<<dim3((Ci / ti) * (Co / to), slices), kDwTcThreads, smem, s>>>(
+      static_cast<const bf16*>(dz), static_cast<const bf16*>(a),
+      static_cast<const float*>(kv), static_cast<const bf16*>(cin),
+      static_cast<const float*>(aff), dst, g, Ci, Co, ti, to, per, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return (int)err;
+  return (int)launch_finalize(dst, static_cast<float*>(out), slices, L, s);
 }
 
 // dW and db of a unit: the dw kernel over `slices` slices of `rows` rows,

@@ -17,17 +17,23 @@ each wrapper with the JAX function's name and contract:
   unit1_bwd           unit 1 and the skip: dx = g + dy @ W1^T, dW, db
 
 The kernels are `csrc/bottleneck_train.cu`; its source note says what
-bounds them on the H100 and how they are laid out. The TPU kernels carry
+bounds them on the H100 and how they are laid out. In bfloat16 the two 3x3
+units run their products on the tensor cores (`unit3_tc_kernel`,
+`dw3_tc_kernel`; `mma.sync` bf16 with float32 accumulation), with the tile
+and chunk plan computed here (`unit3_plan`, `dw3_plan`) and passed in as
+integers; every other body, and every float32 body, is FMA on the CUDA
+cores. A bf16 shape that the plan cannot take raises. The TPU kernels carry
 their sums and dW/db across a sequential grid; here every block writes
 float32 partials to a workspace that the wrapper allocates with
 `torch.empty`, and a second launch adds them in a fixed order, so two runs
 give the same bits. Launches per call (each counted on the wrapper's
 `launches`): conv1x1_relu_stats, conv3x3_relu_stats, bn_bwd_reduce 2;
-unit1x1_bwd 4 (3 without reduce_next); unit3x3_bwd 4; unit1_bwd 3.
-Workspace at B=64, 64 px, C=256, Cm=128: the row kernels' partials are
-at most 1,024 x 2C floats (2 MB); the weight gradients are split over
-row slices so that their partials stay under 32 MiB (the 3x3 unit: 56
-slices of 9*128*128 + 128 floats, 33 MB).
+unit1x1_bwd 4 (3 without reduce_next); unit3x3_bwd 4 (3 in bf16 when its
+weight gradient takes one slice); unit1_bwd 3. Workspace at B=64, 64 px,
+C=256, Cm=128: the row kernels' partials are at most 1,024 x 2C floats
+(2 MB); the weight gradients are split over row slices so that their
+partials stay under 32 MiB (the 3x3 unit: 33 slices of 9*128*128 + 128
+floats in bf16, 19.5 MB; 56 slices, 33 MB, in float32).
 
 Rounding follows the TPU kernels: the prologue z = round(x*scale + shift)
 in float32; bias added in float32, then ReLU, then one rounding; the
@@ -57,6 +63,16 @@ DW_WORKSPACE = 8 << 20    # floats of a weight gradient's partials (32 MiB)
 DW_MIN_ROWS = 2048        # rows of one weight-gradient slice, at least
 PRO_NONE, PRO_AFFINE, PRO_DY = 0, 1, 2
 EPI_RELU_STATS, EPI_DIN, EPI_DIN_SUMS, EPI_DIN_SKIP = 0, 1, 2, 3
+# The bf16 3x3 units on the tensor cores (csrc/bottleneck_train.cu
+# unit3_tc_kernel, dw3_tc_kernel).
+TC_M = 128                # kTcM: output pixels of one tile
+TC_NT = 128               # widest output-channel chunk of a work item
+TC_CK = 64                # widest input-channel chunk of the halo
+SMEM_LIMIT = 232448       # shared memory of one block on the H100
+TC_HALO = 320             # halo pixels of one tile, at most
+TC_STAGES = 4             # weight slices in flight in unit3_tc_kernel, at most
+TC_MIN_WORK = 132         # work items a 3x3 unit aims at, at least (132 SMs)
+DW3_BLOCKS = 264          # blocks the 3x3 weight gradient aims at (2 x 132 SMs)
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +243,159 @@ def dw_slices(rows: int, length: int):
     return -(-rows // per), per
 
 
+def _widest(n, cap):
+    """The largest multiple of 16 that divides n (a multiple of 16), at
+    most cap."""
+    return next(d for d in range(cap, 0, -16) if n % d == 0)
+
+
+def _tc_channels(*cs):
+    for c in cs:
+        if c % 16 or not 0 < c <= 1024:
+            raise ValueError(f"the tensor-core 3x3 units take channels that "
+                             f"are multiples of 16 (<= 1024), got {c}")
+
+
+def tc_tiles(B, H, W):
+    """The output tile of the tensor-core 3x3 units: (ni, th, tw, tiles_x,
+    tiles_y, ntiles). A tile is ni images x th rows x tw columns, at most
+    TC_M pixels: 8 x 16 on maps at least 16 wide (a 10 x 18 halo, 1.41
+    halo pixels per output pixel), whole images of 8 px in twos and of 4 px
+    in eights; on maps under 4 px wide, fewer pixels, so that the halo
+    holds at most TC_HALO pixels. Tiles run image group by image group,
+    then by rows of tiles (csrc/bottleneck_train.cu make_tiles,
+    tile_origin)."""
+    if B * H * W >= 2 ** 31:  # the kernels index pixels in int32
+        raise ValueError(f"{B} x {H} x {W} pixels are too many for the "
+                         f"tensor-core 3x3 units")
+    tw = min(W, 16)
+    th = min(H, max(1, TC_M // tw))
+    ni = min(B, max(1, TC_M // (th * tw)))
+    while _halo_pixels(ni, th, tw) > TC_HALO:  # maps under 4 px wide
+        ni, th = (-(-ni // 2), th) if ni > 1 else (ni, -(-th // 2))
+    tiles_x, tiles_y = -(-W // tw), -(-H // th)
+    return ni, th, tw, tiles_x, tiles_y, -(-B // ni) * tiles_y * tiles_x
+
+
+def _halo_pixels(ni, th, tw):
+    return ni * (th + 2) * (tw + 2)
+
+
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+def unit3_plan(B, H, W, K, N, dy=False):
+    """The plan of unit3_tc_kernel for a (B, H, W, K) input and N outputs
+    (dy: the din form, whose prologue reads dz and a): its tile, the input
+    chunk ck (the halo holds ck channels at a time), the output chunk nt (a
+    work item is one tile's nt outputs; halved down to 32 while the items
+    number fewer than TC_MIN_WORK, as on the 16 to 4 px maps), the stages
+    nst of the weight ring, the work items and the bytes of shared memory:
+    the geometry tables (halo + TC_M int32), the halo (rows padded to ck + 8 bf16; twice for dy, whose raw a waits
+    beside dz), nst weight slices (ck x (nt + 8) bf16), the per-warp column
+    sums (4 x 2 x nt f32) and the block's sums (2 x N f32). nst is the
+    most, up to TC_STAGES, with which two blocks fit on one SM."""
+    _tc_channels(K, N)
+    ni, th, tw, tiles_x, tiles_y, ntiles = tc_tiles(B, H, W)
+    ck, nt = _widest(K, TC_CK), _widest(N, TC_NT)
+    while ntiles * (N // nt) < TC_MIN_WORK and nt % 32 == 0 and nt > 32:
+        nt //= 2
+    halo = _halo_pixels(ni, th, tw)
+    fixed = (_align16((halo + TC_M) * 4)
+             + (2 if dy else 1) * _align16(halo * (ck + 8) * 2)
+             + 8 * nt * 4 + 2 * N * 4)
+    fits = [n for n in range(TC_STAGES, 1, -1)
+            if fixed + n * ck * (nt + 8) * 2 <= SMEM_LIMIT // 2 - 1024]
+    nst = fits[0] if fits else 2
+    smem = fixed + nst * ck * (nt + 8) * 2
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a 3x3 unit at {(B, H, W, K)} -> {N} needs {smem} "
+                         f"bytes of shared memory, over {SMEM_LIMIT}")
+    return dict(ni=ni, th=th, tw=tw, tiles_x=tiles_x, tiles_y=tiles_y,
+                ntiles=ntiles, ck=ck, nt=nt, nst=nst,
+                work=ntiles * (N // nt), smem=smem)
+
+
+def dw3_plan(B, H, W, Ci, Co):
+    """The plan of dw3_tc_kernel: the tile (as unit3_plan's), the channel
+    tile ti x to of one block (its 9 taps' accumulators, 9 * ti * to
+    floats, fill the registers of 9 warps at 32 x 64), the slices of `per`
+    tiles that split the rows (enough blocks to fill the card twice, few
+    enough that their partials stay within DW_WORKSPACE floats; one slice
+    writes dW and db directly, with no workspace), and the bytes of shared
+    memory: the geometry tables (halo + TC_M int32) and three stages of the raw dz and a (TC_M x (to + 8) bf16 each,
+    dz turned into dy in place) and the raw cin halo (ti + 8 bf16 a pixel,
+    turned into z)."""
+    _tc_channels(Ci, Co)
+    ni, th, tw, tiles_x, tiles_y, ntiles = tc_tiles(B, H, W)
+    ti, to = _widest(Ci, 32), _widest(Co, 64)
+    ctiles = (Ci // ti) * (Co // to)
+    length = 9 * Ci * Co + Co
+    slices = max(1, min(DW_WORKSPACE // length, ntiles,
+                        -(-DW3_BLOCKS // ctiles)))
+    per = -(-ntiles // slices)
+    slices = -(-ntiles // per)
+    halo = _halo_pixels(ni, th, tw)
+    stage = _align16((2 * TC_M * (to + 8) + halo * (ti + 8)) * 2)
+    smem = _align16((halo + TC_M) * 4) + 3 * stage
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a 3x3 weight gradient at {(B, H, W, Ci)} -> {Co} "
+                         f"needs {smem} bytes of shared memory, over "
+                         f"{SMEM_LIMIT}")
+    return dict(ni=ni, th=th, tw=tw, tiles_x=tiles_x, tiles_y=tiles_y,
+                ntiles=ntiles, ti=ti, to=to, ctiles=ctiles, length=length,
+                slices=slices, per=per,
+                workspace=0 if slices == 1 else slices * length, smem=smem)
+
+
+def _aligned16(*ts):
+    """The tensor-core kernels copy their inputs 16 bytes at a time."""
+    for t in ts:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"the tensor-core 3x3 units need 16-byte "
+                             f"aligned operands; got {tuple(t.shape)} at "
+                             f"{t.data_ptr():#x}")
+
+
+def _launch_unit3_tc(pro, x, a, pv, w, bias, aux, n):
+    """unit3_tc_kernel and its finalize: (out (B, H, W, n), sums (2, n))."""
+    B, H, W, K = x.shape
+    p = unit3_plan(B, H, W, K, n, dy=pro == PRO_DY)
+    _require_cuda(x)
+    _aligned16(x, a, w)
+    out = torch.empty((B, H, W, n), dtype=x.dtype, device=x.device)
+    ws = torch.empty((MAX_PARTS, 2 * n), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    err = build.lib().spe_train_unit3_tc(
+        pro, x.data_ptr(), ptr(a), pv.data_ptr(), w.data_ptr(), ptr(bias),
+        ptr(aux), out.data_ptr(), ws.data_ptr(), sums.data_ptr(), B, H, W, K,
+        n, p["ni"], p["th"], p["tw"], p["ck"], p["nt"], p["nst"], p["smem"],
+        _stream(x))
+    build.check(err, "tensor-core 3x3 unit kernel")
+    return out, sums
+
+
+def _launch_dw3_tc(dz, a, k, cin, aff):
+    """dW (3, 3, Ci, Co) and db (1, Co), float32, of the bf16 3x3 unit on
+    the tensor cores, and the launches it took (1 with one slice, else 2)."""
+    B, H, W, Co = dz.shape
+    Ci = cin.shape[-1]
+    p = dw3_plan(B, H, W, Ci, Co)
+    _aligned16(dz, a, cin)
+    out = torch.empty(p["length"], dtype=torch.float32, device=dz.device)
+    ws = torch.empty(p["workspace"], dtype=torch.float32, device=dz.device)
+    err = build.lib().spe_train_dw3_tc(
+        dz.data_ptr(), a.data_ptr(), k.data_ptr(), cin.data_ptr(),
+        aff.data_ptr(), ws.data_ptr() if p["workspace"] else None,
+        out.data_ptr(), B, H, W, Ci, Co, p["ni"], p["th"], p["tw"], p["ti"],
+        p["to"], p["slices"], p["per"], p["smem"], _stream(dz))
+    build.check(err, "tensor-core 3x3 dW kernel")
+    return (out[:-Co].view(3, 3, Ci, Co), out[-Co:].view(1, Co),
+            1 + (p["slices"] > 1))
+
+
 def _launch_dw(ks, dz, a, k, cin, aff):
     """dW (ks, ks, Ci, Co) and db (1, Co), float32, of one unit."""
     B, H, W, Co = dz.shape
@@ -272,15 +441,21 @@ def conv1x1_relu_stats(x, w, b, scale=None, shift=None):
 
 def conv3x3_relu_stats(x, w, b, scale, shift):
     """x (B, H, W, Cin), w (3, 3, Cin, Cout) -> (a, sums (2, Cout) float32).
-    2 launches."""
+    bf16 runs on the tensor cores (unit3_tc_kernel), float32 on the FMA
+    body. 2 launches."""
     Cin, Cout = w.shape[2:]
     _check(x, channels=(Cout,))
     if x.device.type == "cpu":
         return conv3x3_relu_stats_plain(x, w, b, scale, shift)
     w = _weight(w, (3, 3, x.shape[-1], Cout), x.dtype).contiguous()
     pv = torch.cat([_vec(scale, Cin, x.device), _vec(shift, Cin, x.device)])
-    a, sums = _launch_unit(3, PRO_AFFINE, EPI_RELU_STATS, x, None, pv, w,
-                           _vec(b, Cout, x.device), None, Cout)
+    bias = _vec(b, Cout, x.device)
+    if x.dtype == torch.bfloat16:
+        a, sums = _launch_unit3_tc(PRO_AFFINE, x, None, pv, w, bias, None,
+                                   Cout)
+    else:
+        a, sums = _launch_unit(3, PRO_AFFINE, EPI_RELU_STATS, x, None, pv, w,
+                               bias, None, Cout)
     conv3x3_relu_stats.launches += 2
     return a, sums
 
@@ -334,7 +509,10 @@ def unit1x1_bwd(dz, a, cin, w, k, aff=None, affine_cin=True,
 def unit3x3_bwd(dz, a, cin, w, k, aff):
     """Backward of the 3x3 unit: (dz_prev, dw (3, 3, C, C), db (1, C),
     sums_prev (2, C)). dz, a, cin (B, H, W, C); w (3, 3, C, C); k (3, C);
-    aff (2, C) the previous unit's BN affine. 4 launches."""
+    aff (2, C) the previous unit's BN affine. bf16 runs on the tensor cores
+    (unit3_tc_kernel, dw3_tc_kernel), float32 on the FMA bodies. 4
+    launches (3 in bf16 when dw3_plan takes one slice, which the fused
+    step at batch 64 never does)."""
     _check(dz, a, cin)
     _same_shape(dz, a, cin)
     if dz.device.type == "cpu":
@@ -342,12 +520,18 @@ def unit3x3_bwd(dz, a, cin, w, k, aff):
     C = dz.shape[-1]
     w = _weight(w, (3, 3, C, C), dz.dtype)
     kv = _vec(k, 3 * C, dz.device)
+    affv = _vec(aff, 2 * C, dz.device)
     # din is the SAME conv of dy with the kernel flipped in space and
     # transposed in channels: Wk[p, q, o, i] = W[2-p, 2-q, i, o].
     wk = w.flip(0, 1).transpose(2, 3).contiguous()
+    if dz.dtype == torch.bfloat16:
+        din, sums = _launch_unit3_tc(PRO_DY, dz, a, kv, wk, None, cin, C)
+        dw, db, n_dw = _launch_dw3_tc(dz, a, kv, cin, affv)
+        unit3x3_bwd.launches += 2 + n_dw
+        return din, dw, db, sums
     din, sums = _launch_unit(3, PRO_DY, EPI_DIN_SUMS, dz, a, kv, wk, None,
                              cin, C)
-    dw, db = _launch_dw(3, dz, a, kv, cin, _vec(aff, 2 * C, dz.device))
+    dw, db = _launch_dw(3, dz, a, kv, cin, affv)
     unit3x3_bwd.launches += 4
     return din, dw, db, sums
 

@@ -63,6 +63,12 @@ _SIGNATURES = {
     # bf16, ks, aff, dz, a, k, cin, aff, ws, out, B, H, W, Ci, Co, slices,
     # rows, stream
     "spe_train_dw": [_I] * 3 + [_P] * 7 + [_I] * 7 + [_P],
+    # pro, x, a, pv, w, bias, aux, out, ws, sums, B, H, W, K, N, ni, th,
+    # tw, ck, nt, nst, smem, stream
+    "spe_train_unit3_tc": [_I] + [_P] * 9 + [_I] * 12 + [_P],
+    # dz, a, kv, cin, aff, ws, out, B, H, W, Ci, Co, ni, th, tw, ti, to,
+    # slices, per, smem, stream
+    "spe_train_dw3_tc": [_P] * 7 + [_I] * 13 + [_P],
 }
 
 

@@ -7,8 +7,9 @@ exactly, and the six train-unit kernels (#14a-f) at every level at batch
 2, float32 and bfloat16, with the same bits on a rerun, and the dial
 kernels #5-#7 (the row-blocked bottleneck at 128 px, the conv-skip
 bottleneck at 64 px, the subtree at depths 1-3) at batch 2, float32 and
-bfloat16, also with the same bits on a rerun. Skips on a host without a
-card."""
+bfloat16, also with the same bits on a rerun, and the 3x3 units (#14b,
+#14e; bfloat16 on the tensor cores) at the edges of their contract. Skips
+on a host without a card."""
 
 import numpy as np
 import pytest
@@ -133,3 +134,15 @@ def test_train_unit_kernels_match_plain_versions_on_card(card, dtype, batch):
             assert torch.equal(g, a), label
             err, used = chip_smoke.unit_err(g, w, kind, dt)
             assert used <= 1.0, (label, err, used)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unit3_kernels_at_the_contract_edges_on_card(card, dtype):
+    """#14b and #14e at chip_smoke.UNIT3_EDGES (16, 48 and 1024 channels;
+    batch 11, a partial last group of images at 8 and 4 px) within the
+    train-unit tolerances; a rerun gives the same bits."""
+    dt = getattr(torch, dtype)
+    failures = chip_smoke.hold_unit_cases(
+        {}, chip_smoke.unit3_edge_cases(np.random.default_rng(3), dt, "cuda"),
+        dt, "")
+    assert not failures, failures
