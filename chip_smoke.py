@@ -93,8 +93,9 @@ failure:
    32, 16, 8, 4 px), float32 and bfloat16, each run twice for the same
    bits; at 64 px the cuda bottleneck backend against the plain one
    (forward, backward on the same residuals, and end to end through
-   autograd); then the 3x3 units (#14b, #14e; in bfloat16 on the tensor
-   cores) at the contract's edges, UNIT3_EDGES;
+   autograd); then the 3x3 units (#14b, #14e) and the 1x1 backward units
+   (#14d, #14f), in bfloat16 on the tensor cores, at the contract's edges,
+   UNIT3_EDGES and UNIT1_EDGES;
 14. fused_train: S4/256 bf16 at batch 64 through
    `make_train_step(model_backend="fused")`, 3 augmented steps with finite
    losses and exact launch counts (per step 120/60/60/60/60/60 calls of
@@ -105,7 +106,7 @@ failure:
 15. fused_train_times: the fused step against the default step (median of
    5 runs of 2 steps, alternating), the fused step's device busy time and
    idle share with the per-step time of the 3x3 forward, din and dW
-   kernels, and #14a-f at the 64 px shapes of batch 64 beside their
+   kernels and of the 1x1 backward din, dx and dW kernels, and #14a-f at the 64 px shapes of batch 64 beside their
    plain versions, bounds and a library yardstick the port never calls.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -2145,6 +2146,60 @@ def unit3_edge_cases(rng, dtype, device, edges=UNIT3_EDGES):
     return cases
 
 
+# The 1x1 backward units (#14d, also without the next sums, and #14f) at
+# the edges of the kernels' contract, as (batch, side, C, Cm): C the
+# channels of the block's input and output, Cm of its middle. 16 and 48
+# channels (one dy chunk; 48 leaves threads idle in the copies and an odd
+# count of n8 tiles), 1024 (sixteen dy chunks, W^T streamed through the
+# ring instead of resident), 48 against 1024 both ways (a partial dW
+# tile, W^T streamed), and batch 11, which leaves ragged last row tiles
+# at 8 and 4 px.
+UNIT1_EDGES = ((2, 16, 16, 16), (2, 16, 48, 48), (2, 4, 1024, 1024),
+               (2, 8, 48, 1024), (2, 8, 1024, 48), (11, 8, C, CM),
+               (11, 4, C, CM))
+
+
+def unit1_edge_cases(rng, dtype, device, edges=UNIT1_EDGES):
+    """(label, name, kernel call, plain call, output kinds) of #14d (with
+    and without reduce_next) and #14f at each of `edges`, with operands
+    drawn as train_unit_inputs draws them at c and cm channels."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottleneck_train_kernel as tk,
+    )
+
+    def u(lo, hi, *shape, dt=torch.float32):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)) \
+            .to(device=device, dtype=dt)
+
+    cases = []
+    for b, h, c, cm in edges:
+        act = lambda n: u(-1, 1, b, h, h, n, dt=dtype)
+        relu = lambda n: torch.relu(act(n))
+        lim = np.sqrt(6 / (c + cm))
+        kk = lambda n: torch.stack([u(.5, 1.5, n), u(-.1, .1, n),
+                                    u(-.1, .1, n)])
+        x, g, dz1, a1, a2, a3 = act(c), act(c), act(cm), relu(cm), relu(cm), \
+            relu(c)
+        w1, w3 = u(-lim, lim, c, cm), u(-lim, lim, cm, c)
+        aff2 = torch.stack([u(.5, 1.5, cm), u(-.3, .3, cm)])
+        k1, k3 = kk(cm), kk(c)
+        red3 = ("act", "red", "red", "red")
+        for label, name, args, kw, kinds in (
+                ("unit1x1_bwd", "unit1x1_bwd", (g, a3, a2, w3, k3, aff2), {},
+                 red3),
+                ("unit1x1_bwd@no_next", "unit1x1_bwd",
+                 (g, a3, a2, w3, k3, aff2), dict(reduce_next=False), red3),
+                ("unit1_bwd", "unit1_bwd", (dz1, a1, x, g, w1, k1), {},
+                 ("act", "red", "red"))):
+            kern, plain = getattr(tk, name), getattr(tk, name + "_plain")
+            cases.append((f"{label}@{h} C={c} Cm={cm} B={b}", name,
+                          lambda f=kern, a=args, kw=kw: f(*a, **kw),
+                          lambda f=plain, a=args, kw=kw: f(*a, **kw), kinds))
+    return cases
+
+
 def hold_unit_cases(report, cases, dtype, suffix):
     """Hold each train-unit case's outputs against its plain version's
     (unit_err), and its rerun to the same bits; the largest |d| goes to
@@ -2205,7 +2260,8 @@ def phase_fused_train_kernels(report):
     gradient caps its partials at DW_WORKSPACE and its row slices straddle
     images); a rerun of each kernel gives the same bits; at 64 px the cuda
     bottleneck backend against the plain one (check_bottleneck_backends);
-    then #14b and #14e at the contract's edges (UNIT3_EDGES)."""
+    then #14b and #14e at the contract's edges (UNIT3_EDGES), and #14d and
+    #14f at theirs (UNIT1_EDGES)."""
     import torch
 
     rng = np.random.default_rng(30)
@@ -2219,6 +2275,8 @@ def phase_fused_train_kernels(report):
     for dtype in (torch.float32, torch.bfloat16):
         failures += hold_unit_cases(
             report, unit3_edge_cases(rng, dtype, "cuda"), dtype, "")
+        failures += hold_unit_cases(
+            report, unit1_edge_cases(rng, dtype, "cuda"), dtype, "")
     if failures:
         raise AssertionError("train-unit kernels disagree: "
                              + "; ".join(failures))
@@ -2487,6 +2545,13 @@ def check_fused_f32(cfg, seed, stacks):
 UNIT3_KERNELS = {"3x3 forward": "unit3_tc_kernel<1, 0>",
                  "3x3 din": "unit3_tc_kernel<2, 2>",
                  "3x3 dW": "dw3_tc_kernel"}
+# The bf16 1x1 backward units' tensor-core kernels as the trace names them
+# (both instantiations of each, WIDE or not): #14d's din with the next sums
+# and its dW (z re-normalized), #14f's dx and its dW (z = x).
+UNIT1_KERNELS = {"1x1 din": "unit1_tc_kernel<2, ",
+                 "1x1 dW": "dw1_tc_kernel<true, ",
+                 "1x1 dx": "unit1_tc_kernel<3, ",
+                 "1x1 dW, unit 1": "dw1_tc_kernel<false, "}
 
 
 def fused_bounds(b=B_TRAIN, h=64):
@@ -2513,9 +2578,10 @@ def fused_bounds(b=B_TRAIN, h=64):
 def phase_fused_train_times(report, card):
     """The fused step against the default step (S4/256 bf16 B=64, median of
     5 runs of 2 steps, alternating), the fused step's device busy time and
-    idle share with the per-step time of the 3x3 units' tensor-core
-    kernels (UNIT3_KERNELS), and #14a-f at 64 px beside their plain
-    versions, bounds and a library yardstick the port never calls."""
+    idle share with the per-step time of the 3x3 and 1x1 backward units'
+    tensor-core kernels (UNIT3_KERNELS, UNIT1_KERNELS), and #14a-f at 64 px
+    beside their plain versions, bounds and a library yardstick the port
+    never calls."""
     import torch
     import torch.nn.functional as F
 
@@ -2560,7 +2626,7 @@ def phase_fused_train_times(report, card):
         f"{1 - busy / span:.4f} [{card}]")
     for kname, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {ms:9.3f} ms/step {ms / busy:6.1%} x{n:6.1f}  {kname}")
-    for label, key in UNIT3_KERNELS.items():
+    for label, key in {**UNIT3_KERNELS, **UNIT1_KERNELS}.items():
         ms = sum(v[0] for k, v in per.items() if key in k)
         n = sum(v[1] for k, v in per.items() if key in k)
         log(f"trace fused train step, {label} ({key}): {ms:.3f} ms/step "

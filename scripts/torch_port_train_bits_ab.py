@@ -7,12 +7,12 @@ Runs `chip_smoke.train_unit_cases` (seed 0; batch 8 and 64; every level
 from 64 px down to 4 px; float32 with TF32 off, and bfloat16) in this
 checkout and in OTHER_CHECKOUT, each in its own process that builds its own
 kernels, on one NVIDIA card. Every float32 output of #14a-f, and every
-bfloat16 output of #14a, #14c, #14d and #14f, must be bit-equal between
-the two; for the bfloat16 outputs of the 3x3 units, #14b
-(conv3x3_relu_stats) and #14e (unit3x3_bwd), whose bodies may differ, it
-prints the largest |d|. Exits 1 if an output that must be bit-equal
-differs. Both checkouts must draw the same inputs, so `train_unit_cases`
-must be the same in both. Use it to show that a change to
+bfloat16 output of #14a, #14b, #14c and #14e, must be bit-equal between
+the two; for the bfloat16 outputs of the 1x1 backward units, #14d
+(unit1x1_bwd) and #14f (unit1_bwd), whose bodies may differ, it prints
+the largest |d|. Exits 1 if an output that must be bit-equal differs.
+Both checkouts must draw the same inputs, so `train_unit_cases` must be
+the same in both. Use it to show that a change to
 `csrc/bottleneck_train.cu` left the other units' results as they were.
 """
 
@@ -24,7 +24,7 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-UNIT3 = ("conv3x3_relu_stats", "unit3x3_bwd")
+MAY_DIFFER = ("unit1x1_bwd", "unit1_bwd")
 
 _DUMP = """
 import hashlib, sys
@@ -54,7 +54,7 @@ for b in (chip_smoke.B_CHECK, chip_smoke.B_TRAIN):
                         g.contiguous().numpy().tobytes()).hexdigest())
         torch.cuda.empty_cache()
 torch.save(outs, path)
-""" % (UNIT3,)
+""" % (MAY_DIFFER,)
 
 
 def dump(root: str, path: str):
@@ -83,7 +83,7 @@ def main(argv):
     for key in a:
         if isinstance(a[key], torch.Tensor):
             d = (a[key] - b[key]).abs().max().item()
-            print(f"{key}: max |d| {d:.6g} (3x3 unit, bf16)")
+            print(f"{key}: max |d| {d:.6g} (1x1 backward unit, bf16)")
             continue
         held += 1
         same = a[key] == b[key]

@@ -13,38 +13,44 @@
 //       cin; unit1: dx = round(g + din);
 //       dW[tap] = Σ shift_tap(z)^T · dy,  db = Σ dy   (z = cin re-normalized)
 //
-// Six kernel bodies serve the six functions:
+// Eight kernel bodies serve the six functions:
 //   unit_kernel<T, KS, PRO, EPI>  a tiled conv whose prologue makes its
 //       input (z from x, or dy from dz and a) on the tile and its one-pixel
 //       halo in shared memory, and whose epilogue is relu + bias + stats
 //       (forward) or round + next sums or skip add (din: the conv of dy
 //       with the flipped, transposed weights); FMA on the CUDA cores, for
-//       every 1x1 unit and for the float32 3x3 units;
+//       #14a in both dtypes and for every float32 unit;
 //   unit3_tc_kernel<PRO, EPI>  the bfloat16 3x3 unit (#14b, and #14e's din)
 //       on the tensor cores: an implicit GEMM, M = output pixels, N = Cout,
 //       K = 9 * Cin (see its note below);
+//   unit1_tc_kernel<EPI, WIDE> the bfloat16 1x1 backward din (#14d, with or
+//       without the next sums, and #14f's dx = g + din) on the tensor
+//       cores: a GEMM, M = rows, N = the unit's input channels, K = the dy
+//       channels (see its note below);
 //   reduce_kernel              the two per-channel sums of bn_bwd_reduce;
 //   dw_kernel<T, KS, AFF>      split-K weight gradient: a block owns a 64x64
 //       tile of one tap's dW over one slice of the rows, and recomputes dy
-//       and the shifted z of that slice on the fly (FMA; the 1x1 units and
-//       the float32 3x3 unit);
+//       and the shifted z of that slice on the fly (FMA; float32 only);
 //   dw3_tc_kernel              the bfloat16 3x3 weight gradient (#14e's dW
 //       and db) on the tensor cores, split over rows; a block computes dy
 //       and z once per tile for all 9 taps;
+//   dw1_tc_kernel<AFF, WIDE>   the bfloat16 1x1 weight gradient (#14d's and
+//       #14f's dW and db) on the tensor cores, split over rows; a block owns
+//       a 128 x 128 channel tile and makes dy and z once per row tile;
 //   finalize_kernel            sums the per-block partials of the others in
 //       a fixed order.
 //
 // Bound on the H100 (B=64, 64 px, C=256, Cm=128, bf16): the 1x1 units and
 // the reductions are bound by HBM bytes (~0.06-0.16 ms), the 3x3 units by
 // tensor-core operations (~0.08-0.16 ms). The FMA bodies run the products
-// in float32 on the CUDA cores, far above those bounds. The bf16 3x3
-// bodies run them as mma.sync.m16n8k16 bf16 with float32 accumulation
-// (csrc/mma.cuh): per k16 step a warp loads its A and B fragments with
-// ldmatrix from padded shared-memory rows (no bank conflicts) and issues
-// 16 products. What holds them above the bound is instruction issue and
-// latency at 2 blocks (unit3) or 1 block (dw3) per SM: the prologues'
-// float32 work, the barriers, and mma.sync's share of the tensor cores'
-// rate (wgmma is the rest).
+// in float32 on the CUDA cores, far above those bounds. The bf16 3x3 and
+// 1x1 backward bodies run them as mma.sync.m16n8k16 bf16 with float32
+// accumulation (csrc/mma.cuh): per k16 step a warp loads its A and B
+// fragments with ldmatrix from padded shared-memory rows (no bank
+// conflicts) and issues 16 products. What holds the 3x3 bodies above the
+// bound is instruction issue and latency at 2 blocks (unit3) or 1 block
+// (dw3) per SM: the prologues' float32 work, the barriers, and mma.sync's
+// share of the tensor cores' rate (wgmma is the rest).
 //
 // Design: the TPU kernels carry their sums and dW/db across a sequential
 // batch grid in VMEM. Blocks on Hopper run in parallel in no order, so each
@@ -56,9 +62,9 @@
 // __fadd_rn) in the plain versions' order, so z and dy equal theirs bit
 // for bit; only the order of the sums differs. Nothing is allocated here.
 //
-// The tensor-core 3x3 bodies take their plan as integers from
-// ops/cuda/bottleneck_train_kernel.py (unit3_plan, dw3_plan), which the CPU
-// tests check. Choices:
+// The tensor-core bodies take their plan as integers from
+// ops/cuda/bottleneck_train_kernel.py (unit3_plan, dw3_plan, unit1_plan,
+// dw1_plan), which the CPU tests check. Choices of the 3x3 bodies:
 //   * Output tile: kTcM = 128 pixels, 8 x 16 on maps at least 16 wide
 //     (halo 10 x 18: 1.41 halo pixels per output pixel, against 1.56 for
 //     8 x 8), whole images from 8 px down (two of 8 x 8, eight of 4 x 4),
@@ -88,6 +94,40 @@
 //     times in dw_kernel), from a three-stage cp.async ring; the row
 //     slices are as many as make about 264 blocks (twice the H100's 132
 //     SMs) within DW_WORKSPACE.
+//
+// The 1x1 backward bodies (#14d, #14f) need no halo and no geometry: a
+// tile is kTcM consecutive rows of the (R, K) matrix. Their arithmetic is
+// small (~0.035 ms at the shapes above), so HBM bytes (0.12 ms for #14d,
+// 0.16 ms for #14f, each input read once) and instruction issue bound
+// them; the design moves each byte once, in 16-byte copies, with enough in
+// flight to cover the latency, and keeps the tensor cores fed:
+//   * din (unit1_tc_kernel): one block per SM (row_grid, persistent); the
+//     block's work items (a row tile and an output chunk of NT channels)
+//     and their K chunks (CK = 64 or the widest that divides K) form one
+//     sequence of stages through a cp.async ring of up to 4 stages, so the
+//     next item's raw dz and a are in flight while an item's epilogue runs.
+//     Each thread turns the dz it copied into dy in place (prologue8, bit
+//     for bit), and the stage barrier makes it visible. W^T (K x N, rows
+//     padded to N + 8) stays resident in shared memory for the whole loop
+//     where it fits (64 KB at the fused shapes: read once per block
+//     instead of once per tile); else its (CK x NT) slice rides in each
+//     stage. The epilogue's aux tile (cin for the next sums, g for dx)
+//     rides in the item's last stage into an item buffer, where the
+//     epilogue also leaves its outputs for 16-byte stores (a first build
+//     that read aux and stored din 4 bytes at a time from registers spent
+//     most of its time there). NT is halved down to
+//     16 on the small maps so that a launch has about TC_MIN_WORK items.
+//     A ragged last tile is zero-filled (a = 0 gives dy = 0) and its rows
+//     past R are not stored.
+//   * dW (dw1_tc_kernel): one block per SM; a block owns a TI x TO =
+//     128 x 128 (Ci x Co) tile, 8 warps of 32 x 64 (64 accumulators a
+//     lane), over one slice of the row tiles of kDw1M = 64 rows, so dy is
+//     made once per (row tile, Co tile) and z once per (row tile, Ci tile)
+//     (dw_kernel made them 2-4 times). dz, a and cin arrive through a
+//     cp.async ring of up to 4 stages; A = z^T loads with ldmatrix.trans
+//     from the row-major z, B = dy with ldmatrix.trans. The slices are as
+//     many as make about DW1_BLOCKS blocks within DW_WORKSPACE; with one
+//     slice the kernel writes dW and db directly.
 #include <type_traits>
 
 #include "common.cuh"
@@ -104,6 +144,9 @@ constexpr int kTcThreads = 256;  // unit3_tc_kernel: 8 warps, 4 along M x 2 alon
 constexpr int kTcNt8 = 8;        // n8 tiles of one warp, at most
 constexpr int kTcCk16 = 4;       // k16 steps of one input chunk, at most (TC_CK)
 constexpr int kDwTcThreads = 288;  // dw3_tc_kernel: 9 warps, one per tap
+constexpr int kDw1M = 64;        // rows of one dw1_tc_kernel stage (DW1_M)
+constexpr int kDw1Tile = 128;    // widest Ci and Co tile of dw1_tc_kernel (DW1_TILE)
+constexpr size_t kSmemLimit = 232448;  // one block's shared memory (SMEM_LIMIT)
 static_assert(kTcThreads == kThreads, "row_grid sizes blocks of kThreads");
 
 enum Pro { kProNone = 0, kProAffine = 1, kProDy = 2 };
@@ -412,14 +455,22 @@ cudaError_t launch_unit(const void* x, const void* a, const void* pv,
                         const void* w, const void* bias, const void* aux,
                         void* out, void* ws, void* sums, int B, int H, int W,
                         int K, int N, cudaStream_t s) {
-  const int TH = H < 8 ? H : 8, TW = W < 8 ? W : 8;
+  const int PG = kThreads / (N / kNC);
+  auto smem_of = [&](int th, int tw) {
+    return align16((size_t)(th + KS - 1) * (tw + KS - 1) * K * sizeof(T)) +
+           (size_t)PG * 2 * N * sizeof(float);
+  };
+  // 8 x 8 tiles, halved where the input tile would not fit one block's
+  // shared memory (float32 at up to 1024 channels).
+  int TH = H < 8 ? H : 8, TW = W < 8 ? W : 8;
+  while (smem_of(TH, TW) > kSmemLimit && (TH > 1 || TW > 1)) {
+    if (TH >= TW) TH = (TH + 1) / 2;
+    else TW = (TW + 1) / 2;
+  }
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_img = ((H + TH - 1) / TH) * tiles_x;
   const int ntiles = B * tiles_img;
-  const int LH = TH + KS - 1, LW = TW + KS - 1;
-  const int PG = kThreads / (N / kNC);
-  const size_t smem = align16((size_t)LH * LW * K * sizeof(T)) +
-                      (size_t)PG * 2 * N * sizeof(float);
+  const size_t smem = smem_of(TH, TW);
   auto kernel = unit_kernel<T, KS, PRO, EPI>;
   cudaError_t err = allow_smem(kernel, smem);
   int grid = 0;
@@ -450,10 +501,11 @@ cudaError_t dispatch_unit(int ks, int pro, int epi, const void* x,
                                            sums, B, H, W, K, N, s);
   SPE_UNIT(1, kProNone, kEpiReluStats)
   SPE_UNIT(1, kProAffine, kEpiReluStats)
-  SPE_UNIT(1, kProDy, kEpiDin)
-  SPE_UNIT(1, kProDy, kEpiDinSums)
-  SPE_UNIT(1, kProDy, kEpiDinSkip)
-  if constexpr (std::is_same<T, float>::value) {  // bf16: unit3_tc_kernel
+  // bf16: unit1_tc_kernel and unit3_tc_kernel
+  if constexpr (std::is_same<T, float>::value) {
+    SPE_UNIT(1, kProDy, kEpiDin)
+    SPE_UNIT(1, kProDy, kEpiDinSums)
+    SPE_UNIT(1, kProDy, kEpiDinSkip)
     SPE_UNIT(3, kProAffine, kEpiReluStats)
     SPE_UNIT(3, kProDy, kEpiDinSums)
   }
@@ -477,7 +529,7 @@ cudaError_t launch_reduce(const void* dz, const void* a, void* ws, void* sums,
                          static_cast<float*>(sums), grid, 2 * C, s);
 }
 
-template <typename T, int KS, bool AFF>
+template <int KS, bool AFF>
 cudaError_t launch_dw(const void* dz, const void* a, const void* k,
                       const void* cin, const void* aff, void* ws, void* out,
                       int B, int H, int W, int Ci, int Co, int slices,
@@ -485,9 +537,9 @@ cudaError_t launch_dw(const void* dz, const void* a, const void* k,
   const int L = KS * KS * Ci * Co + Co;
   const int tiles = KS * KS * ((Ci + kDwTile - 1) / kDwTile) *
                     ((Co + kDwTile - 1) / kDwTile);
-  dw_kernel<T, KS, AFF><<<dim3(tiles, slices), kThreads, 0, s>>>(
-      static_cast<const T*>(dz), static_cast<const T*>(a),
-      static_cast<const float*>(k), static_cast<const T*>(cin),
+  dw_kernel<float, KS, AFF><<<dim3(tiles, slices), kThreads, 0, s>>>(
+      static_cast<const float*>(dz), static_cast<const float*>(a),
+      static_cast<const float*>(k), static_cast<const float*>(cin),
       static_cast<const float*>(aff), static_cast<float*>(ws), B, H, W, Ci,
       Co, rows, L);
   cudaError_t err = cudaGetLastError();
@@ -496,18 +548,18 @@ cudaError_t launch_dw(const void* dz, const void* a, const void* k,
                          static_cast<float*>(out), slices, L, s);
 }
 
-template <typename T>
-cudaError_t dispatch_dw(int ks, int aff, const void* dz, const void* a,
-                        const void* k, const void* cin, const void* affv,
-                        void* ws, void* out, int B, int H, int W, int Ci,
-                        int Co, int slices, int rows, cudaStream_t s) {
+// float32 only: bf16 runs dw1_tc_kernel and dw3_tc_kernel.
+inline cudaError_t dispatch_dw(int ks, int aff, const void* dz, const void* a,
+                               const void* k, const void* cin,
+                               const void* affv, void* ws, void* out, int B,
+                               int H, int W, int Ci, int Co, int slices,
+                               int rows, cudaStream_t s) {
   if (ks == 1 && aff)
-    return launch_dw<T, 1, true>(dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
+    return launch_dw<1, true>(dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
   if (ks == 1)
-    return launch_dw<T, 1, false>(dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
-  if constexpr (std::is_same<T, float>::value)
-    if (ks == 3 && aff)
-      return launch_dw<T, 3, true>(dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
+    return launch_dw<1, false>(dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
+  if (ks == 3 && aff)
+    return launch_dw<3, true>(dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1076,12 +1128,501 @@ cudaError_t launch_unit3_tc(const void* x, const void* a, const void* pv,
                          static_cast<float*>(sums), grid, 2 * N, s);
 }
 
+// ---------------------------------------------------------------------------
+// The 1x1 backward units in bfloat16 on the tensor cores.
+// ---------------------------------------------------------------------------
+
+// One block walks work items t = blockIdx.x, + gridDim.x, ...: item t is
+// the kTcM rows of row tile t / (N / NT) and the NT output channels of
+// chunk t % (N / NT). The block's items and their K chunks of CK channels
+// form one sequence of stages: stage s holds one chunk's raw dz and a
+// (kTcM rows of CK + 8 bf16) and, unless W^T is resident (wres), the
+// chunk's (CK x NT) weight slice, in ring slot s % NST; NST - 1 stages are
+// in flight ahead of the one in use, across items. Each thread turns the
+// dz it copied into dy in place (prologue8). Warp (wm, wn) owns rows
+// wm*32..+31 of the tile and columns wn*NT/2..+NT/2 of the chunk.
+//
+// The epilogue goes through an item buffer of kTcM x (NT + 8) bf16: the
+// item's aux tile (the RAW cin for the next sums, or g for dx) arrives
+// there by cp.async with the item's last stage, the epilogue replaces each
+// value by the output's (din = round(acc), or dx = round(g + din)), and
+// the block stores the buffer's rows below R in 16-byte vectors. NA item
+// buffers take turns, enough that an item's aux is issued only after the
+// epilogue of the item that used its buffer last (NA * K/CK >= NST).
+//
+// WIDE: the widest plan, CK = 64 and NT = 128, with the chunk widths and
+// so every loop bound over fragments known at compile time. The generic
+// instantiation's runtime bounds break the fragment loops into short
+// branches, which left its products well behind WIDE's at the fused
+// shapes; it serves the other widths.
+template <int EPI, bool WIDE>
+__global__ void __launch_bounds__(kTcThreads, 1)
+unit1_tc_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ a,
+                const float* __restrict__ kv, const bf16* __restrict__ w,
+                const bf16* __restrict__ aux, bf16* __restrict__ out,
+                float* __restrict__ part, int R, int K, int N, int ck, int nt,
+                int NST, int NA, int wres) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool kSums = EPI == kEpiDinSums, kAux = EPI != kEpiDin;
+  const int CK = WIDE ? kTcCk16 * 16 : ck, NT = WIDE ? kTcNt8 * 16 : nt;
+  const int SA = CK + 8, SW = wres ? N + 8 : NT + 8, SX = NT + 8;
+  const size_t wbytes = wres ? align16((size_t)K * SW * 2) : 0;
+  const size_t stage_bytes =
+      align16((size_t)(2 * kTcM * SA + (wres ? 0 : CK * SW)) * 2);
+  const size_t item_bytes = align16((size_t)kTcM * SX * 2);
+  bf16* wall = reinterpret_cast<bf16*>(smem_raw);  // resident W^T
+  unsigned char* ring = smem_raw + wbytes;
+  unsigned char* items = ring + NST * stage_bytes;
+  float* colred = reinterpret_cast<float*>(items + NA * item_bytes);  // [4][2][NT]
+  float* red = colred + 8 * NT;                                       // [2][N]
+  const int tid = threadIdx.x, lane = tid & 31, wm = (tid >> 5) & 3,
+            wn = tid >> 7;
+  const int nch = N / NT, nkc = K / CK, nt8 = NT / 16, c8 = CK / 8;
+  const int nwork = (R + kTcM - 1) / kTcM * nch;
+  const int mine =
+      (int)blockIdx.x < nwork ? (nwork - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int nstage = mine * nkc;
+
+  if (kSums)
+    for (int v = tid; v < 2 * N; v += kTcThreads) red[v] = 0.f;
+  // This thread copies rows m0, + mstep, ... of a stage (channels hc0..
+  // hc0+7 of the chunk), and rows r0, + rstep, ... of an NT-wide block
+  // (columns wc0..wc0+7): weight rows below CK, item rows below kTcM;
+  // threads past the last whole step idle.
+  const int mstep = kTcThreads / c8, m0 = tid / c8, hc0 = (tid % c8) * 8;
+  const int mlim = tid < mstep * c8 ? kTcM : 0;
+  const int per_row = NT / 8, rstep = kTcThreads / per_row;
+  const int r0 = tid / per_row, wc0 = (tid % per_row) * 8;
+  const bool rbusy = tid < rstep * per_row;
+  auto slot = [&](int s) {
+    return reinterpret_cast<bf16*>(ring + (s % NST) * stage_bytes);
+  };
+  auto item_buf = [&](int i) {
+    return reinterpret_cast<bf16*>(items + (i % NA) * item_bytes);
+  };
+  // Stage s into its ring slot, zeros past R, and with an item's last
+  // stage its aux tile; one commit group per stage, empty past the last.
+  auto issue = [&](int s) {
+    if (s < nstage) {
+      const int t = blockIdx.x + (s / nkc) * gridDim.x, kc = s % nkc;
+      const int row0 = t / nch * kTcM, col0 = t % nch * NT + wc0;
+      bf16* ds = slot(s);
+      bf16* as = ds + kTcM * SA;
+      for (int m = m0; m < mlim; m += mstep) {
+        const bool ok = row0 + m < R;
+        const size_t idx = (size_t)(ok ? row0 + m : 0) * K + kc * CK + hc0;
+        mma::cp_async16_zfill(mma::smem_u32(ds + m * SA + hc0), dz + idx, ok);
+        mma::cp_async16_zfill(mma::smem_u32(as + m * SA + hc0), a + idx, ok);
+      }
+      if (!wres && rbusy) {
+        bf16* wsl = as + kTcM * SA;
+        const bf16* src = w + (size_t)kc * CK * N + col0;
+        for (int kr = r0; kr < CK; kr += rstep)
+          mma::cp_async16(mma::smem_u32(wsl + kr * SW + wc0), src + (size_t)kr * N);
+      }
+      if (kAux && kc == nkc - 1 && rbusy) {
+        bf16* xs = item_buf(s / nkc);
+        for (int m = r0; m < kTcM; m += rstep) {
+          const bool ok = row0 + m < R;
+          const size_t idx = (size_t)(ok ? row0 + m : 0) * N + col0;
+          mma::cp_async16_zfill(mma::smem_u32(xs + m * SX + wc0), aux + idx, ok);
+        }
+      }
+    }
+    mma::cp_async_commit();
+  };
+  if (wres) {  // one group ahead of the stages: stage 0's wait covers it
+    const int n8 = N / 8;
+    for (int v = tid; v < K * n8; v += kTcThreads) {
+      const int k = v / n8, c = (v % n8) * 8;
+      mma::cp_async16(mma::smem_u32(wall + k * SW + c), w + (size_t)k * N + c);
+    }
+    mma::cp_async_commit();
+  }
+  for (int s = 0; s < NST - 1; ++s) issue(s);
+
+  const int krow = ((lane >> 3) & 1) * 8 + (lane & 7);  // B rows of ldmatrix
+  float acc[2][kTcNt8][4];
+  for (int s = 0; s < nstage; ++s) {
+    const int t = blockIdx.x + (s / nkc) * gridDim.x, kc = s % nkc;
+    const int nc = t % nch;
+    if (kc == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < kTcNt8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+    }
+    mma::cp_async_wait_n(NST - 2);  // this thread's copies of stage s
+    bf16* ds = slot(s);
+    if (mlim) {
+      float k1[8], k2[8], k3[8];
+      const int c0 = kc * CK + hc0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        k1[j] = kv[c0 + j];
+        k2[j] = kv[K + c0 + j];
+        k3[j] = kv[2 * K + c0 + j];
+      }
+      for (int m = m0; m < kTcM; m += mstep) {
+        bf16* p = ds + m * SA + hc0;
+        sts16(p, prologue8<kProDy>(lds16(p), lds16(p + kTcM * SA), k1, k2, k3, 0));
+      }
+    }
+    // Stage s's dy (W^T, the aux tile) are visible; every warp is done
+    // with stage s - 1, whose ring slot stage s + NST - 1 takes.
+    __syncthreads();
+    issue(s + NST - 1);
+    const bf16* wb = wres ? wall + (size_t)kc * CK * SW + nc * NT
+                          : ds + 2 * kTcM * SA;
+#pragma unroll
+    for (int ks = 0; ks < kTcCk16; ++ks) {
+      if (ks >= CK / 16) break;
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        mma::ldmatrix_x4(af[mt], mma::smem_u32(
+            ds + (wm * 32 + mt * 16 + (lane & 15)) * SA + ks * 16 + (lane >> 4) * 8));
+      const bf16* brow = wb + (ks * 16 + krow) * SW + wn * (NT / 2);
+#pragma unroll
+      for (int j = 0; j < kTcNt8; j += 2) {
+        if (j >= nt8) break;
+        if (j + 1 < nt8) {
+          uint32_t bq[4];
+          mma::ldmatrix_x4_t(bq, mma::smem_u32(brow + j * 8 + (lane >> 4) * 8));
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma::mma_bf16(acc[mt][j], af[mt], bq[0], bq[1]);
+            mma::mma_bf16(acc[mt][j + 1], af[mt], bq[2], bq[3]);
+          }
+        } else {
+          uint32_t bq[2];
+          mma::ldmatrix_x2_t(bq, mma::smem_u32(brow + j * 8));
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma::mma_bf16(acc[mt][j], af[mt], bq[0], bq[1]);
+        }
+      }
+    }
+    if (kc != nkc - 1) continue;
+
+    // Epilogue: this thread's tile rows (mt, h) are wm*32 + mt*16 + h*8 +
+    // lane/4, its columns of n8 tile j cl, cl + 1.
+    bf16* xs = item_buf(s / nkc);
+    const int row0 = t / nch * kTcM;
+#pragma unroll
+    for (int j = 0; j < kTcNt8; ++j) {
+      if (j >= nt8) break;
+      const int cl = wn * (NT / 2) + j * 8 + 2 * (lane & 3);  // in the chunk
+      float sm[4] = {0.f, 0.f, 0.f, 0.f};  // [Σdin] of cl, cl+1, then [Σdin·cin]
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = wm * 32 + mt * 16 + h * 8 + (lane >> 2);
+          uint32_t* x = reinterpret_cast<uint32_t*>(xs + m * SX + cl);
+          const float d0 = round_bf(acc[mt][j][2 * h]);
+          const float d1 = round_bf(acc[mt][j][2 * h + 1]);
+          const uint32_t xv = kAux ? *x : 0u;
+          if (EPI == kEpiDinSkip) {
+            *x = mma::pack_bf16(__fadd_rn(bf_lo(xv), d0), __fadd_rn(bf_hi(xv), d1));
+          } else {
+            *x = mma::pack_bf16(d0, d1);
+          }
+          if (kSums && row0 + m < R) {  // the next sums read the RAW cin
+            sm[0] += d0;
+            sm[1] += d1;
+            sm[2] = fmaf(d0, bf_lo(xv), sm[2]);
+            sm[3] = fmaf(d1, bf_hi(xv), sm[3]);
+          }
+        }
+      if (kSums) {
+        // The 8 lanes of one column pair, in a fixed butterfly.
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sm[e] += __shfl_xor_sync(0xffffffffu, sm[e], off);
+        if (lane < 4) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            colred[(wm * 2) * NT + cl + e] = sm[e];
+            colred[(wm * 2 + 1) * NT + cl + e] = sm[2 + e];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the item buffer holds the outputs
+    if (rbusy) {
+      const size_t col0 = (size_t)nc * NT + wc0;
+      for (int m = r0; m < kTcM && row0 + m < R; m += rstep)
+        *reinterpret_cast<uint4*>(out + (size_t)(row0 + m) * N + col0) =
+            lds16(xs + m * SX + wc0);
+    }
+    if (kSums)
+      for (int v = tid; v < 2 * NT; v += kTcThreads) {
+        const int r = v / NT, c = v % NT;
+        red[r * N + nc * NT + c] +=
+            ((colred[r * NT + c] + colred[(2 + r) * NT + c]) +
+             colred[(4 + r) * NT + c]) + colred[(6 + r) * NT + c];
+      }
+  }
+  if (!kSums) return;
+  __syncthreads();
+  for (int v = tid; v < 2 * N; v += kTcThreads)
+    part[(size_t)blockIdx.x * 2 * N + v] = red[v];
+}
+
+// The 1x1 weight gradient dW = z^T dy, db = Σ dy, split over rows:
+// blockIdx.x picks a TI x TO tile of (Ci, Co), blockIdx.y a slice of `per`
+// row tiles of kDw1M rows. Per row tile the raw dz and a (TO channels) and
+// the raw cin (TI channels) arrive by cp.async into one of NST ring slots,
+// NST - 1 tiles ahead of the one in use; each thread runs the prologues in
+// place on the values it copied (dy; z = round(cin * aff0 + aff1) when
+// AFF, else z = cin). Warp (wm, wn) owns
+// Ci rows wm*32..+31 and Co columns wn*TO/2..+TO/2 of the tile (warps or
+// m16 tiles past TI idle) and reads A = z^T and B = dy with
+// ldmatrix.trans. part row y (L floats): dW (Ci, Co), then db (Co), summed
+// by the blocks of Ci tile 0 from the dy they make. WIDE: the widest
+// plan, TI = TO = kDw1Tile, known at compile time (as in unit1_tc_kernel).
+template <bool AFF, bool WIDE>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dw1_tc_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ a,
+              const float* __restrict__ kv, const bf16* __restrict__ cin,
+              const float* __restrict__ aff, float* __restrict__ part, int R,
+              int Ci, int Co, int ti, int to, int per, int NST, int L) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int TI = WIDE ? kDw1Tile : ti, TO = WIDE ? kDw1Tile : to;
+  const int SZ = TI + 8, SD = TO + 8;
+  // Ring slot: [dz -> dy, a] (kDw1M x SD each), [cin -> z] (kDw1M x SZ).
+  const size_t stage_bytes = align16((size_t)kDw1M * (2 * SD + SZ) * 2);
+  const int tid = threadIdx.x, lane = tid & 31, wm = (tid >> 5) & 3,
+            wn = tid >> 7;
+  const int tiles_o = Co / TO;
+  const int i0 = (blockIdx.x / tiles_o) * TI, o0 = (blockIdx.x % tiles_o) * TO;
+  const int ntiles = (R + kDw1M - 1) / kDw1M;
+  const int t_begin = blockIdx.y * per;
+  const int nstage = min(per, ntiles - t_begin);
+  const int nt8 = TO / 16, d8 = TO / 8, z8 = TI / 8;
+  // This thread's dy vectors are rows m0, + mstep, ... (channels dcol..
+  // dcol+7), its z vectors rows q0, + qstep, ... (channels zcol..zcol+7);
+  // threads past the last whole step idle. Each thread keeps its channels,
+  // so their constants stay in registers.
+  const int mstep = kTcThreads / d8, m0 = tid / d8, dcol = (tid % d8) * 8;
+  const int mlim = tid < mstep * d8 ? kDw1M : 0;
+  const int qstep = kTcThreads / z8, q0 = tid / z8, zcol = (tid % z8) * 8;
+  const int qlim = tid < qstep * z8 ? kDw1M : 0;
+  float k1[8], k2[8], k3[8], sc[8], sh[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    k1[j] = kv[o0 + dcol + j];
+    k2[j] = kv[Co + o0 + dcol + j];
+    k3[j] = kv[2 * Co + o0 + dcol + j];
+    sc[j] = AFF ? aff[i0 + zcol + j] : 0.f;
+    sh[j] = AFF ? aff[Ci + i0 + zcol + j] : 0.f;
+  }
+  const bool db_sums = i0 == 0;
+  float dbp[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  auto slot = [&](int s) {
+    return reinterpret_cast<bf16*>(smem_raw + (s % NST) * stage_bytes);
+  };
+  // Row tile t_begin + s into its ring slot, zeros past R; one commit group
+  // (empty past the slice).
+  auto issue = [&](int s) {
+    if (s < nstage) {
+      const int row0 = (t_begin + s) * kDw1M;
+      bf16* ds = slot(s);
+      bf16* as = ds + kDw1M * SD;
+      bf16* zs = as + kDw1M * SD;
+      for (int m = m0; m < mlim; m += mstep) {
+        const bool ok = row0 + m < R;
+        const size_t idx = (size_t)(ok ? row0 + m : 0) * Co + o0 + dcol;
+        mma::cp_async16_zfill(mma::smem_u32(ds + m * SD + dcol), dz + idx, ok);
+        mma::cp_async16_zfill(mma::smem_u32(as + m * SD + dcol), a + idx, ok);
+      }
+      for (int q = q0; q < qlim; q += qstep) {
+        const bool ok = row0 + q < R;
+        const size_t idx = (size_t)(ok ? row0 + q : 0) * Ci + i0 + zcol;
+        mma::cp_async16_zfill(mma::smem_u32(zs + q * SZ + zcol), cin + idx, ok);
+      }
+    }
+    mma::cp_async_commit();
+  };
+  // The prologues of stage s, in place: this thread's dy vectors (rows
+  // past R hold zeros, so their dy is 0) and, when AFF, its z vectors, at
+  // most kDw1M / 16 of each (mstep, qstep >= 16); the raw vectors are all
+  // loaded first.
+  auto prologues = [&](int s) {
+    constexpr int kV = kDw1M / 16;
+    bf16* ds = slot(s);
+    bf16* zs = ds + 2 * kDw1M * SD;
+    uint4 xr[kV], ar[kV], zr[kV];
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      const int m = m0 + k * mstep, q = q0 + k * qstep;
+      if (m < mlim) {
+        xr[k] = lds16(ds + m * SD + dcol);
+        ar[k] = lds16(ds + (kDw1M + m) * SD + dcol);
+      }
+      if (AFF && q < qlim) zr[k] = lds16(zs + q * SZ + zcol);
+    }
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      const int m = m0 + k * mstep, q = q0 + k * qstep;
+      if (m < mlim) {
+        const uint4 dyv = prologue8<kProDy>(xr[k], ar[k], k1, k2, k3, 0);
+        sts16(ds + m * SD + dcol, dyv);
+        if (db_sums) {
+          const uint32_t dw[4] = {dyv.x, dyv.y, dyv.z, dyv.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            dbp[2 * j] += bf_lo(dw[j]);
+            dbp[2 * j + 1] += bf_hi(dw[j]);
+          }
+        }
+      }
+      if (AFF && q < qlim)
+        sts16(zs + q * SZ + zcol, prologue8<kProAffine>(
+                                      zr[k], make_uint4(0, 0, 0, 0), sc, sh,
+                                      nullptr, 0));
+    }
+  };
+  for (int s = 0; s < NST - 1; ++s) issue(s);
+
+  // The row this lane's ldmatrix.trans reads within a k16 step, for A
+  // (rows (lane/16)*8 + lane%8, Ci offset ((lane/8)%2)*8) and for B.
+  const int arow = (lane >> 4) * 8 + (lane & 7), acol = ((lane >> 3) & 1) * 8;
+  const int krow = ((lane >> 3) & 1) * 8 + (lane & 7);
+  float acc[2][kTcNt8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < kTcNt8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  const bool mt_on[2] = {wm * 32 < TI, wm * 32 + 16 < TI};
+  for (int s = 0; s < nstage; ++s) {
+    mma::cp_async_wait_n(NST - 2);  // this thread's copies of stage s
+    prologues(s);
+    // Stage s's dy and z are visible; every warp is done with stage s - 1,
+    // whose ring slot stage s + NST - 1 takes.
+    __syncthreads();
+    issue(s + NST - 1);
+    const bf16* ds = slot(s);
+    const bf16* zs = ds + 2 * kDw1M * SD;
+#pragma unroll
+    for (int ks = 0; ks < kDw1M / 16; ++ks) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        if (mt_on[mt])
+          mma::ldmatrix_x4_t(af[mt], mma::smem_u32(
+              zs + (ks * 16 + arow) * SZ + wm * 32 + mt * 16 + acol));
+      const bf16* brow = ds + (ks * 16 + krow) * SD + wn * (TO / 2);
+#pragma unroll
+      for (int j = 0; j < kTcNt8; j += 2) {
+        if (j >= nt8) break;
+        if (j + 1 < nt8) {
+          uint32_t bq[4];
+          mma::ldmatrix_x4_t(bq, mma::smem_u32(brow + j * 8 + (lane >> 4) * 8));
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            if (mt_on[mt]) {
+              mma::mma_bf16(acc[mt][j], af[mt], bq[0], bq[1]);
+              mma::mma_bf16(acc[mt][j + 1], af[mt], bq[2], bq[3]);
+            }
+        } else {
+          uint32_t bq[2];
+          mma::ldmatrix_x2_t(bq, mma::smem_u32(brow + j * 8));
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            if (mt_on[mt]) mma::mma_bf16(acc[mt][j], af[mt], bq[0], bq[1]);
+        }
+      }
+    }
+  }
+  float* dst = part + (size_t)blockIdx.y * L;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < kTcNt8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!mt_on[mt] || j >= nt8) continue;
+        const int ci = i0 + wm * 32 + mt * 16 + h * 8 + (lane >> 2);
+        const int co = o0 + wn * (TO / 2) + j * 8 + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(dst + (size_t)ci * Co + co) =
+            make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+      }
+  if (!db_sums) return;
+  // The kTcThreads / d8 partials of each channel, in thread order.
+  mma::cp_async_wait<0>();
+  __syncthreads();  // the last stage's readers are done with the ring
+  float* red = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) red[tid * 8 + k] = dbp[k];
+  __syncthreads();
+  for (int c = tid; c < TO; c += kTcThreads) {
+    float sum = 0.f;
+    for (int r = c / 8 * 8; r < kTcThreads * 8; r += d8 * 8) sum += red[r + c % 8];
+    dst[(size_t)Ci * Co + o0 + c] = sum;
+  }
+}
+
+template <int EPI>
+cudaError_t launch_unit1_tc(const void* dz, const void* a, const void* kv,
+                            const void* w, const void* aux, void* out,
+                            void* ws, void* sums, int R, int K, int N, int CK,
+                            int NT, int NST, int NA, int wres, size_t smem,
+                            cudaStream_t s) {
+  auto kernel = CK == kTcCk16 * 16 && NT == kTcNt8 * 16
+                     ? unit1_tc_kernel<EPI, true>
+                     : unit1_tc_kernel<EPI, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  int grid = 0;
+  const int work = (R + kTcM - 1) / kTcM * (N / NT);
+  if (err == cudaSuccess) err = row_grid(kernel, smem, work, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kTcThreads, smem, s>>>(
+      static_cast<const bf16*>(dz), static_cast<const bf16*>(a),
+      static_cast<const float*>(kv), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(aux), static_cast<bf16*>(out),
+      static_cast<float*>(ws), R, K, N, CK, NT, NST, NA, wres);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || EPI != kEpiDinSums) return err;
+  return launch_finalize(static_cast<const float*>(ws),
+                         static_cast<float*>(sums), grid, 2 * N, s);
+}
+
+template <bool AFF>
+cudaError_t launch_dw1_tc(const void* dz, const void* a, const void* kv,
+                          const void* cin, const void* aff, void* ws,
+                          void* out, int R, int Ci, int Co, int TI, int TO,
+                          int slices, int per, int NST, size_t smem,
+                          cudaStream_t s) {
+  auto kernel = TI == kDw1Tile && TO == kDw1Tile ? dw1_tc_kernel<AFF, true>
+                                                 : dw1_tc_kernel<AFF, false>;
+  const int L = Ci * Co + Co;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  float* dst = static_cast<float*>(slices > 1 ? ws : out);
+  kernel<<<dim3((Ci / TI) * (Co / TO), slices), kTcThreads, smem, s>>>(
+      static_cast<const bf16*>(dz), static_cast<const bf16*>(a),
+      static_cast<const float*>(kv), static_cast<const bf16*>(cin),
+      static_cast<const float*>(aff), dst, R, Ci, Co, TI, TO, per, NST, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return err;
+  return launch_finalize(dst, static_cast<float*>(out), slices, L, s);
+}
+
 }  // namespace train
 }  // namespace spe
 
 // A unit kernel (ks 1 or 3; pro 0 none, 1 affine, 2 dy; epi 0 relu+stats,
 // 1 din, 2 din+next sums, 3 din+skip), then, when the epilogue sums, the
 // finalize kernel into sums (2, N). ws holds kMaxParts rows of 2N floats.
+// In bf16 only the 1x1 forward (#14a); the others run spe_train_unit1_tc
+// and spe_train_unit3_tc.
 extern "C" int spe_train_unit(int bf16, int ks, int pro, int epi,
                               const void* x, const void* a, const void* pv,
                               const void* w, const void* bias, const void* aux,
@@ -1156,18 +1697,62 @@ extern "C" int spe_train_dw3_tc(const void* dz, const void* a, const void* kv,
   return (int)launch_finalize(dst, static_cast<float*>(out), slices, L, s);
 }
 
-// dW and db of a unit: the dw kernel over `slices` slices of `rows` rows,
-// then the finalize kernel into out (ks*ks*Ci*Co + Co floats). ws holds
+// A 1x1 backward unit's din in bf16 on the tensor cores: epi 1 (din:
+// unit1x1_bwd without reduce_next), 2 (din + next sums, then the finalize
+// kernel into sums (2, N); ws holds kMaxParts rows of 2N floats) or 3
+// (dx = g + din: unit1_bwd). w is W^T, (K, N). The input chunk ck, the
+// output chunk nt, the ring's stages nst, the item buffers na, whether
+// W^T stays resident (wres) and the shared memory come from
+// ops/cuda/bottleneck_train_kernel.py unit1_plan.
+extern "C" int spe_train_unit1_tc(int epi, const void* dz, const void* a,
+                                  const void* kv, const void* w,
+                                  const void* aux, void* out, void* ws,
+                                  void* sums, int R, int K, int N, int ck,
+                                  int nt, int nst, int na, int wres, int smem,
+                                  void* stream) {
+  using namespace spe::train;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SPE_UNIT1(EPI_)                                                       \
+  if (epi == EPI_)                                                            \
+    return (int)launch_unit1_tc<EPI_>(dz, a, kv, w, aux, out, ws, sums, R, K, \
+                                      N, ck, nt, nst, na, wres, smem, s);
+  SPE_UNIT1(kEpiDin)
+  SPE_UNIT1(kEpiDinSums)
+  SPE_UNIT1(kEpiDinSkip)
+#undef SPE_UNIT1
+  return (int)cudaErrorInvalidValue;
+}
+
+// The 1x1 weight gradient in bf16 on the tensor cores: dw1_tc_kernel over
+// (Ci/ti) x (Co/to) channel tiles and `slices` slices of `per` row tiles,
+// with z = affine(cin) when aff, else z = cin. With one slice it writes
+// out (Ci*Co + Co floats) directly and ws is unused; else its partials go
+// to ws (slices rows) and the finalize kernel adds them into out. Plan:
+// ops/cuda/bottleneck_train_kernel.py dw1_plan.
+extern "C" int spe_train_dw1_tc(int aff, const void* dz, const void* a,
+                                const void* kv, const void* cin,
+                                const void* affv, void* ws, void* out, int R,
+                                int Ci, int Co, int ti, int to, int slices,
+                                int per, int nst, int smem, void* stream) {
+  using namespace spe::train;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (aff)
+    return (int)launch_dw1_tc<true>(dz, a, kv, cin, affv, ws, out, R, Ci, Co,
+                                    ti, to, slices, per, nst, smem, s);
+  return (int)launch_dw1_tc<false>(dz, a, kv, cin, affv, ws, out, R, Ci, Co,
+                                   ti, to, slices, per, nst, smem, s);
+}
+
+// dW and db of a float32 unit: the dw kernel over `slices` slices of `rows`
+// rows, then the finalize kernel into out (ks*ks*Ci*Co + Co floats). ws holds
 // `slices` rows of that length.
 extern "C" int spe_train_dw(int bf16, int ks, int aff, const void* dz,
                             const void* a, const void* k, const void* cin,
                             const void* affv, void* ws, void* out, int B,
                             int H, int W, int Ci, int Co, int slices,
                             int rows, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)spe::train::dispatch_dw<__nv_bfloat16>(
-        ks, aff, dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
-  return (int)spe::train::dispatch_dw<float>(
-      ks, aff, dz, a, k, cin, affv, ws, out, B, H, W, Ci, Co, slices, rows, s);
+  if (bf16) return (int)cudaErrorInvalidValue;  // spe_train_dw1_tc, _dw3_tc
+  return (int)spe::train::dispatch_dw(ks, aff, dz, a, k, cin, affv, ws, out,
+                                      B, H, W, Ci, Co, slices, rows,
+                                      static_cast<cudaStream_t>(stream));
 }

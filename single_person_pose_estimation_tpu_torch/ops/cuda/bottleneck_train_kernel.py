@@ -18,22 +18,26 @@ each wrapper with the JAX function's name and contract:
 
 The kernels are `csrc/bottleneck_train.cu`; its source note says what
 bounds them on the H100 and how they are laid out. In bfloat16 the two 3x3
-units run their products on the tensor cores (`unit3_tc_kernel`,
-`dw3_tc_kernel`; `mma.sync` bf16 with float32 accumulation), with the tile
-and chunk plan computed here (`unit3_plan`, `dw3_plan`) and passed in as
-integers; every other body, and every float32 body, is FMA on the CUDA
-cores. A bf16 shape that the plan cannot take raises. The TPU kernels carry
-their sums and dW/db across a sequential grid; here every block writes
-float32 partials to a workspace that the wrapper allocates with
-`torch.empty`, and a second launch adds them in a fixed order, so two runs
-give the same bits. Launches per call (each counted on the wrapper's
-`launches`): conv1x1_relu_stats, conv3x3_relu_stats, bn_bwd_reduce 2;
-unit1x1_bwd 4 (3 without reduce_next); unit3x3_bwd 4 (3 in bf16 when its
-weight gradient takes one slice); unit1_bwd 3. Workspace at B=64, 64 px,
-C=256, Cm=128: the row kernels' partials are at most 1,024 x 2C floats
-(2 MB); the weight gradients are split over row slices so that their
-partials stay under 32 MiB (the 3x3 unit: 33 slices of 9*128*128 + 128
-floats in bf16, 19.5 MB; 56 slices, 33 MB, in float32).
+units (`unit3_tc_kernel`, `dw3_tc_kernel`) and the two 1x1 backward units
+(`unit1_tc_kernel`, `dw1_tc_kernel`) run their products on the tensor
+cores (`mma.sync` bf16 with float32 accumulation), with the tile and chunk
+plan computed here (`unit3_plan`, `dw3_plan`, `unit1_plan`, `dw1_plan`)
+and passed in as integers; conv1x1_relu_stats and bn_bwd_reduce, and every
+float32 body, are FMA on the CUDA cores. A bf16 shape that the plan cannot
+take raises. The TPU kernels carry their sums and dW/db across a
+sequential grid; here every block writes float32 partials to a workspace
+that the wrapper allocates with `torch.empty`, and a second launch adds
+them in a fixed order, so two runs give the same bits. Launches per call
+(each counted on the wrapper's `launches`): conv1x1_relu_stats,
+conv3x3_relu_stats, bn_bwd_reduce 2; unit1x1_bwd 4 (3 without
+reduce_next); unit3x3_bwd 4; unit1_bwd 3; in bf16 a weight gradient that
+its plan gives one slice writes dW and db itself, one launch fewer (the
+fused step at batch 64 never does). Workspace at B=64, 64 px, C=256,
+Cm=128: the row kernels' partials are at most 1,024 x 2C floats (2 MB);
+the weight gradients are split over row slices so that their partials
+stay under 32 MiB (the 3x3 unit: 33 slices of 9*128*128 + 128 floats in
+bf16, 19.5 MB; 56 slices, 33 MB, in float32; the 1x1 units in bf16: 66
+slices of 128*256 + 256 or + 128 floats, 8.7 MB).
 
 Rounding follows the TPU kernels: the prologue z = round(x*scale + shift)
 in float32; bias added in float32, then ReLU, then one rounding; the
@@ -71,8 +75,13 @@ TC_CK = 64                # widest input-channel chunk of the halo
 SMEM_LIMIT = 232448       # shared memory of one block on the H100
 TC_HALO = 320             # halo pixels of one tile, at most
 TC_STAGES = 4             # weight slices in flight in unit3_tc_kernel, at most
-TC_MIN_WORK = 132         # work items a 3x3 unit aims at, at least (132 SMs)
+TC_MIN_WORK = 132         # work items a tensor-core unit aims at, at least (132 SMs)
 DW3_BLOCKS = 264          # blocks the 3x3 weight gradient aims at (2 x 132 SMs)
+# The bf16 1x1 backward units on the tensor cores (unit1_tc_kernel,
+# dw1_tc_kernel): one block per SM each.
+DW1_M = 64                # kDw1M: rows of one weight-gradient stage
+DW1_TILE = 128            # widest Ci and Co tile of a weight-gradient block
+DW1_BLOCKS = 132          # blocks the 1x1 weight gradient aims at (132 SMs)
 
 
 # ---------------------------------------------------------------------------
@@ -252,8 +261,16 @@ def _widest(n, cap):
 def _tc_channels(*cs):
     for c in cs:
         if c % 16 or not 0 < c <= 1024:
-            raise ValueError(f"the tensor-core 3x3 units take channels that "
+            raise ValueError(f"the tensor-core units take channels that "
                              f"are multiples of 16 (<= 1024), got {c}")
+
+
+def _tc_rows(B, H, W):
+    """B*H*W, which the tensor-core kernels index in int32."""
+    if B * H * W + TC_M >= 2 ** 31:
+        raise ValueError(f"{B} x {H} x {W} pixels are too many for the "
+                         f"tensor-core units")
+    return B * H * W
 
 
 def tc_tiles(B, H, W):
@@ -265,9 +282,7 @@ def tc_tiles(B, H, W):
     holds at most TC_HALO pixels. Tiles run image group by image group,
     then by rows of tiles (csrc/bottleneck_train.cu make_tiles,
     tile_origin)."""
-    if B * H * W >= 2 ** 31:  # the kernels index pixels in int32
-        raise ValueError(f"{B} x {H} x {W} pixels are too many for the "
-                         f"tensor-core 3x3 units")
+    _tc_rows(B, H, W)
     tw = min(W, 16)
     th = min(H, max(1, TC_M // tw))
     ni = min(B, max(1, TC_M // (th * tw)))
@@ -349,11 +364,92 @@ def dw3_plan(B, H, W, Ci, Co):
                 workspace=0 if slices == 1 else slices * length, smem=smem)
 
 
+def _most_stages(fixed, stage, extra=lambda n: 0):
+    """The most ring stages n, from TC_STAGES down to 2, that fit one
+    block's shared memory beside `fixed` + extra(n) bytes (2 if none
+    does)."""
+    return next((n for n in range(TC_STAGES, 2, -1)
+                 if fixed + extra(n) + n * stage <= SMEM_LIMIT), 2)
+
+
+def unit1_plan(B, H, W, K, N, epi):
+    """The plan of unit1_tc_kernel, the din of a bf16 1x1 backward unit, for
+    (B, H, W) rows of K dy channels and N outputs (epi: EPI_DIN,
+    EPI_DIN_SUMS or EPI_DIN_SKIP): the row tiles of TC_M rows (the last may
+    be ragged), the input chunk ck (a stage holds ck dy channels of a
+    tile), the output chunk nt (a work item is one tile's nt outputs;
+    halved down to 16 while the items number fewer than TC_MIN_WORK, as on
+    the 16 to 4 px maps), whether W^T (K x N, rows padded to N + 8 bf16)
+    stays resident in shared memory (wres, where it fits), the ring's
+    stages nst (the most, up to TC_STAGES, that fit one block on the SM),
+    the item buffers na (TC_M x (nt + 8) bf16 each: the epilogue's aux
+    tile and outputs; na * K/ck >= nst where an aux tile arrives by
+    cp.async, so that it never lands in a buffer still in use), the work
+    items and the bytes of shared memory: W^T when resident, nst stages of
+    the raw dz and a (TC_M x (ck + 8) bf16 each, dz turned into dy in
+    place) and, unless W^T is resident, the chunk's weight slice (ck x
+    (nt + 8) bf16), the item buffers, and for EPI_DIN_SUMS the per-warp
+    column sums (4 x 2 x nt f32) and the block's sums (2 x N f32). The
+    widest plan, ck = TC_CK and nt = TC_NT, runs the kernel's WIDE
+    instantiation, whose loop bounds are known at compile time."""
+    _tc_channels(K, N)
+    rows = _tc_rows(B, H, W)
+    ntiles = -(-rows // TC_M)
+    ck, nt = _widest(K, TC_CK), _widest(N, TC_NT)
+    while ntiles * (N // nt) < TC_MIN_WORK and nt % 32 == 0:
+        nt //= 2
+    sums = (8 * nt + 2 * N) * 4 if epi == EPI_DIN_SUMS else 0
+    item = _align16(TC_M * (nt + 8) * 2)
+    na = (lambda n: -(-n // (K // ck))) if epi != EPI_DIN else (lambda n: 1)
+    dz_a = 2 * TC_M * (ck + 8) * 2
+    for wres in (True, False):
+        fixed = (_align16(K * (N + 8) * 2) if wres else 0) + sums
+        stage = _align16(dz_a + (0 if wres else ck * (nt + 8) * 2))
+        nst = _most_stages(fixed, stage, lambda n: na(n) * item)
+        smem = fixed + na(nst) * item + nst * stage
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"a 1x1 unit at {(B, H, W, K)} -> {N} needs {smem} "
+                         f"bytes of shared memory, over {SMEM_LIMIT}")
+    return dict(rows=rows, ntiles=ntiles, ck=ck, nt=nt, wres=wres, nst=nst,
+                na=na(nst), work=ntiles * (N // nt), smem=smem)
+
+
+def dw1_plan(B, H, W, Ci, Co):
+    """The plan of dw1_tc_kernel, the weight gradient of a bf16 1x1 unit:
+    the row tiles of DW1_M rows, the channel tile ti x to of one block (the
+    widest that divide Ci and Co, up to DW1_TILE; 8 warps of 32 x to/2
+    hold 128 x 128 float32 accumulators, 64 a lane), the slices of `per`
+    row tiles that split the rows (enough blocks to fill the card once,
+    few enough that their partials stay within DW_WORKSPACE floats; one
+    slice writes dW and db directly, with no workspace), the ring's stages
+    nst (the most, up to TC_STAGES, that fit) and the bytes of shared
+    memory: nst stages of the raw dz and a (DW1_M x (to + 8) bf16 each, dz
+    turned into dy in place) and the raw cin (DW1_M x (ti + 8) bf16, turned
+    into z). ti = to = DW1_TILE runs the kernel's WIDE instantiation."""
+    _tc_channels(Ci, Co)
+    ntiles = -(-_tc_rows(B, H, W) // DW1_M)
+    ti, to = _widest(Ci, DW1_TILE), _widest(Co, DW1_TILE)
+    ctiles = (Ci // ti) * (Co // to)
+    length = Ci * Co + Co
+    slices = max(1, min(DW_WORKSPACE // length, ntiles,
+                        -(-DW1_BLOCKS // ctiles)))
+    per = -(-ntiles // slices)
+    slices = -(-ntiles // per)
+    stage = _align16(DW1_M * (2 * (to + 8) + ti + 8) * 2)
+    nst = _most_stages(0, stage)
+    return dict(ntiles=ntiles, ti=ti, to=to, ctiles=ctiles, length=length,
+                slices=slices, per=per,
+                workspace=0 if slices == 1 else slices * length, nst=nst,
+                smem=nst * stage)
+
+
 def _aligned16(*ts):
     """The tensor-core kernels copy their inputs 16 bytes at a time."""
     for t in ts:
         if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"the tensor-core 3x3 units need 16-byte "
+            raise ValueError(f"the tensor-core units need 16-byte "
                              f"aligned operands; got {tuple(t.shape)} at "
                              f"{t.data_ptr():#x}")
 
@@ -396,8 +492,52 @@ def _launch_dw3_tc(dz, a, k, cin, aff):
             1 + (p["slices"] > 1))
 
 
+def _launch_unit1_tc(epi, dz, a, kv, wt, aux, n):
+    """unit1_tc_kernel (and its finalize for EPI_DIN_SUMS): (out (B, H, W,
+    n), sums (2, n) or None, the launches it took). wt is W^T, (K, n)."""
+    B, H, W, K = dz.shape
+    p = unit1_plan(B, H, W, K, n, epi)
+    _require_cuda(dz)
+    _aligned16(dz, a, wt, aux)
+    out = torch.empty((B, H, W, n), dtype=dz.dtype, device=dz.device)
+    sums_needed = epi == EPI_DIN_SUMS
+    ws = torch.empty((MAX_PARTS, 2 * n), dtype=torch.float32,
+                     device=dz.device) if sums_needed else None
+    sums = torch.empty((2, n), dtype=torch.float32,
+                       device=dz.device) if sums_needed else None
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    err = build.lib().spe_train_unit1_tc(
+        epi, dz.data_ptr(), a.data_ptr(), kv.data_ptr(), wt.data_ptr(),
+        ptr(aux), out.data_ptr(), ptr(ws), ptr(sums), p["rows"], K, n,
+        p["ck"], p["nt"], p["nst"], p["na"], int(p["wres"]), p["smem"],
+        _stream(dz))
+    build.check(err, "tensor-core 1x1 unit kernel")
+    return out, sums, 1 + sums_needed
+
+
+def _launch_dw1_tc(dz, a, kv, cin, aff):
+    """dW (Ci, Co) and db (1, Co), float32, of a bf16 1x1 unit on the
+    tensor cores (z = cin re-normalized by aff, or cin when aff is None),
+    and the launches it took (1 with one slice, else 2)."""
+    B, H, W, Co = dz.shape
+    Ci = cin.shape[-1]
+    p = dw1_plan(B, H, W, Ci, Co)
+    _aligned16(dz, a, cin)
+    out = torch.empty(p["length"], dtype=torch.float32, device=dz.device)
+    ws = torch.empty(p["workspace"], dtype=torch.float32, device=dz.device)
+    err = build.lib().spe_train_dw1_tc(
+        int(aff is not None), dz.data_ptr(), a.data_ptr(), kv.data_ptr(),
+        cin.data_ptr(), aff.data_ptr() if aff is not None else None,
+        ws.data_ptr() if p["workspace"] else None, out.data_ptr(),
+        B * H * W, Ci, Co, p["ti"], p["to"], p["slices"], p["per"], p["nst"],
+        p["smem"], _stream(dz))
+    build.check(err, "tensor-core 1x1 dW kernel")
+    return (out[:-Co].view(Ci, Co), out[-Co:].view(1, Co),
+            1 + (p["slices"] > 1))
+
+
 def _launch_dw(ks, dz, a, k, cin, aff):
-    """dW (ks, ks, Ci, Co) and db (1, Co), float32, of one unit."""
+    """dW (ks, ks, Ci, Co) and db (1, Co), float32, of one float32 unit."""
     B, H, W, Co = dz.shape
     Ci = cin.shape[-1]
     length = ks * ks * Ci * Co + Co
@@ -485,8 +625,10 @@ def unit1x1_bwd(dz, a, cin, w, k, aff=None, affine_cin=True,
     C), sums_prev (2, Cm)), the last three float32. dz, a (B, H, W, C);
     cin (B, H, W, Cm) the conv input's saved form, re-normalized by aff
     (2, Cm) when affine_cin; w (Cm, C); k (3, C) the K1/K2/K3 rows.
-    sums_prev is zero unless reduce_next. 4 launches (3 without
-    reduce_next)."""
+    sums_prev is zero unless reduce_next. bf16 runs on the tensor cores
+    (unit1_tc_kernel, dw1_tc_kernel), float32 on the FMA bodies. 4
+    launches (3 without reduce_next; one fewer in bf16 when dw1_plan takes
+    one slice, which the fused step at batch 64 never does)."""
     _check(dz, a, cin)
     _same_shape(dz, a)
     if dz.device.type == "cpu":
@@ -497,13 +639,21 @@ def unit1x1_bwd(dz, a, cin, w, k, aff=None, affine_cin=True,
     kv = _vec(k, 3 * C, dz.device)
     affv = _vec(aff, 2 * Cm, dz.device) if affine_cin else None
     epi = EPI_DIN_SUMS if reduce_next else EPI_DIN
-    din, sums = _launch_unit(1, PRO_DY, epi, dz, a, kv, w.T.contiguous(),
-                             None, cin if reduce_next else None, Cm)
-    dw, db = _launch_dw(1, dz, a, kv, cin, affv)
-    unit1x1_bwd.launches += 4 if reduce_next else 3
+    aux = cin if reduce_next else None
+    if dz.dtype == torch.bfloat16:
+        din, sums, n_din = _launch_unit1_tc(epi, dz, a, kv, w.T.contiguous(),
+                                            aux, Cm)
+        dw, db, n_dw = _launch_dw1_tc(dz, a, kv, cin, affv)
+        unit1x1_bwd.launches += n_din + n_dw
+    else:
+        din, sums = _launch_unit(1, PRO_DY, epi, dz, a, kv, w.T.contiguous(),
+                                 None, aux, Cm)
+        dw, db = _launch_dw(1, dz, a, kv, cin, affv)
+        dw = dw[0, 0]
+        unit1x1_bwd.launches += 4 if reduce_next else 3
     if sums is None:
         sums = torch.zeros((2, Cm), dtype=torch.float32, device=dz.device)
-    return din, dw[0, 0], db, sums
+    return din, dw, db, sums
 
 
 def unit3x3_bwd(dz, a, cin, w, k, aff):
@@ -538,8 +688,10 @@ def unit3x3_bwd(dz, a, cin, w, k, aff):
 
 def unit1_bwd(dz, a, x, g, w, k):
     """Backward of unit 1 and the skip: (dx (B, H, W, C), dw (C, Cm), db
-    (1, Cm)). dz, a (B, H, W, Cm); x, g (B, H, W, C); w (C, Cm). 3
-    launches."""
+    (1, Cm)). dz, a (B, H, W, Cm); x, g (B, H, W, C); w (C, Cm). bf16 runs
+    on the tensor cores (unit1_tc_kernel, dw1_tc_kernel), float32 on the
+    FMA bodies. 3 launches (2 in bf16 when dw1_plan takes one slice, which
+    the fused step at batch 64 never does)."""
     _check(dz, a, x, g)
     _same_shape(dz, a)
     _same_shape(x, g)
@@ -548,6 +700,12 @@ def unit1_bwd(dz, a, x, g, w, k):
     Cm, C = dz.shape[-1], x.shape[-1]
     w = _weight(w, (C, Cm), dz.dtype)
     kv = _vec(k, 3 * Cm, dz.device)
+    if dz.dtype == torch.bfloat16:
+        dx, _, n_dx = _launch_unit1_tc(EPI_DIN_SKIP, dz, a, kv,
+                                       w.T.contiguous(), g, C)
+        dw, db, n_dw = _launch_dw1_tc(dz, a, kv, x, None)
+        unit1_bwd.launches += n_dx + n_dw
+        return dx, dw, db
     dx, _ = _launch_unit(1, PRO_DY, EPI_DIN_SKIP, dz, a, kv,
                          w.T.contiguous(), None, g, C)
     dw, db = _launch_dw(1, dz, a, kv, x, None)

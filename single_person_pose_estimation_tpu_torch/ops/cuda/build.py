@@ -69,6 +69,12 @@ _SIGNATURES = {
     # dz, a, kv, cin, aff, ws, out, B, H, W, Ci, Co, ni, th, tw, ti, to,
     # slices, per, smem, stream
     "spe_train_dw3_tc": [_P] * 7 + [_I] * 13 + [_P],
+    # epi, dz, a, kv, w, aux, out, ws, sums, R, K, N, ck, nt, nst, na,
+    # wres, smem, stream
+    "spe_train_unit1_tc": [_I] + [_P] * 8 + [_I] * 9 + [_P],
+    # aff, dz, a, kv, cin, affv, ws, out, R, Ci, Co, ti, to, slices, per,
+    # nst, smem, stream
+    "spe_train_dw1_tc": [_I] + [_P] * 7 + [_I] * 9 + [_P],
 }
 
 

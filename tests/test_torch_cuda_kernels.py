@@ -8,8 +8,8 @@ exactly, and the six train-unit kernels (#14a-f) at every level at batch
 kernels #5-#7 (the row-blocked bottleneck at 128 px, the conv-skip
 bottleneck at 64 px, the subtree at depths 1-3) at batch 2, float32 and
 bfloat16, also with the same bits on a rerun, and the 3x3 units (#14b,
-#14e; bfloat16 on the tensor cores) at the edges of their contract. Skips
-on a host without a card."""
+#14e) and the 1x1 backward units (#14d, #14f) at the edges of their
+contract (bfloat16 on the tensor cores). Skips on a host without a card."""
 
 import numpy as np
 import pytest
@@ -144,5 +144,18 @@ def test_unit3_kernels_at_the_contract_edges_on_card(card, dtype):
     dt = getattr(torch, dtype)
     failures = chip_smoke.hold_unit_cases(
         {}, chip_smoke.unit3_edge_cases(np.random.default_rng(3), dt, "cuda"),
+        dt, "")
+    assert not failures, failures
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unit1_kernels_at_the_contract_edges_on_card(card, dtype):
+    """#14d (with and without the next sums) and #14f at
+    chip_smoke.UNIT1_EDGES (16 and 48 channels, 1024, 48 against 1024 both
+    ways; batch 11, ragged last row tiles at 8 and 4 px) within the
+    train-unit tolerances; a rerun gives the same bits."""
+    dt = getattr(torch, dtype)
+    failures = chip_smoke.hold_unit_cases(
+        {}, chip_smoke.unit1_edge_cases(np.random.default_rng(4), dt, "cuda"),
         dt, "")
     assert not failures, failures
