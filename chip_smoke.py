@@ -93,8 +93,8 @@ failure:
    32, 16, 8, 4 px), float32 and bfloat16, each run twice for the same
    bits; at 64 px the cuda bottleneck backend against the plain one
    (forward, backward on the same residuals, and end to end through
-   autograd); then the 3x3 units (#14b, #14e) and the 1x1 backward units
-   (#14d, #14f), in bfloat16 on the tensor cores, at the contract's edges,
+   autograd); then the 3x3 units (#14b, #14e) and the 1x1 units (#14a,
+   #14d, #14f), in bfloat16 on the tensor cores, at the contract's edges,
    UNIT3_EDGES and UNIT1_EDGES;
 14. fused_train: S4/256 bf16 at batch 64 through
    `make_train_step(model_backend="fused")`, 3 augmented steps with finite
@@ -106,8 +106,10 @@ failure:
 15. fused_train_times: the fused step against the default step (median of
    5 runs of 2 steps, alternating), the fused step's device busy time and
    idle share with the per-step time of the 3x3 forward, din and dW
-   kernels and of the 1x1 backward din, dx and dW kernels, and #14a-f at the 64 px shapes of batch 64 beside their
-   plain versions, bounds and a library yardstick the port never calls.
+   kernels and of the 1x1 forward (both forms), din, dx and dW kernels
+   (and no bfloat16 FMA unit body in the trace), and #14a-f at the 64 px
+   shapes of batch 64 beside their plain versions, bounds and a library
+   yardstick the port never calls.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -2010,7 +2012,11 @@ FUSED_KERNELS = ("conv1x1_relu_stats", "conv3x3_relu_stats", "bn_bwd_reduce",
                  "unit1x1_bwd", "unit3x3_bwd", "unit1_bwd")
 LEVELS = (64, 32, 16, 8, 4)
 # Launches per call (see ops/cuda/bottleneck_train_kernel.py) and calls per
-# bottleneck: 2 conv1x1 (units 1 and 3), one of each other function.
+# bottleneck: 2 conv1x1 (units 1 and 3), one of each other function. The
+# forward units and bn_bwd_reduce always launch their finalize kernel, a
+# grid of one block included; a bf16 weight gradient skips its finalize
+# only when its plan takes one row slice, which no level of the fused step
+# at batch 64 does (tests/test_torch_tc_plan.py).
 LAUNCHES_PER_CALL = {"conv1x1_relu_stats": 2, "conv3x3_relu_stats": 2,
                      "bn_bwd_reduce": 2, "unit1x1_bwd": 4, "unit3x3_bwd": 4,
                      "unit1_bwd": 3}
@@ -2146,14 +2152,16 @@ def unit3_edge_cases(rng, dtype, device, edges=UNIT3_EDGES):
     return cases
 
 
-# The 1x1 backward units (#14d, also without the next sums, and #14f) at
-# the edges of the kernels' contract, as (batch, side, C, Cm): C the
-# channels of the block's input and output, Cm of its middle. 16 and 48
-# channels (one dy chunk; 48 leaves threads idle in the copies and an odd
-# count of n8 tiles), 1024 (sixteen dy chunks, W^T streamed through the
-# ring instead of resident), 48 against 1024 both ways (a partial dW
-# tile, W^T streamed), and batch 11, which leaves ragged last row tiles
-# at 8 and 4 px.
+# The 1x1 units (#14d, also without the next sums, #14f, and the forward
+# #14a in both call forms, unit 1 C -> Cm and unit 3 Cm -> C with the
+# affine) at the edges of the kernels' contract, as (batch, side, C, Cm):
+# C the channels of the block's input and output, Cm of its middle. 16 and
+# 48 channels (one input chunk; 48 leaves threads idle in the copies and
+# an odd count of n8 tiles), 1024 (sixteen input chunks, the B operand
+# streamed through the ring instead of resident), 48 against 1024 both
+# ways (a partial dW tile, B streamed), and batch 11, which leaves ragged
+# last row tiles at 8 and 4 px (the forward's zero-filled rows there give
+# relu(b) or relu(shift . W + b), which its sums must leave out).
 UNIT1_EDGES = ((2, 16, 16, 16), (2, 16, 48, 48), (2, 4, 1024, 1024),
                (2, 8, 48, 1024), (2, 8, 1024, 48), (11, 8, C, CM),
                (11, 4, C, CM))
@@ -2161,8 +2169,9 @@ UNIT1_EDGES = ((2, 16, 16, 16), (2, 16, 48, 48), (2, 4, 1024, 1024),
 
 def unit1_edge_cases(rng, dtype, device, edges=UNIT1_EDGES):
     """(label, name, kernel call, plain call, output kinds) of #14d (with
-    and without reduce_next) and #14f at each of `edges`, with operands
-    drawn as train_unit_inputs draws them at c and cm channels."""
+    and without reduce_next), #14f and #14a (unit 1, and unit 3 with the
+    affine) at each of `edges`, with operands drawn as train_unit_inputs
+    draws them at c and cm channels."""
     import torch
 
     from single_person_pose_estimation_tpu_torch.ops.cuda import (
@@ -2185,6 +2194,7 @@ def unit1_edge_cases(rng, dtype, device, edges=UNIT1_EDGES):
         w1, w3 = u(-lim, lim, c, cm), u(-lim, lim, cm, c)
         aff2 = torch.stack([u(.5, 1.5, cm), u(-.3, .3, cm)])
         k1, k3 = kk(cm), kk(c)
+        b1, b3 = u(-.1, .1, cm), u(-.1, .1, c)
         red3 = ("act", "red", "red", "red")
         for label, name, args, kw, kinds in (
                 ("unit1x1_bwd", "unit1x1_bwd", (g, a3, a2, w3, k3, aff2), {},
@@ -2192,7 +2202,11 @@ def unit1_edge_cases(rng, dtype, device, edges=UNIT1_EDGES):
                 ("unit1x1_bwd@no_next", "unit1x1_bwd",
                  (g, a3, a2, w3, k3, aff2), dict(reduce_next=False), red3),
                 ("unit1_bwd", "unit1_bwd", (dz1, a1, x, g, w1, k1), {},
-                 ("act", "red", "red"))):
+                 ("act", "red", "red")),
+                ("conv1x1_relu_stats@unit1", "conv1x1_relu_stats",
+                 (x, w1, b1), {}, ("act", "red")),
+                ("conv1x1_relu_stats@unit3", "conv1x1_relu_stats",
+                 (a2, w3, b3, *aff2), {}, ("act", "red"))):
             kern, plain = getattr(tk, name), getattr(tk, name + "_plain")
             cases.append((f"{label}@{h} C={c} Cm={cm} B={b}", name,
                           lambda f=kern, a=args, kw=kw: f(*a, **kw),
@@ -2260,8 +2274,8 @@ def phase_fused_train_kernels(report):
     gradient caps its partials at DW_WORKSPACE and its row slices straddle
     images); a rerun of each kernel gives the same bits; at 64 px the cuda
     bottleneck backend against the plain one (check_bottleneck_backends);
-    then #14b and #14e at the contract's edges (UNIT3_EDGES), and #14d and
-    #14f at theirs (UNIT1_EDGES)."""
+    then #14b and #14e at the contract's edges (UNIT3_EDGES), and #14a,
+    #14d and #14f at theirs (UNIT1_EDGES)."""
     import torch
 
     rng = np.random.default_rng(30)
@@ -2545,13 +2559,20 @@ def check_fused_f32(cfg, seed, stacks):
 UNIT3_KERNELS = {"3x3 forward": "unit3_tc_kernel<1, 0>",
                  "3x3 din": "unit3_tc_kernel<2, 2>",
                  "3x3 dW": "dw3_tc_kernel"}
-# The bf16 1x1 backward units' tensor-core kernels as the trace names them
-# (both instantiations of each, WIDE or not): #14d's din with the next sums
-# and its dW (z re-normalized), #14f's dx and its dW (z = x).
-UNIT1_KERNELS = {"1x1 din": "unit1_tc_kernel<2, ",
+# The bf16 1x1 units' tensor-core kernels as the trace names them (both
+# instantiations of each, WIDE or not; unit1_tc_kernel<PRO, EPI, WIDE>):
+# #14a's forward of unit 1 (z = x) and of unit 3 (z = affine(x)), #14d's
+# din with the next sums and its dW (z re-normalized), #14f's dx and its dW
+# (z = x).
+UNIT1_KERNELS = {"1x1 forward, unit 1": "unit1_tc_kernel<0, 0, ",
+                 "1x1 forward, unit 3": "unit1_tc_kernel<1, 0, ",
+                 "1x1 din": "unit1_tc_kernel<2, 2, ",
                  "1x1 dW": "dw1_tc_kernel<true, ",
-                 "1x1 dx": "unit1_tc_kernel<3, ",
+                 "1x1 dx": "unit1_tc_kernel<2, 3, ",
                  "1x1 dW, unit 1": "dw1_tc_kernel<false, "}
+# The FMA unit body in bfloat16, which the fused bf16 step must not launch:
+# every bf16 unit runs on the tensor cores.
+BF16_FMA_UNIT = "unit_kernel<__nv_bfloat16"
 
 
 def fused_bounds(b=B_TRAIN, h=64):
@@ -2578,9 +2599,10 @@ def fused_bounds(b=B_TRAIN, h=64):
 def phase_fused_train_times(report, card):
     """The fused step against the default step (S4/256 bf16 B=64, median of
     5 runs of 2 steps, alternating), the fused step's device busy time and
-    idle share with the per-step time of the 3x3 and 1x1 backward units'
-    tensor-core kernels (UNIT3_KERNELS, UNIT1_KERNELS), and #14a-f at 64 px
-    beside their plain versions, bounds and a library yardstick the port
+    idle share with the per-step time of the 3x3 and 1x1 units' tensor-core
+    kernels (UNIT3_KERNELS, UNIT1_KERNELS; each must appear in the trace,
+    and no bfloat16 FMA unit body, BF16_FMA_UNIT, may), and #14a-f at 64
+    px beside their plain versions, bounds and a library yardstick the port
     never calls."""
     import torch
     import torch.nn.functional as F
@@ -2633,6 +2655,12 @@ def phase_fused_train_times(report, card):
             f"{ms / busy:.1%} of busy, x{n:.1f} [{card}]")
         if not n:
             raise AssertionError(f"the fused step's trace shows no {key}")
+    fma = [k for k in per if BF16_FMA_UNIT in k]
+    log(f"trace fused train step, {BF16_FMA_UNIT}: {len(fma)} kernels "
+        f"[{card}]")
+    if fma:
+        raise AssertionError(f"the fused bf16 step launched an FMA unit "
+                             f"body: {fma}")
     del steps
     torch.cuda.empty_cache()
 

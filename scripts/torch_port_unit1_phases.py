@@ -1,28 +1,39 @@
 #!/usr/bin/env python3
-"""Where the time goes inside the bf16 1x1 backward kernels.
+"""Where the time goes inside the bf16 1x1 kernels.
 
     python3 scripts/torch_port_unit1_phases.py
 
 Builds a copy of `csrc/bottleneck_train.cu` whose `unit1_tc_kernel` and
 `dw1_tc_kernel` read `clock64()` around each phase of their main loop, and
 runs them on one NVIDIA card at the fused step's 64 px shapes (B=64,
-C=256, Cm=128, bf16): #14d's din with the next sums and its dW, #14f's dx
-and its dW. For each it prints the device time (CUDA events behind a
-sleep kernel, as `chip_smoke.kernel_device_ms`) and, averaged over every
-warp of the launch, the cycles spent in each phase and their share of the
-warp's whole loop:
+C=256, Cm=128, bf16): #14a's forward of unit 1 (256 -> 128) and of unit 3
+(128 -> 256, with the affine), #14d's din with the next sums and its dW,
+#14f's dx and its dW. For each it prints the device time (CUDA events
+behind a sleep kernel, as `chip_smoke.kernel_device_ms`) and, averaged
+over every warp of the launch, the cycles spent in each phase and their
+share of the warp's whole loop:
 
-  din, dx: waiting for the stage's copies, the dy prologue, the stage
-           barrier and the next stage's copies, the tensor-core products,
-           the epilogue;
+  forward, din, dx: waiting for the stage's copies, the prologue (z or
+           dy; none for unit 1's z = x), the stage barrier and the next
+           stage's copies, the tensor-core products, the epilogue;
   dW:      waiting for the stage's copies, the prologues, the barrier and
            the next stage's copies, the tensor-core products.
 
 The clock reads cost a little themselves, so the instrumented kernels run
-slightly slower than the real ones (both times are printed). The copy is
-built under `_build/phases/` (gitignored) and the checkout's kernels are
-left as they are. It asserts that each phase marker it edits is found once
-in the source: a change to those loops must update the markers here.
+slightly slower than the real ones (both times are printed).
+
+It also builds a second copy whose `unit1_tc_kernel` walks its work items
+chunk by chunk (all row tiles of output chunk 0, then of chunk 1) instead
+of tile by tile, and times both orders on #14a's unit 3 and #14f's dx,
+whose N / NT = 2 chunks read each input tile twice: in the kernel's order
+the two reads of a tile come from two blocks of one wave, in the other
+half a launch apart, long after the tile has left the 50 MB L2. The
+difference is what the L2 saves the kernel's order.
+
+The copies are built under `_build/phases/` and `_build/order/`
+(gitignored) and the checkout's kernels are left as they are. It asserts
+that each marker it edits is found once in the source: a change to those
+loops must update the markers here.
 """
 
 from __future__ import annotations
@@ -58,12 +69,12 @@ _DIN_EDITS = (
      "c00 = clock64();\n  for (int s = 0; s < nstage; ++s) {\n"
      "    const int t = blockIdx.x + (s / nkc) * gridDim.x, kc = s % nkc;"),
     ("    mma::cp_async_wait_n(NST - 2);  // this thread's copies of stage s\n"
-     "    bf16* ds = slot(s);\n    if (mlim) {",
+     "    bf16* ds = slot(s);\n    if (PRO != kProNone && mlim) {",
      "    const long long c0 = clock64();\n"
      "    mma::cp_async_wait_n(NST - 2);\n"
      "    const long long c1 = clock64(); p0 += c1 - c0;\n"
-     "    bf16* ds = slot(s);\n    if (mlim) {"),
-    ("    // Stage s's dy (W^T, the aux tile) are visible; every warp is done\n",
+     "    bf16* ds = slot(s);\n    if (PRO != kProNone && mlim) {"),
+    ("    // Stage s's dy or z (the B operand, the aux tile) are visible; every\n",
      "    const long long c2 = clock64(); p1 += c2 - c1;\n"),
     ("    issue(s + NST - 1);\n    const bf16* wb",
      "    issue(s + NST - 1);\n"
@@ -97,6 +108,21 @@ _DW_EDITS = (
 )
 
 
+# Work item t as output chunk t / ntiles of row tile t % ntiles.
+_ORDER_EDITS = (
+    ("  const int nwork = (R + kTcM - 1) / kTcM * nch;\n",
+     "  const int nwork = (R + kTcM - 1) / kTcM * nch;\n"
+     "  const int ntl = (R + kTcM - 1) / kTcM;\n"),
+    ("const int row0 = t / nch * kTcM, col0 = t % nch * NT + wc0;",
+     "const int row0 = t % ntl * kTcM, col0 = t / ntl * NT + wc0;"),
+    ("    const int nc = t % nch;\n", "    const int nc = t / ntl;\n"),
+    ("    const int row0 = t / nch * kTcM;\n",
+     "    const int row0 = t % ntl * kTcM;\n"),
+)
+_UNIT1 = ("unit1_tc_kernel(const bf16*", "// The 1x1 weight gradient dW")
+_LAUNCH = "template <int PRO, int EPI>\ncudaError_t launch_unit1_tc"
+
+
 def _edit(text, start, end, edits):
     a, b = text.index(start), text.index(end)
     body = text[a:b]
@@ -108,10 +134,8 @@ def _edit(text, start, end, edits):
 
 
 def instrumented_source(src: str) -> str:
-    src = _edit(src, "unit1_tc_kernel(const bf16*",
-                "// The 1x1 weight gradient dW", _DIN_EDITS)
-    src = _edit(src, "// The 1x1 weight gradient dW",
-                "template <int EPI>\ncudaError_t launch_unit1_tc", _DW_EDITS)
+    src = _edit(src, *_UNIT1, _DIN_EDITS)
+    src = _edit(src, _UNIT1[1], _LAUNCH, _DW_EDITS)
     src = src.replace("namespace spe {\nnamespace train {",
                       "namespace spe {\nnamespace train {\n"
                       f"__device__ long long g_phases[1024 * 8 * {SLOTS}];", 1)
@@ -125,26 +149,41 @@ def instrumented_source(src: str) -> str:
         f"  return (int)(err != cudaSuccess ? err : cudaMemset(p, 0, {size}));\n}}\n")
 
 
-def build_instrumented():
+def chunk_major_source(src: str) -> str:
+    return _edit(src, *_UNIT1, _ORDER_EDITS)
+
+
+def build_copies():
+    """The instrumented copy and the chunk-major copy, compiled together:
+    (phases library, order library)."""
     from single_person_pose_estimation_tpu_torch.ops.cuda import build
 
-    out = build.BUILD_DIR / "phases"
-    out.mkdir(parents=True, exist_ok=True)
-    for h in build.CSRC.glob("*.cuh"):
-        shutil.copy(h, out)
-    cu = out / "bottleneck_train.cu"
-    cu.write_text(instrumented_source(
-        (build.CSRC / "bottleneck_train.cu").read_text()))
-    lib = out / "libphases.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I",
-                    str(out), "-o", str(lib), str(cu)], check=True)
-    handle = ctypes.CDLL(str(lib))
-    for name in ("spe_train_unit1_tc", "spe_train_dw1_tc"):
-        fn = getattr(handle, name)
-        fn.argtypes = build._SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    handle.spe_read_phases.argtypes = [ctypes.c_void_p]
-    return handle
+    src = (build.CSRC / "bottleneck_train.cu").read_text()
+    jobs = []
+    for name, text in (("phases", instrumented_source(src)),
+                       ("order", chunk_major_source(src))):
+        out = build.BUILD_DIR / name
+        out.mkdir(parents=True, exist_ok=True)
+        for h in build.CSRC.glob("*.cuh"):
+            shutil.copy(h, out)
+        (out / "bottleneck_train.cu").write_text(text)
+        lib = out / f"lib{name}.so"
+        jobs.append((lib, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I", str(out),
+             "-o", str(lib), str(out / "bottleneck_train.cu")])))
+    handles = []
+    for lib, proc in jobs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for {lib}")
+        handle = ctypes.CDLL(str(lib))
+        for name in ("spe_train_unit1_tc", "spe_train_unit1_fwd_tc",
+                     "spe_train_dw1_tc"):
+            fn = getattr(handle, name)
+            fn.argtypes = build._SIGNATURES[name]
+            fn.restype = ctypes.c_int
+        handles.append(handle)
+    handles[0].spe_read_phases.argtypes = [ctypes.c_void_p]
+    return handles
 
 
 def main() -> int:
@@ -160,7 +199,7 @@ def main() -> int:
     )
 
     card = cs.card_line()
-    lib = build_instrumented()
+    lib, order = build_copies()
     real = tk.build.lib()
     b, h, bf = cs.B_TRAIN, 64, torch.bfloat16
     p = cs.train_unit_inputs(np.random.default_rng(31), bf, "cuda", b, h)
@@ -181,6 +220,22 @@ def main() -> int:
             rows, K, n, pl["ck"], pl["nt"], pl["nst"], pl["na"],
             int(pl["wres"]), pl["smem"], stream), pl["work"]
 
+    def fwd(which, x, w, bias, aff, n):
+        K = x.shape[-1]
+        pl = tk.unit1_plan(b, h, h, K, n, tk.EPI_RELU_STATS)
+        pv = None if aff is None else tk._vec(aff, 2 * K, "cuda")
+        wb = w.to(bf).contiguous()
+        bv = tk._vec(bias, n, "cuda")
+        out = torch.empty((b, h, h, n), dtype=bf, device="cuda")
+        ws = torch.empty((tk.MAX_PARTS, 2 * n), device="cuda")
+        sums = torch.empty((2, n), device="cuda")
+        return lambda: which.spe_train_unit1_fwd_tc(
+            int(aff is not None), x.data_ptr(),
+            0 if pv is None else pv.data_ptr(), wb.data_ptr(),
+            bv.data_ptr(), out.data_ptr(), ws.data_ptr(), sums.data_ptr(),
+            rows, K, n, pl["ck"], pl["nt"], pl["nst"], int(pl["wres"]),
+            pl["smem"], stream), pl["work"]
+
     def dw(which, dz, a, k, cin, aff):
         Co, Ci = dz.shape[-1], cin.shape[-1]
         pl = tk.dw1_plan(b, h, h, Ci, Co)
@@ -195,15 +250,19 @@ def main() -> int:
             pl["slices"], pl["per"], pl["nst"], pl["smem"],
             stream), pl["ctiles"] * pl["slices"]
 
+    unit3 = lambda L: fwd(L, p["a2"], p["w3"], p["b3"], p["aff2"], cs.C)
+    dx = lambda L: din(L, tk.EPI_DIN_SKIP, p["dz1"], p["a1"], p["k1"],
+                       p["w1"], p["g"], cs.C)
     cases = (
-        ("#14d din (unit1_tc_kernel<2, true>)", _DIN_PHASES,
+        ("#14a unit 1 (unit1_tc_kernel<0, 0, true>)", _DIN_PHASES,
+         lambda L: fwd(L, p["x"], p["w1"], p["b1"], None, cs.CM)),
+        ("#14a unit 3 (unit1_tc_kernel<1, 0, true>)", _DIN_PHASES, unit3),
+        ("#14d din (unit1_tc_kernel<2, 2, true>)", _DIN_PHASES,
          lambda L: din(L, tk.EPI_DIN_SUMS, p["g"], p["a3"], p["k3"],
                        p["w3"], p["a2"], cs.CM)),
         ("#14d dW (dw1_tc_kernel<true, true>)", _DW_PHASES,
          lambda L: dw(L, p["g"], p["a3"], p["k3"], p["a2"], p["aff2"])),
-        ("#14f dx (unit1_tc_kernel<3, true>)", _DIN_PHASES,
-         lambda L: din(L, tk.EPI_DIN_SKIP, p["dz1"], p["a1"], p["k1"],
-                       p["w1"], p["g"], cs.C)),
+        ("#14f dx (unit1_tc_kernel<2, 3, true>)", _DIN_PHASES, dx),
         ("#14f dW (dw1_tc_kernel<false, true>)", _DW_PHASES,
          lambda L: dw(L, p["dz1"], p["a1"], p["k1"], p["x"], None)),
     )
@@ -224,6 +283,20 @@ def main() -> int:
         print(f"{label} bf16 B={b} {h} px: device {ms:.4f} ms "
               f"(instrumented {ms_i:.4f} ms); cycles per warp {whole:.0f}: "
               f"{shares} [{card}]")
+    # The two orders of work items, in turns: the kernel's, chunk-major,
+    # chunk-major, the kernel's; each a median of kernel_device_ms.
+    for label, make in (("#14a unit 3", unit3), ("#14f dx", dx)):
+        fns = {"tile-major": make(real)[0], "chunk-major": make(order)[0]}
+        ms = {k: [] for k in fns}
+        for k in ("tile-major", "chunk-major", "chunk-major", "tile-major"):
+            ms[k].append(cs.kernel_device_ms(
+                lambda f=fns[k]: tk.build.check(f(), label), label))
+        t, c = (float(np.mean(ms[k])) for k in ("tile-major", "chunk-major"))
+        print(f"{label} bf16 B={b} {h} px, two output chunks per row tile: "
+              f"device {t:.4f} ms in the kernel's tile-major order "
+              f"{[round(v, 4) for v in ms['tile-major']]}, {c:.4f} ms "
+              f"chunk-major {[round(v, 4) for v in ms['chunk-major']]}; "
+              f"the L2 saves {c - t:.4f} ms ({(c - t) / c:.1%}) [{card}]")
     return 0
 
 

@@ -19,14 +19,16 @@
 //       halo in shared memory, and whose epilogue is relu + bias + stats
 //       (forward) or round + next sums or skip add (din: the conv of dy
 //       with the flipped, transposed weights); FMA on the CUDA cores, for
-//       #14a in both dtypes and for every float32 unit;
+//       every float32 unit (bfloat16 never reaches it);
 //   unit3_tc_kernel<PRO, EPI>  the bfloat16 3x3 unit (#14b, and #14e's din)
 //       on the tensor cores: an implicit GEMM, M = output pixels, N = Cout,
 //       K = 9 * Cin (see its note below);
-//   unit1_tc_kernel<EPI, WIDE> the bfloat16 1x1 backward din (#14d, with or
-//       without the next sums, and #14f's dx = g + din) on the tensor
-//       cores: a GEMM, M = rows, N = the unit's input channels, K = the dy
-//       channels (see its note below);
+//   unit1_tc_kernel<PRO, EPI, WIDE>  the bfloat16 1x1 units on the tensor
+//       cores, a GEMM with M = rows: the forward #14a (relu + bias +
+//       stats, z = x or z = affine(x); N = Cout, K = Cin) and the backward
+//       din (#14d, with or without the next sums, and #14f's dx = g + din;
+//       N = the unit's input channels, K = the dy channels) (see its note
+//       below);
 //   reduce_kernel              the two per-channel sums of bn_bwd_reduce;
 //   dw_kernel<T, KS, AFF>      split-K weight gradient: a block owns a 64x64
 //       tile of one tap's dW over one slice of the rows, and recomputes dy
@@ -43,8 +45,9 @@
 // Bound on the H100 (B=64, 64 px, C=256, Cm=128, bf16): the 1x1 units and
 // the reductions are bound by HBM bytes (~0.06-0.16 ms), the 3x3 units by
 // tensor-core operations (~0.08-0.16 ms). The FMA bodies run the products
-// in float32 on the CUDA cores, far above those bounds. The bf16 3x3 and
-// 1x1 backward bodies run them as mma.sync.m16n8k16 bf16 with float32
+// in float32 on the CUDA cores, far above those bounds; they serve float32
+// only. Every bf16 unit (the 3x3 units, the 1x1 forward and the 1x1
+// backward) runs them as mma.sync.m16n8k16 bf16 with float32
 // accumulation (csrc/mma.cuh): per k16 step a warp loads its A and B
 // fragments with ldmatrix from padded shared-memory rows (no bank
 // conflicts) and issues 16 products. What holds the 3x3 bodies above the
@@ -95,30 +98,46 @@
 //     slices are as many as make about 264 blocks (twice the H100's 132
 //     SMs) within DW_WORKSPACE.
 //
-// The 1x1 backward bodies (#14d, #14f) need no halo and no geometry: a
-// tile is kTcM consecutive rows of the (R, K) matrix. Their arithmetic is
-// small (~0.035 ms at the shapes above), so HBM bytes (0.12 ms for #14d,
-// 0.16 ms for #14f, each input read once) and instruction issue bound
-// them; the design moves each byte once, in 16-byte copies, with enough in
-// flight to cover the latency, and keeps the tensor cores fed:
-//   * din (unit1_tc_kernel): one block per SM (row_grid, persistent); the
-//     block's work items (a row tile and an output chunk of NT channels)
-//     and their K chunks (CK = 64 or the widest that divides K) form one
-//     sequence of stages through a cp.async ring of up to 4 stages, so the
-//     next item's raw dz and a are in flight while an item's epilogue runs.
-//     Each thread turns the dz it copied into dy in place (prologue8, bit
-//     for bit), and the stage barrier makes it visible. W^T (K x N, rows
-//     padded to N + 8) stays resident in shared memory for the whole loop
-//     where it fits (64 KB at the fused shapes: read once per block
-//     instead of once per tile); else its (CK x NT) slice rides in each
-//     stage. The epilogue's aux tile (cin for the next sums, g for dx)
-//     rides in the item's last stage into an item buffer, where the
-//     epilogue also leaves its outputs for 16-byte stores (a first build
-//     that read aux and stored din 4 bytes at a time from registers spent
-//     most of its time there). NT is halved down to
-//     16 on the small maps so that a launch has about TC_MIN_WORK items.
-//     A ragged last tile is zero-filled (a = 0 gives dy = 0) and its rows
-//     past R are not stored.
+// The 1x1 bodies (#14a forward, #14d, #14f backward) need no halo and no
+// geometry: a tile is kTcM consecutive rows of the (R, K) matrix. Their
+// arithmetic is small (~0.017 ms for #14a, ~0.035 ms for #14d/#14f at the
+// shapes above), so HBM bytes (0.06 ms for #14a, 0.12 ms for #14d, 0.16 ms
+// for #14f, each input read once) and instruction issue bound them; the
+// design moves each byte once, in 16-byte copies, with enough in flight to
+// cover the latency, and keeps the tensor cores fed:
+//   * din and the forward (unit1_tc_kernel): one block per SM (row_grid,
+//     persistent); the block's work items (a row tile and an output chunk
+//     of NT channels) and their K chunks (CK = 64 or the widest that
+//     divides K) form one sequence of stages through a cp.async ring of up
+//     to 4 stages, so the next item's raw inputs are in flight while an
+//     item's epilogue runs. A stage holds the raw dz and a (backward) or
+//     the raw x (forward); each thread turns what it copied into dy or z
+//     in place (prologue8, bit for bit; z = x needs nothing), and the
+//     stage barrier makes it visible. The B operand, W^T for din or W
+//     itself for the forward (K x N either way, rows padded to N + 8),
+//     stays resident in shared memory for the whole loop where it fits
+//     (64-70 KB at the fused shapes: read once per block instead of once
+//     per tile); else its (CK x NT) slice rides in each stage. The
+//     epilogue's aux tile (cin for the next sums, g for dx; the forward
+//     has none) rides in the item's last stage into an item buffer, where
+//     the epilogue also leaves its outputs for 16-byte stores (a first
+//     build that read aux and stored din 4 bytes at a time from registers
+//     spent most of its time there). NT is halved down to 16 on the small
+//     maps so that a launch has about TC_MIN_WORK items. A ragged last
+//     tile is zero-filled and its rows past R are neither stored nor
+//     summed: the backward's zero rows give dy = 0, but the forward's give
+//     relu(b) (relu(shift . W + b) under the affine), which is not 0.
+//     Where N / NT > 1 (#14a's unit 3, 128 -> 256: two chunks of 128), the
+//     chunks of one row tile are consecutive work items, so two blocks of
+//     one wave read the same x tile (32 KB) within microseconds of each
+//     other and the second read is served by the 50 MB L2; keeping the
+//     tile in shared memory for both chunks would need both chunks'
+//     accumulators (128 floats a lane) or a ring that holds a whole tile.
+//     scripts/torch_port_unit1_phases.py measures what the L2 saves by
+//     running the same kernel with the chunks of a tile half a launch
+//     apart: 0.1904 against 0.1820 ms on an NVIDIA H100 80GB HBM3 at 700
+//     W (B=64, 64 px), less than the extra 67 MB of HBM would cost alone,
+//     since instruction issue and not HBM holds the kernel.
 //   * dW (dw1_tc_kernel): one block per SM; a block owns a TI x TO =
 //     128 x 128 (Ci x Co) tile, 8 warps of 32 x 64 (64 accumulators a
 //     lane), over one slice of the row tiles of kDw1M = 64 rows, so dy is
@@ -128,8 +147,6 @@
 //     from the row-major z, B = dy with ldmatrix.trans. The slices are as
 //     many as make about DW1_BLOCKS blocks within DW_WORKSPACE; with one
 //     slice the kernel writes dW and db directly.
-#include <type_traits>
-
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -489,26 +506,23 @@ cudaError_t launch_unit(const void* x, const void* a, const void* pv,
                          static_cast<float*>(sums), grid, 2 * N, s);
 }
 
-template <typename T>
-cudaError_t dispatch_unit(int ks, int pro, int epi, const void* x,
-                          const void* a, const void* pv, const void* w,
-                          const void* bias, const void* aux, void* out,
-                          void* ws, void* sums, int B, int H, int W, int K,
-                          int N, cudaStream_t s) {
+// float32 only: bf16 runs unit1_tc_kernel and unit3_tc_kernel.
+inline cudaError_t dispatch_unit(int ks, int pro, int epi, const void* x,
+                                 const void* a, const void* pv, const void* w,
+                                 const void* bias, const void* aux, void* out,
+                                 void* ws, void* sums, int B, int H, int W,
+                                 int K, int N, cudaStream_t s) {
 #define SPE_UNIT(KS_, PRO_, EPI_)                                              \
   if (ks == KS_ && pro == PRO_ && epi == EPI_)                                 \
-    return launch_unit<T, KS_, PRO_, EPI_>(x, a, pv, w, bias, aux, out, ws,    \
-                                           sums, B, H, W, K, N, s);
+    return launch_unit<float, KS_, PRO_, EPI_>(x, a, pv, w, bias, aux, out,    \
+                                               ws, sums, B, H, W, K, N, s);
   SPE_UNIT(1, kProNone, kEpiReluStats)
   SPE_UNIT(1, kProAffine, kEpiReluStats)
-  // bf16: unit1_tc_kernel and unit3_tc_kernel
-  if constexpr (std::is_same<T, float>::value) {
-    SPE_UNIT(1, kProDy, kEpiDin)
-    SPE_UNIT(1, kProDy, kEpiDinSums)
-    SPE_UNIT(1, kProDy, kEpiDinSkip)
-    SPE_UNIT(3, kProAffine, kEpiReluStats)
-    SPE_UNIT(3, kProDy, kEpiDinSums)
-  }
+  SPE_UNIT(1, kProDy, kEpiDin)
+  SPE_UNIT(1, kProDy, kEpiDinSums)
+  SPE_UNIT(1, kProDy, kEpiDinSkip)
+  SPE_UNIT(3, kProAffine, kEpiReluStats)
+  SPE_UNIT(3, kProDy, kEpiDinSums)
 #undef SPE_UNIT
   return cudaErrorInvalidValue;
 }
@@ -1129,48 +1143,62 @@ cudaError_t launch_unit3_tc(const void* x, const void* a, const void* pv,
 }
 
 // ---------------------------------------------------------------------------
-// The 1x1 backward units in bfloat16 on the tensor cores.
+// The 1x1 units in bfloat16 on the tensor cores.
 // ---------------------------------------------------------------------------
 
 // One block walks work items t = blockIdx.x, + gridDim.x, ...: item t is
 // the kTcM rows of row tile t / (N / NT) and the NT output channels of
 // chunk t % (N / NT). The block's items and their K chunks of CK channels
-// form one sequence of stages: stage s holds one chunk's raw dz and a
-// (kTcM rows of CK + 8 bf16) and, unless W^T is resident (wres), the
-// chunk's (CK x NT) weight slice, in ring slot s % NST; NST - 1 stages are
-// in flight ahead of the one in use, across items. Each thread turns the
-// dz it copied into dy in place (prologue8). Warp (wm, wn) owns rows
-// wm*32..+31 of the tile and columns wn*NT/2..+NT/2 of the chunk.
+// form one sequence of stages: stage s holds one chunk's raw inputs (kTcM
+// rows of CK + 8 bf16 each: dz and a for kProDy, x otherwise) and, unless
+// the B operand is resident (wres), the chunk's (CK x NT) slice of it, in
+// ring slot s % NST; NST - 1 stages are in flight ahead of the one in use,
+// across items. Each thread runs the prologue in place on what it copied
+// (prologue8: dy from dz and a, or z = round(x * scale + shift); kProNone
+// keeps z = x). Warp (wm, wn) owns rows wm*32..+31 of the tile and columns
+// wn*NT/2..+NT/2 of the chunk.
+//
+// x is the prologue's raw input (dz for kProDy); pv holds its per-channel
+// constants (K1, K2, K3 rows for kProDy, scale and shift for kProAffine);
+// w is the (K, N) B operand (W^T for din, W for the forward); bias (N
+// floats) serves the forward's epilogue only.
 //
 // The epilogue goes through an item buffer of kTcM x (NT + 8) bf16: the
 // item's aux tile (the RAW cin for the next sums, or g for dx) arrives
 // there by cp.async with the item's last stage, the epilogue replaces each
-// value by the output's (din = round(acc), or dx = round(g + din)), and
-// the block stores the buffer's rows below R in 16-byte vectors. NA item
-// buffers take turns, enough that an item's aux is issued only after the
-// epilogue of the item that used its buffer last (NA * K/CK >= NST).
+// value by the output's (din = round(acc), dx = round(g + din), or the
+// forward's a = round(relu(acc + b)), which has no aux), and the block
+// stores the buffer's rows below R in 16-byte vectors. NA item buffers
+// take turns, enough that an item's aux is issued only after the epilogue
+// of the item that used its buffer last (NA * K/CK >= NST; 1 without aux).
+// The sums ([Σdin, Σdin·cin] for the next unit, [Σa, Σa²] for the forward)
+// take rows below R only, through a fixed warp butterfly and a fixed order
+// over warps into the block's partial row.
 //
 // WIDE: the widest plan, CK = 64 and NT = 128, with the chunk widths and
 // so every loop bound over fragments known at compile time. The generic
 // instantiation's runtime bounds break the fragment loops into short
 // branches, which left its products well behind WIDE's at the fused
 // shapes; it serves the other widths.
-template <int EPI, bool WIDE>
+template <int PRO, int EPI, bool WIDE>
 __global__ void __launch_bounds__(kTcThreads, 1)
-unit1_tc_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ a,
-                const float* __restrict__ kv, const bf16* __restrict__ w,
-                const bf16* __restrict__ aux, bf16* __restrict__ out,
-                float* __restrict__ part, int R, int K, int N, int ck, int nt,
-                int NST, int NA, int wres) {
+unit1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ a,
+                const float* __restrict__ pv, const bf16* __restrict__ w,
+                const float* __restrict__ bias, const bf16* __restrict__ aux,
+                bf16* __restrict__ out, float* __restrict__ part, int R,
+                int K, int N, int ck, int nt, int NST, int NA, int wres) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool kSums = EPI == kEpiDinSums, kAux = EPI != kEpiDin;
+  constexpr bool kFwd = EPI == kEpiReluStats;
+  constexpr bool kSums = kFwd || EPI == kEpiDinSums;
+  constexpr bool kAux = EPI == kEpiDinSums || EPI == kEpiDinSkip;
+  constexpr int kIn = PRO == kProDy ? 2 : 1;  // raw tiles of a stage
   const int CK = WIDE ? kTcCk16 * 16 : ck, NT = WIDE ? kTcNt8 * 16 : nt;
   const int SA = CK + 8, SW = wres ? N + 8 : NT + 8, SX = NT + 8;
   const size_t wbytes = wres ? align16((size_t)K * SW * 2) : 0;
   const size_t stage_bytes =
-      align16((size_t)(2 * kTcM * SA + (wres ? 0 : CK * SW)) * 2);
+      align16((size_t)(kIn * kTcM * SA + (wres ? 0 : CK * SW)) * 2);
   const size_t item_bytes = align16((size_t)kTcM * SX * 2);
-  bf16* wall = reinterpret_cast<bf16*>(smem_raw);  // resident W^T
+  bf16* wall = reinterpret_cast<bf16*>(smem_raw);  // resident W^T or W
   unsigned char* ring = smem_raw + wbytes;
   unsigned char* items = ring + NST * stage_bytes;
   float* colred = reinterpret_cast<float*>(items + NA * item_bytes);  // [4][2][NT]
@@ -1207,15 +1235,16 @@ unit1_tc_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ a,
       const int t = blockIdx.x + (s / nkc) * gridDim.x, kc = s % nkc;
       const int row0 = t / nch * kTcM, col0 = t % nch * NT + wc0;
       bf16* ds = slot(s);
-      bf16* as = ds + kTcM * SA;
+      bf16* as = ds + kTcM * SA;  // kProDy: the raw a beside dz
       for (int m = m0; m < mlim; m += mstep) {
         const bool ok = row0 + m < R;
         const size_t idx = (size_t)(ok ? row0 + m : 0) * K + kc * CK + hc0;
-        mma::cp_async16_zfill(mma::smem_u32(ds + m * SA + hc0), dz + idx, ok);
-        mma::cp_async16_zfill(mma::smem_u32(as + m * SA + hc0), a + idx, ok);
+        mma::cp_async16_zfill(mma::smem_u32(ds + m * SA + hc0), x + idx, ok);
+        if (PRO == kProDy)
+          mma::cp_async16_zfill(mma::smem_u32(as + m * SA + hc0), a + idx, ok);
       }
       if (!wres && rbusy) {
-        bf16* wsl = as + kTcM * SA;
+        bf16* wsl = ds + kIn * kTcM * SA;
         const bf16* src = w + (size_t)kc * CK * N + col0;
         for (int kr = r0; kr < CK; kr += rstep)
           mma::cp_async16(mma::smem_u32(wsl + kr * SW + wc0), src + (size_t)kr * N);
@@ -1256,26 +1285,27 @@ unit1_tc_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ a,
     }
     mma::cp_async_wait_n(NST - 2);  // this thread's copies of stage s
     bf16* ds = slot(s);
-    if (mlim) {
-      float k1[8], k2[8], k3[8];
+    if (PRO != kProNone && mlim) {
+      float v0[8], v1[8], v2[8];
       const int c0 = kc * CK + hc0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        k1[j] = kv[c0 + j];
-        k2[j] = kv[K + c0 + j];
-        k3[j] = kv[2 * K + c0 + j];
+        v0[j] = pv[c0 + j];
+        v1[j] = pv[K + c0 + j];
+        v2[j] = PRO == kProDy ? pv[2 * K + c0 + j] : 0.f;
       }
       for (int m = m0; m < kTcM; m += mstep) {
         bf16* p = ds + m * SA + hc0;
-        sts16(p, prologue8<kProDy>(lds16(p), lds16(p + kTcM * SA), k1, k2, k3, 0));
+        const uint4 ar = PRO == kProDy ? lds16(p + kTcM * SA) : make_uint4(0, 0, 0, 0);
+        sts16(p, prologue8<PRO>(lds16(p), ar, v0, v1, v2, 0));
       }
     }
-    // Stage s's dy (W^T, the aux tile) are visible; every warp is done
-    // with stage s - 1, whose ring slot stage s + NST - 1 takes.
+    // Stage s's dy or z (the B operand, the aux tile) are visible; every
+    // warp is done with stage s - 1, whose ring slot stage s + NST - 1 takes.
     __syncthreads();
     issue(s + NST - 1);
     const bf16* wb = wres ? wall + (size_t)kc * CK * SW + nc * NT
-                          : ds + 2 * kTcM * SA;
+                          : ds + kIn * kTcM * SA;
 #pragma unroll
     for (int ks = 0; ks < kTcCk16; ++ks) {
       if (ks >= CK / 16) break;
@@ -1315,26 +1345,35 @@ unit1_tc_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ a,
     for (int j = 0; j < kTcNt8; ++j) {
       if (j >= nt8) break;
       const int cl = wn * (NT / 2) + j * 8 + 2 * (lane & 3);  // in the chunk
-      float sm[4] = {0.f, 0.f, 0.f, 0.f};  // [Σdin] of cl, cl+1, then [Σdin·cin]
+      // [Σu] of cl, cl+1, then [Σu·v]: u = din and v the RAW cin, or the
+      // forward's u = v = a
+      float sm[4] = {0.f, 0.f, 0.f, 0.f};
+      const float b0 = kFwd ? bias[nc * NT + cl] : 0.f;
+      const float b1 = kFwd ? bias[nc * NT + cl + 1] : 0.f;
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = wm * 32 + mt * 16 + h * 8 + (lane >> 2);
-          uint32_t* x = reinterpret_cast<uint32_t*>(xs + m * SX + cl);
-          const float d0 = round_bf(acc[mt][j][2 * h]);
-          const float d1 = round_bf(acc[mt][j][2 * h + 1]);
-          const uint32_t xv = kAux ? *x : 0u;
+          uint32_t* xp = reinterpret_cast<uint32_t*>(xs + m * SX + cl);
+          const float e0 = acc[mt][j][2 * h], e1 = acc[mt][j][2 * h + 1];
+          const float d0 = kFwd ? round_bf(fmaxf(__fadd_rn(e0, b0), 0.f))
+                                : round_bf(e0);
+          const float d1 = kFwd ? round_bf(fmaxf(__fadd_rn(e1, b1), 0.f))
+                                : round_bf(e1);
+          const uint32_t xv = kAux ? *xp : 0u;
           if (EPI == kEpiDinSkip) {
-            *x = mma::pack_bf16(__fadd_rn(bf_lo(xv), d0), __fadd_rn(bf_hi(xv), d1));
+            *xp = mma::pack_bf16(__fadd_rn(bf_lo(xv), d0), __fadd_rn(bf_hi(xv), d1));
           } else {
-            *x = mma::pack_bf16(d0, d1);
+            *xp = mma::pack_bf16(d0, d1);
           }
-          if (kSums && row0 + m < R) {  // the next sums read the RAW cin
+          // Rows past R are zero-filled: their dy is 0, but the forward's
+          // a is relu(b) or relu(shift . W + b), so they are never summed.
+          if (kSums && row0 + m < R) {
             sm[0] += d0;
             sm[1] += d1;
-            sm[2] = fmaf(d0, bf_lo(xv), sm[2]);
-            sm[3] = fmaf(d1, bf_hi(xv), sm[3]);
+            sm[2] = fmaf(d0, kFwd ? d0 : bf_lo(xv), sm[2]);
+            sm[3] = fmaf(d1, kFwd ? d1 : bf_hi(xv), sm[3]);
           }
         }
       if (kSums) {
@@ -1569,27 +1608,31 @@ dw1_tc_kernel(const bf16* __restrict__ dz, const bf16* __restrict__ a,
   }
 }
 
-template <int EPI>
-cudaError_t launch_unit1_tc(const void* dz, const void* a, const void* kv,
-                            const void* w, const void* aux, void* out,
-                            void* ws, void* sums, int R, int K, int N, int CK,
-                            int NT, int NST, int NA, int wres, size_t smem,
-                            cudaStream_t s) {
+// unit1_tc_kernel and, when its epilogue sums, the finalize kernel (also
+// when the grid is one block).
+template <int PRO, int EPI>
+cudaError_t launch_unit1_tc(const void* x, const void* a, const void* pv,
+                            const void* w, const void* bias, const void* aux,
+                            void* out, void* ws, void* sums, int R, int K,
+                            int N, int CK, int NT, int NST, int NA, int wres,
+                            size_t smem, cudaStream_t s) {
   auto kernel = CK == kTcCk16 * 16 && NT == kTcNt8 * 16
-                     ? unit1_tc_kernel<EPI, true>
-                     : unit1_tc_kernel<EPI, false>;
+                     ? unit1_tc_kernel<PRO, EPI, true>
+                     : unit1_tc_kernel<PRO, EPI, false>;
   cudaError_t err = allow_smem(kernel, smem);
   int grid = 0;
   const int work = (R + kTcM - 1) / kTcM * (N / NT);
   if (err == cudaSuccess) err = row_grid(kernel, smem, work, &grid);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kTcThreads, smem, s>>>(
-      static_cast<const bf16*>(dz), static_cast<const bf16*>(a),
-      static_cast<const float*>(kv), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(aux), static_cast<bf16*>(out),
-      static_cast<float*>(ws), R, K, N, CK, NT, NST, NA, wres);
+      static_cast<const bf16*>(x), static_cast<const bf16*>(a),
+      static_cast<const float*>(pv), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<const bf16*>(aux),
+      static_cast<bf16*>(out), static_cast<float*>(ws), R, K, N, CK, NT,
+      NST, NA, wres);
   err = cudaGetLastError();
-  if (err != cudaSuccess || EPI != kEpiDinSums) return err;
+  if (err != cudaSuccess || !(EPI == kEpiDinSums || EPI == kEpiReluStats))
+    return err;
   return launch_finalize(static_cast<const float*>(ws),
                          static_cast<float*>(sums), grid, 2 * N, s);
 }
@@ -1618,22 +1661,20 @@ cudaError_t launch_dw1_tc(const void* dz, const void* a, const void* kv,
 }  // namespace train
 }  // namespace spe
 
-// A unit kernel (ks 1 or 3; pro 0 none, 1 affine, 2 dy; epi 0 relu+stats,
-// 1 din, 2 din+next sums, 3 din+skip), then, when the epilogue sums, the
-// finalize kernel into sums (2, N). ws holds kMaxParts rows of 2N floats.
-// In bf16 only the 1x1 forward (#14a); the others run spe_train_unit1_tc
-// and spe_train_unit3_tc.
+// A float32 unit kernel (ks 1 or 3; pro 0 none, 1 affine, 2 dy; epi 0
+// relu+stats, 1 din, 2 din+next sums, 3 din+skip), then, when the epilogue
+// sums, the finalize kernel into sums (2, N). ws holds kMaxParts rows of
+// 2N floats. bf16 is refused: it runs spe_train_unit1_fwd_tc,
+// spe_train_unit1_tc and spe_train_unit3_tc.
 extern "C" int spe_train_unit(int bf16, int ks, int pro, int epi,
                               const void* x, const void* a, const void* pv,
                               const void* w, const void* bias, const void* aux,
                               void* out, void* ws, void* sums, int B, int H,
                               int W, int K, int N, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)spe::train::dispatch_unit<__nv_bfloat16>(
-        ks, pro, epi, x, a, pv, w, bias, aux, out, ws, sums, B, H, W, K, N, s);
-  return (int)spe::train::dispatch_unit<float>(
-      ks, pro, epi, x, a, pv, w, bias, aux, out, ws, sums, B, H, W, K, N, s);
+  if (bf16) return (int)cudaErrorInvalidValue;
+  return (int)spe::train::dispatch_unit(
+      ks, pro, epi, x, a, pv, w, bias, aux, out, ws, sums, B, H, W, K, N,
+      static_cast<cudaStream_t>(stream));
 }
 
 // bn_bwd_reduce: the reduce kernel, then the finalize kernel into sums
@@ -1712,14 +1753,42 @@ extern "C" int spe_train_unit1_tc(int epi, const void* dz, const void* a,
                                   void* stream) {
   using namespace spe::train;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SPE_UNIT1(EPI_)                                                       \
-  if (epi == EPI_)                                                            \
-    return (int)launch_unit1_tc<EPI_>(dz, a, kv, w, aux, out, ws, sums, R, K, \
-                                      N, ck, nt, nst, na, wres, smem, s);
+#define SPE_UNIT1(EPI_)                                                      \
+  if (epi == EPI_)                                                           \
+    return (int)launch_unit1_tc<kProDy, EPI_>(dz, a, kv, w, nullptr, aux,    \
+                                              out, ws, sums, R, K, N, ck, nt, \
+                                              nst, na, wres, smem, s);
   SPE_UNIT1(kEpiDin)
   SPE_UNIT1(kEpiDinSums)
   SPE_UNIT1(kEpiDinSkip)
 #undef SPE_UNIT1
+  return (int)cudaErrorInvalidValue;
+}
+
+// conv1x1_relu_stats (#14a) in bf16 on the tensor cores: unit1_tc_kernel's
+// forward, pro 0 (z = x: the bottleneck's unit 1) or 1 (z = round(x *
+// scale + shift), pv = [scale (K), shift (K)]: unit 3), a = round(relu(z .
+// W + b)) into out (R, N) and [Σa, Σa²] over the R rows through the
+// finalize kernel into sums (2, N); ws holds kMaxParts rows of 2N floats.
+// w is W, (K, N); bias N floats. The input chunk ck, the output chunk nt,
+// the ring's stages nst, whether W stays resident (wres) and the shared
+// memory come from ops/cuda/bottleneck_train_kernel.py unit1_plan with
+// EPI_RELU_STATS, which gives one item buffer.
+extern "C" int spe_train_unit1_fwd_tc(int pro, const void* x, const void* pv,
+                                      const void* w, const void* bias,
+                                      void* out, void* ws, void* sums, int R,
+                                      int K, int N, int ck, int nt, int nst,
+                                      int wres, int smem, void* stream) {
+  using namespace spe::train;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pro == kProNone)
+    return (int)launch_unit1_tc<kProNone, kEpiReluStats>(
+        x, nullptr, nullptr, w, bias, nullptr, out, ws, sums, R, K, N, ck, nt,
+        nst, 1, wres, smem, s);
+  if (pro == kProAffine)
+    return (int)launch_unit1_tc<kProAffine, kEpiReluStats>(
+        x, nullptr, pv, w, bias, nullptr, out, ws, sums, R, K, N, ck, nt, nst,
+        1, wres, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,18 +18,21 @@ each wrapper with the JAX function's name and contract:
 
 The kernels are `csrc/bottleneck_train.cu`; its source note says what
 bounds them on the H100 and how they are laid out. In bfloat16 the two 3x3
-units (`unit3_tc_kernel`, `dw3_tc_kernel`) and the two 1x1 backward units
-(`unit1_tc_kernel`, `dw1_tc_kernel`) run their products on the tensor
-cores (`mma.sync` bf16 with float32 accumulation), with the tile and chunk
-plan computed here (`unit3_plan`, `dw3_plan`, `unit1_plan`, `dw1_plan`)
-and passed in as integers; conv1x1_relu_stats and bn_bwd_reduce, and every
-float32 body, are FMA on the CUDA cores. A bf16 shape that the plan cannot
+units (`unit3_tc_kernel`, `dw3_tc_kernel`), the 1x1 forward
+(conv1x1_relu_stats: `unit1_tc_kernel`'s forward instantiation) and the
+two 1x1 backward units (`unit1_tc_kernel`, `dw1_tc_kernel`) run their
+products on the tensor cores (`mma.sync` bf16 with float32 accumulation),
+with the tile and chunk plan computed here (`unit3_plan`, `dw3_plan`,
+`unit1_plan`, `dw1_plan`) and passed in as integers; bf16 never reaches
+an FMA unit body. bn_bwd_reduce, a reduction with no product, and every
+float32 body are FMA on the CUDA cores. A bf16 shape that the plan cannot
 take raises. The TPU kernels carry their sums and dW/db across a
 sequential grid; here every block writes float32 partials to a workspace
 that the wrapper allocates with `torch.empty`, and a second launch adds
 them in a fixed order, so two runs give the same bits. Launches per call
 (each counted on the wrapper's `launches`): conv1x1_relu_stats,
-conv3x3_relu_stats, bn_bwd_reduce 2; unit1x1_bwd 4 (3 without
+conv3x3_relu_stats, bn_bwd_reduce 2 (the finalize runs even when the grid
+is one block); unit1x1_bwd 4 (3 without
 reduce_next); unit3x3_bwd 4; unit1_bwd 3; in bf16 a weight gradient that
 its plan gives one slice writes dW and db itself, one launch fewer (the
 fused step at batch 64 never does). Workspace at B=64, 64 px, C=256,
@@ -77,8 +80,8 @@ TC_HALO = 320             # halo pixels of one tile, at most
 TC_STAGES = 4             # weight slices in flight in unit3_tc_kernel, at most
 TC_MIN_WORK = 132         # work items a tensor-core unit aims at, at least (132 SMs)
 DW3_BLOCKS = 264          # blocks the 3x3 weight gradient aims at (2 x 132 SMs)
-# The bf16 1x1 backward units on the tensor cores (unit1_tc_kernel,
-# dw1_tc_kernel): one block per SM each.
+# The bf16 1x1 units on the tensor cores (unit1_tc_kernel: the forward and
+# the backward din; dw1_tc_kernel): one block per SM each.
 DW1_M = 64                # kDw1M: rows of one weight-gradient stage
 DW1_TILE = 128            # widest Ci and Co tile of a weight-gradient block
 DW1_BLOCKS = 132          # blocks the 1x1 weight gradient aims at (132 SMs)
@@ -373,38 +376,44 @@ def _most_stages(fixed, stage, extra=lambda n: 0):
 
 
 def unit1_plan(B, H, W, K, N, epi):
-    """The plan of unit1_tc_kernel, the din of a bf16 1x1 backward unit, for
-    (B, H, W) rows of K dy channels and N outputs (epi: EPI_DIN,
-    EPI_DIN_SUMS or EPI_DIN_SKIP): the row tiles of TC_M rows (the last may
-    be ragged), the input chunk ck (a stage holds ck dy channels of a
-    tile), the output chunk nt (a work item is one tile's nt outputs;
-    halved down to 16 while the items number fewer than TC_MIN_WORK, as on
-    the 16 to 4 px maps), whether W^T (K x N, rows padded to N + 8 bf16)
-    stays resident in shared memory (wres, where it fits), the ring's
-    stages nst (the most, up to TC_STAGES, that fit one block on the SM),
-    the item buffers na (TC_M x (nt + 8) bf16 each: the epilogue's aux
-    tile and outputs; na * K/ck >= nst where an aux tile arrives by
-    cp.async, so that it never lands in a buffer still in use), the work
-    items and the bytes of shared memory: W^T when resident, nst stages of
-    the raw dz and a (TC_M x (ck + 8) bf16 each, dz turned into dy in
-    place) and, unless W^T is resident, the chunk's weight slice (ck x
-    (nt + 8) bf16), the item buffers, and for EPI_DIN_SUMS the per-warp
-    column sums (4 x 2 x nt f32) and the block's sums (2 x N f32). The
-    widest plan, ck = TC_CK and nt = TC_NT, runs the kernel's WIDE
-    instantiation, whose loop bounds are known at compile time."""
+    """The plan of unit1_tc_kernel, a bf16 1x1 unit as a GEMM over (B, H, W)
+    rows of K input channels and N outputs: the backward din (epi EPI_DIN,
+    EPI_DIN_SUMS or EPI_DIN_SKIP; K dy channels, B = W^T) or the forward
+    conv1x1_relu_stats (EPI_RELU_STATS; K = Cin, N = Cout, B = W). It gives
+    the row tiles of TC_M rows (the last may be ragged), the input chunk ck
+    (a stage holds ck input channels of a tile), the output chunk nt (a
+    work item is one tile's nt outputs; halved down to 16 while the items
+    number fewer than TC_MIN_WORK, as on the 16 to 4 px maps), whether the
+    B operand (K x N, rows padded to N + 8 bf16) stays resident in shared
+    memory (wres, where it fits), the ring's stages nst (the most, up to
+    TC_STAGES, that fit one block on the SM), the item buffers na (TC_M x
+    (nt + 8) bf16 each: the epilogue's aux tile and outputs; na * K/ck >=
+    nst where an aux tile arrives by cp.async, so that it never lands in a
+    buffer still in use; 1 for EPI_DIN and the forward, which have no aux),
+    the work items and the bytes of shared memory: B when resident, nst
+    stages of the raw inputs (TC_M x (ck + 8) bf16 each: dz and a, dz
+    turned into dy in place, for the backward; x, turned into z, for the
+    forward) and, unless B is resident, the chunk's slice of it (ck x (nt
+    + 8) bf16), the item buffers, and where the epilogue sums
+    (EPI_DIN_SUMS, EPI_RELU_STATS) the per-warp column sums (4 x 2 x nt
+    f32) and the block's sums (2 x N f32). The widest plan, ck = TC_CK and
+    nt = TC_NT, runs the kernel's WIDE instantiation, whose loop bounds are
+    known at compile time."""
     _tc_channels(K, N)
     rows = _tc_rows(B, H, W)
     ntiles = -(-rows // TC_M)
     ck, nt = _widest(K, TC_CK), _widest(N, TC_NT)
     while ntiles * (N // nt) < TC_MIN_WORK and nt % 32 == 0:
         nt //= 2
-    sums = (8 * nt + 2 * N) * 4 if epi == EPI_DIN_SUMS else 0
+    sums = (8 * nt + 2 * N) * 4 if epi in (EPI_DIN_SUMS, EPI_RELU_STATS) \
+        else 0
     item = _align16(TC_M * (nt + 8) * 2)
-    na = (lambda n: -(-n // (K // ck))) if epi != EPI_DIN else (lambda n: 1)
-    dz_a = 2 * TC_M * (ck + 8) * 2
+    na = (lambda n: 1) if epi in (EPI_DIN, EPI_RELU_STATS) else \
+        (lambda n: -(-n // (K // ck)))
+    raw = (1 if epi == EPI_RELU_STATS else 2) * TC_M * (ck + 8) * 2
     for wres in (True, False):
         fixed = (_align16(K * (N + 8) * 2) if wres else 0) + sums
-        stage = _align16(dz_a + (0 if wres else ck * (nt + 8) * 2))
+        stage = _align16(raw + (0 if wres else ck * (nt + 8) * 2))
         nst = _most_stages(fixed, stage, lambda n: na(n) * item)
         smem = fixed + na(nst) * item + nst * stage
         if smem <= SMEM_LIMIT:
@@ -515,6 +524,25 @@ def _launch_unit1_tc(epi, dz, a, kv, wt, aux, n):
     return out, sums, 1 + sums_needed
 
 
+def _launch_unit1_fwd_tc(pro, x, pv, w, bias, n):
+    """unit1_tc_kernel's forward (conv1x1_relu_stats in bf16) and its
+    finalize: (a (B, H, W, n), sums (2, n)). w is W, (K, n)."""
+    B, H, W, K = x.shape
+    p = unit1_plan(B, H, W, K, n, EPI_RELU_STATS)
+    _require_cuda(x)
+    _aligned16(x, w)
+    out = torch.empty((B, H, W, n), dtype=x.dtype, device=x.device)
+    ws = torch.empty((MAX_PARTS, 2 * n), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    err = build.lib().spe_train_unit1_fwd_tc(
+        pro, x.data_ptr(), pv.data_ptr() if pv is not None else None,
+        w.data_ptr(), bias.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        sums.data_ptr(), p["rows"], K, n, p["ck"], p["nt"], p["nst"],
+        int(p["wres"]), p["smem"], _stream(x))
+    build.check(err, "tensor-core 1x1 forward kernel")
+    return out, sums
+
+
 def _launch_dw1_tc(dz, a, kv, cin, aff):
     """dW (Ci, Co) and db (1, Co), float32, of a bf16 1x1 unit on the
     tensor cores (z = cin re-normalized by aff, or cin when aff is None),
@@ -562,7 +590,8 @@ def _weight(w, shape, dt):
 def conv1x1_relu_stats(x, w, b, scale=None, shift=None):
     """x (B, H, W, Cin), w (Cin, Cout) -> (a (B, H, W, Cout), sums (2, Cout)
     float32). scale/shift: the previous BN folded per input channel (None
-    for the bottleneck's first unit). 2 launches."""
+    for the bottleneck's first unit). bf16 runs on the tensor cores
+    (unit1_tc_kernel's forward), float32 on the FMA body. 2 launches."""
     Cin, Cout = w.shape
     _check(x, channels=(Cout,))
     if x.shape[-1] != Cin:
@@ -571,10 +600,14 @@ def conv1x1_relu_stats(x, w, b, scale=None, shift=None):
         return conv1x1_relu_stats_plain(x, w, b, scale, shift)
     pv = None if scale is None else torch.cat(
         [_vec(scale, Cin, x.device), _vec(shift, Cin, x.device)])
-    a, sums = _launch_unit(1, PRO_NONE if pv is None else PRO_AFFINE,
-                           EPI_RELU_STATS, x, None, pv,
-                           w.to(x.dtype).contiguous(),
-                           _vec(b, Cout, x.device), None, Cout)
+    pro = PRO_NONE if pv is None else PRO_AFFINE
+    w = w.to(x.dtype).contiguous()
+    bias = _vec(b, Cout, x.device)
+    if x.dtype == torch.bfloat16:
+        a, sums = _launch_unit1_fwd_tc(pro, x, pv, w, bias, Cout)
+    else:
+        a, sums = _launch_unit(1, pro, EPI_RELU_STATS, x, None, pv, w, bias,
+                               None, Cout)
     conv1x1_relu_stats.launches += 2
     return a, sums
 

@@ -72,6 +72,9 @@ _SIGNATURES = {
     # epi, dz, a, kv, w, aux, out, ws, sums, R, K, N, ck, nt, nst, na,
     # wres, smem, stream
     "spe_train_unit1_tc": [_I] + [_P] * 8 + [_I] * 9 + [_P],
+    # pro, x, pv, w, bias, out, ws, sums, R, K, N, ck, nt, nst, wres, smem,
+    # stream
+    "spe_train_unit1_fwd_tc": [_I] + [_P] * 7 + [_I] * 8 + [_P],
     # aff, dz, a, kv, cin, affv, ws, out, R, Ci, Co, ti, to, slices, per,
     # nst, smem, stream
     "spe_train_dw1_tc": [_I] + [_P] * 7 + [_I] * 9 + [_P],

@@ -244,3 +244,34 @@ def test_sums_of_rounded_bf16_activations():
     np.testing.assert_allclose(a.float().numpy(),
                                np.asarray(want[0], np.float32), atol=1.6e-2,
                                rtol=1.6e-2)
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_conv1x1_relu_stats_bf16_matches_pallas(affine):
+    """The bf16 contract that the tensor-core #14a is held to on the card:
+    z = round(x*scale + shift) rounded to bf16 before the product (unit 3)
+    or z = x (unit 1), a rounded after the f32 bias and ReLU, the stats
+    over the rounded a; at 105 rows, which leave a ragged last row tile
+    of the kernel. Against the Pallas kernel in interpret mode at bf16,
+    within two bf16 ulps (1.6e-2 relative, as the test above) for a and
+    REL_RED of the largest |value| for the sums of the rounded a."""
+    p = _inputs((3, 5, 7, 32), 9)
+    if affine:
+        args = (p["a2"], p["w3"], p["b3"], p["aff2"][0], p["aff2"][1])
+    else:
+        args = (p["x"], p["w1"], p["b1"])
+    x, *rest = args
+    a, sums = tk.conv1x1_relu_stats(torch.from_numpy(x).bfloat16(),
+                                    *_t(*rest))
+    want = jk.conv1x1_relu_stats(jnp.asarray(x, jnp.bfloat16),
+                                 *map(jnp.asarray, rest), interpret=True)
+    assert a.dtype == torch.bfloat16 and sums.dtype == torch.float32
+    np.testing.assert_allclose(a.float().numpy(),
+                               np.asarray(want[0], np.float32), atol=1.6e-2,
+                               rtol=1.6e-2)
+    a32 = a.float().reshape(-1, a.shape[-1])
+    torch.testing.assert_close(sums, torch.stack([a32.sum(0),
+                                                  (a32 * a32).sum(0)]))
+    w = np.asarray(want[1])
+    np.testing.assert_allclose(sums.numpy(), w, rtol=0,
+                               atol=REL_RED * np.abs(w).max())

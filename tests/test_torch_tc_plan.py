@@ -4,10 +4,11 @@
 `csrc/bottleneck_train.cu` as integers: at every level of the fused step
 (64 px down to 4 px), batch 1, 8 and 64 (and 11 for the 1x1 units), and
 16, 48, 128 and 1024 channels (and 256, with Cin != Cout, for the 1x1
-units), each plan fits one block's shared memory on the H100, the tiles
-cover every output pixel or row once, and the weight gradients' slices
-cover every tile once with partials within DW_WORKSPACE. Pure Python: the
-kernels themselves run only on the card (`tests/test_torch_cuda_kernels.py`)."""
+units, forward and backward), each plan fits one block's shared memory on
+the H100, the tiles cover every output pixel or row once, and the weight
+gradients' slices cover every tile once with partials within
+DW_WORKSPACE. Pure Python: the kernels themselves run only on the card
+(`tests/test_torch_cuda_kernels.py`)."""
 
 import itertools
 
@@ -124,14 +125,33 @@ EPIS = (tk.EPI_DIN, tk.EPI_DIN_SUMS, tk.EPI_DIN_SKIP)
 
 
 def _unit1_smem(p, K, N, epi):
-    """unit1_tc_kernel's shared memory, laid out as the kernel does: W^T
-    when resident, the ring, the item buffers, the sums."""
+    """unit1_tc_kernel's shared memory, laid out as the kernel does: the B
+    operand (W^T, or W for the forward) when resident, the ring (a stage
+    holds the raw dz and a, or the forward's raw x), the item buffers, the
+    sums."""
     a16 = lambda n: -(-n // 16) * 16
-    stage = a16((2 * tk.TC_M * (p["ck"] + 8)
+    raw = 1 if epi == tk.EPI_RELU_STATS else 2
+    stage = a16((raw * tk.TC_M * (p["ck"] + 8)
                  + (0 if p["wres"] else p["ck"] * (p["nt"] + 8))) * 2)
+    sums = epi in (tk.EPI_DIN_SUMS, tk.EPI_RELU_STATS)
     return ((a16(K * (N + 8) * 2) if p["wres"] else 0) + p["nst"] * stage
             + p["na"] * a16(tk.TC_M * (p["nt"] + 8) * 2)
-            + ((8 * p["nt"] + 2 * N) * 4 if epi == tk.EPI_DIN_SUMS else 0))
+            + ((8 * p["nt"] + 2 * N) * 4 if sums else 0))
+
+
+def _rows_once(p, rows, N):
+    """Tile i holds rows [i * TC_M, (i + 1) * TC_M) below `rows`: each row
+    once, the last tile ragged where TC_M does not divide rows; work item t
+    is tile t // (N / nt), chunk t % (N / nt)."""
+    assert p["rows"] == rows and p["ntiles"] == -(-rows // tk.TC_M)
+    tiles = np.arange(p["ntiles"])
+    count = np.zeros(rows, np.int64)
+    for lo in tiles * tk.TC_M:
+        count[lo:lo + tk.TC_M] += 1
+    assert (count == 1).all()
+    nch = N // p["nt"]
+    assert p["work"] == p["ntiles"] * nch
+    assert np.array_equal(np.unique(np.arange(p["work"]) // nch), tiles)
 
 
 @pytest.mark.parametrize("B", BATCHES_1X1)
@@ -148,19 +168,7 @@ def test_unit1_plan_fits_and_tiles_cover_each_row_once(h, B):
         # been stored out
         if epi != tk.EPI_DIN:
             assert p["na"] * (K // p["ck"]) >= p["nst"]
-        # tile i holds rows [i * TC_M, (i + 1) * TC_M) below `rows`: each
-        # row once, the last tile ragged where TC_M does not divide rows;
-        # work item t is tile t // (N / nt), chunk t % (N / nt)
-        assert p["rows"] == rows and p["ntiles"] == -(-rows // tk.TC_M)
-        tiles = np.arange(p["ntiles"])
-        count = np.zeros(rows, np.int64)
-        for lo in tiles * tk.TC_M:
-            count[lo:lo + tk.TC_M] += 1
-        assert (count == 1).all()
-        items = np.arange(p["work"])
-        nch = N // p["nt"]
-        assert p["work"] == p["ntiles"] * nch
-        assert np.array_equal(np.unique(items // nch), tiles)
+        _rows_once(p, rows, N)
 
 
 @pytest.mark.parametrize("B", BATCHES_1X1)
@@ -236,3 +244,67 @@ def test_bf16_1x1_shapes_outside_the_contract_raise(c):
     with pytest.raises(ValueError, match="multiple of 16"):
         tk.unit1_bwd(y, y, x, x, torch.empty((c, 16), device="meta"),
                      torch.empty((3, 16), device="meta"))
+
+
+# The forward 1x1 unit #14a (unit1_plan with EPI_RELU_STATS): the
+# bottleneck's two call forms, unit 1 (C -> Cm) and unit 3 (Cm -> C), and
+# the other widths of the contract.
+FWD_FORMS = ((256, 128), (128, 256))
+
+
+@pytest.mark.parametrize("B", BATCHES_1X1)
+@pytest.mark.parametrize("h", LEVELS)
+def test_unit1_fwd_plan_fits_and_tiles_cover_each_row_once(h, B):
+    """Both call forms and every PAIRS_1X1 width: the plan fits one block's
+    shared memory, laid out as the kernel lays it out (one raw x tile a
+    stage, one item buffer: the forward has no aux tile), and its row
+    tiles cover each row once, the last ragged at batch 11 on the 8 and 4
+    px maps."""
+    rows = B * h * h
+    for K, N in FWD_FORMS + PAIRS_1X1:
+        p = tk.unit1_plan(B, h, h, K, N, tk.EPI_RELU_STATS)
+        assert p["smem"] == _unit1_smem(p, K, N, tk.EPI_RELU_STATS) \
+            <= tk.SMEM_LIMIT
+        assert K % p["ck"] == 0 and p["ck"] % 16 == 0 and p["ck"] <= tk.TC_CK
+        assert N % p["nt"] == 0 and p["nt"] % 16 == 0 and p["nt"] <= tk.TC_NT
+        assert 2 <= p["nst"] <= tk.TC_STAGES and p["na"] == 1
+        _rows_once(p, rows, N)
+        if B == 11 and h <= 8:
+            assert rows % tk.TC_M      # a ragged last tile to mask
+
+
+def test_unit1_fwd_plans_at_the_fused_step_shapes():
+    """#14a at batch 64 (C = 256, Cm = 128): at 64 px both forms take the
+    WIDE plan (ck = 64, nt = 128) with W resident (256 x 136 and 128 x 264
+    bf16, 69.6 and 67.6 KB); unit 3's 256 outputs are two work items of 128
+    per row tile. On the small maps the chunk is halved toward
+    TC_MIN_WORK items, as for the backward."""
+    u1 = tk.unit1_plan(64, 64, 64, 256, 128, tk.EPI_RELU_STATS)
+    u3 = tk.unit1_plan(64, 64, 64, 128, 256, tk.EPI_RELU_STATS)
+    for p in (u1, u3):
+        assert (p["ck"], p["nt"], p["wres"], p["nst"], p["na"]) == \
+            (tk.TC_CK, tk.TC_NT, True, 4, 1)
+    assert (u1["work"], u3["work"]) == (2048, 4096)
+    assert (u1["smem"], u3["smem"]) == (183296, 182272)
+    assert [(tk.unit1_plan(64, h, h, k, n, tk.EPI_RELU_STATS)["nt"],
+             tk.unit1_plan(64, h, h, k, n, tk.EPI_RELU_STATS)["work"])
+            for k, n in FWD_FORMS for h in (32, 16, 8, 4)] == \
+        [(128, 512), (64, 256), (16, 256), (16, 64),
+         (128, 1024), (128, 256), (32, 256), (16, 128)]
+
+
+@pytest.mark.parametrize("c", [8, 24, 1040])
+def test_bf16_1x1_forward_shapes_outside_the_contract_raise(c):
+    """The forward's plan and wrapper refuse channels that are not
+    multiples of 16 or exceed 1024, on either side, before any launch."""
+    for k, n in ((c, 16), (16, c)):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            tk.unit1_plan(2, 8, 8, k, n, tk.EPI_RELU_STATS)
+        x = torch.empty((2, 8, 8, k), dtype=torch.bfloat16, device="meta")
+        w = torch.empty((k, n), device="meta")
+        v = torch.empty((n,), device="meta")
+        with pytest.raises(ValueError, match="multiple of 16"):
+            tk.conv1x1_relu_stats(x, w, v)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            tk.conv1x1_relu_stats(x, w, v, torch.empty((k,), device="meta"),
+                                  torch.empty((k,), device="meta"))
