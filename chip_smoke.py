@@ -19,7 +19,9 @@ failure:
 2. build: compile the kernels from `single_person_pose_estimation_tpu_torch/
    csrc` with nvcc and print the build time;
 3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (batch 8), in float32 and bfloat16; then decode_kernel:
+   path's shapes (batch 8), and #1-#3 at the bf16 body's contract edges
+   (BNECK_EDGES), in float32 and bfloat16, each run twice for the same
+   bits; then decode_kernel:
    the decode kernel against its plain version at batch 128, 64x64x17
    float32, legacy and corrected, on random, peaked, tied and border maps
    and on S4/256 bf16 heatmaps (kernel path and plain model), exactly;
@@ -27,12 +29,19 @@ failure:
    outputs in `tests/fixtures/golden_ref_s2c32.npz`;
 5. slice: S4/256 from `init_variables(seed=0)`, served by
    `PoseServer(device="cuda")` in bfloat16; launch counters must equal the
-   launches the served forwards and decodes imply;
+   launches the served forwards and decodes imply; then the kernel path
+   against the plain model at batch 8, as it is and on a copy whose last
+   predict conv is scaled so that no heatmap value saturates
+   (`scaled_readings`: f32 within TOL_S4_F32_MAX/MEAN, bf16 within
+   S4_BF16_FACTOR times the plain bf16 model's distance from plain f32);
 6. times: S4/256 forward img/s at batch 128 with the kernels and with the
    plain model, and each kernel's time (per call and on the device alone)
-   beside its plain version's;
+   beside its plain version's and, for #1-#3, the plain cuDNN bf16
+   bottleneck's at the same shape (the library yardstick);
 7. trace: torch.profiler over 3 forwards of each path at batch 128: device
-   busy time, span and idle share, and the device time of each kernel;
+   busy time, span and idle share, the device time of each kernel, and
+   the device ms per forward of #1-#4 over every shape (no bf16 FMA
+   bottleneck may run);
 7'. dial_kernels: the conv-skip bottleneck (#6) at 64 px, 128 -> 256
    channels, the subtree (#7) at depths 1, 2 and 3 (8, 16 and 32 px
    inputs) and the row-blocked bottleneck (#5) at 128 px, C=256, batch 8,
@@ -149,6 +158,7 @@ TOL_PRED_BF16 = 1e-2
 TOL_GOLDEN = 1e-4
 TOL_S4_F32_MAX = 1e-2     # see phase_slice
 TOL_S4_F32_MEAN = 1e-5
+S4_BF16_FACTOR = 2.0      # of the plain bf16 control; see phase_slice
 
 REPLACES = {
     "fused_bottleneck":
@@ -241,7 +251,7 @@ def cuda_ms(fn, iters=10, warmup=2):
 # Kernel inputs, made with numpy from a seed.
 # ---------------------------------------------------------------------------
 
-def bneck_params(rng, dtype, device):
+def bneck_params(rng, dtype, device, c=C):
     from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
         BottleneckParams,
         bn_affine,
@@ -251,12 +261,13 @@ def bneck_params(rng, dtype, device):
     def u(lo, hi, *shape):
         return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
 
-    lim1, lim2 = np.sqrt(6 / (C + CM)), np.sqrt(6 / (18 * CM))
+    cm = c // 2
+    lim1, lim2 = np.sqrt(6 / (c + cm)), np.sqrt(6 / (18 * cm))
     affs = [bn_affine(u(.5, 1.5, n), u(-.3, .3, n), u(-.5, .5, n),
-                      u(.5, 1.5, n)) for n in (CM, CM, C)]
+                      u(.5, 1.5, n)) for n in (cm, cm, c)]
     return BottleneckParams.pack(
-        u(-lim1, lim1, C, CM), u(-.1, .1, CM), u(-lim2, lim2, 3, 3, CM, CM),
-        u(-.1, .1, CM), u(-lim1, lim1, CM, C), u(-.1, .1, C),
+        u(-lim1, lim1, c, cm), u(-.1, .1, cm), u(-lim2, lim2, 3, 3, cm, cm),
+        u(-.1, .1, cm), u(-lim1, lim1, cm, c), u(-.1, .1, c),
         *affs[0], *affs[1], *affs[2], dtype=dtype, device=device)
 
 
@@ -277,10 +288,10 @@ def head_params(rng, last, dtype, device):
                            **glue, dtype=dtype, device=device)
 
 
-def nhwc(rng, b, h, dtype, device):
+def nhwc(rng, b, h, dtype, device, c=C):
     import torch
 
-    x = rng.uniform(-1, 1, (b, h, h, C)).astype(np.float32)
+    x = rng.uniform(-1, 1, (b, h, h, c)).astype(np.float32)
     return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
@@ -322,6 +333,63 @@ def kernel_cases(rng, dtype, device, b):
                       lambda u=u, yy=yy, p=p: hk.fused_head(u, yy, p),
                       lambda u=u, yy=yy, p=p: hk.fused_head_plain(u, yy, p)))
     return cases
+
+
+# The bf16 body's contract edges (csrc/bottleneck_tc.cuh), beside the main
+# shapes: (kernel, batch, side, channels). A batch of 11; C = 32 (Cm = 16:
+# the narrowest output chunk, warps 4 x 2), 64 and 512 (two output chunks
+# in phases 1-2, one block an SM); 4 px maps (one 4 x 4 tile, half the
+# warps idle in phases 2-3); 12 px (a ragged last tile, pooled); kUpAdd at
+# 8 px. C=512 runs in bf16 only: the f32 FMA body's 8 x 8 tile takes 600
+# bytes of shared memory per channel, over a block's 227 KB above C=384
+# (ROADMAP.md Queue 3).
+BNECK_EDGES = (("fused_bottleneck", 11, 4, C), ("fused_bottleneck", 2, 16, 32),
+               ("fused_bottleneck_pool", 2, 16, 64),
+               ("fused_bottleneck_pool", 2, 12, 64),
+               ("fused_bottleneck_pool", 11, 8, 512),
+               ("fused_uplevel", 2, 8, C), ("fused_uplevel", 2, 16, 512))
+
+
+def bneck_edge_cases(rng, dtype, device, b=None):
+    """(name, kernel call, plain call) of #1-#3 at BNECK_EDGES (each edge
+    names its own batch; b is unused)."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottleneck_kernel as bk,
+        uplevel_kernel as uk,
+    )
+
+    import torch
+
+    cases = []
+    for name, nb, h, c in BNECK_EDGES:
+        if c > 384 and dtype == torch.float32:
+            continue
+        x, p = nhwc(rng, nb, h, dtype, device, c), bneck_params(
+            rng, dtype, device, c)
+        label = f"{name}@{h} B={nb} C={c}"
+        if name == "fused_uplevel":
+            lo, pm = nhwc(rng, nb, h // 2, dtype, device, c), bneck_params(
+                rng, dtype, device, c)
+            cases.append((label, name,
+                          lambda x=x, lo=lo, p=p, pm=pm:
+                              uk.fused_uplevel(x, lo, p, pm),
+                          lambda x=x, lo=lo, p=p, pm=pm:
+                              uk.fused_uplevel_plain(x, lo, p, pm)))
+        else:
+            kern, plain = ((bk.fused_bottleneck, bk.fused_bottleneck_plain)
+                           if name == "fused_bottleneck" else
+                           (bk.fused_bottleneck_pool,
+                            bk.fused_bottleneck_pool_plain))
+            cases.append((label, name, lambda x=x, p=p, k=kern: k(x, p),
+                          lambda x=x, p=p, f=plain: f(x, p)))
+    return cases
+
+
+def main_kernel_cases(rng, dtype, device, b):
+    """kernel_cases, then the bf16 body's edges (same draws for the main
+    shapes as kernel_cases alone)."""
+    return (kernel_cases(rng, dtype, device, b)
+            + bneck_edge_cases(rng, dtype, device))
 
 
 def mobile_params(rng, dtype, device):
@@ -614,6 +682,20 @@ def phase_slice(report, model):
         raise AssertionError(f"S4/256 f32 kernels vs plain model: max "
                              f"{d.max().item()}, mean {d.mean().item()}")
 
+    # The same batch on an unsaturated copy (scaled_readings). In bf16 the
+    # kernel path is held, in max|d| and in mean|d| from plain f32, within
+    # S4_BF16_FACTOR times the plain bf16 model's own distance from plain
+    # f32 in the same run: the plain bf16 model is the control.
+    r = scaled_readings(model, x, "slice")
+    kern, ctrl = r["kernels bf16 vs plain f32"], r["plain bf16 vs plain f32"]
+    ok = all(k <= S4_BF16_FACTOR * c for k, c in zip(kern, ctrl))
+    log(f"slice: bf16 kernels vs plain f32 (max {kern[0]:.3e}, mean "
+        f"{kern[1]:.3e}) within {S4_BF16_FACTOR:g}x plain bf16 vs plain f32 "
+        f"(max {ctrl[0]:.3e}, mean {ctrl[1]:.3e}): {ok}")
+    if not ok:
+        raise AssertionError(f"S4/256 bf16 kernels on the scaled copy: "
+                             f"{kern} against the control {ctrl}")
+
 
 def phase_times(report, model, card):
     import torch
@@ -650,12 +732,29 @@ def phase_times(report, model, card):
         uplevel_kernel as uk,
     )
 
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
+
     dt = torch.bfloat16
     p = bneck_params(rng, dt, "cuda")
     p2 = bneck_params(rng, dt, "cuda")
     x64 = nhwc(rng, B_TIME, 64, dt, "cuda")
     x32 = nhwc(rng, B_TIME, 32, dt, "cuda")
     hp = head_params(rng, False, dt, "cuda")
+    # Library yardsticks, never called by the port: the plain cuDNN bf16
+    # bottleneck of the model (fi._bottleneck_plain) at the same shape; for
+    # #2 followed by the 2x2 maxpool, for #3 two of them around the
+    # upsample-add.
+    bneck = lambda v, n: fi._bottleneck_plain(fp, v, f"hg0_{n}", C)
+    library = {
+        "fused_bottleneck": lambda: bneck(x64, "downsample_f1"),
+        "fused_bottleneck_pool": lambda: fi.maxpool2x2(
+            bneck(x32, "downsample_f2")),
+        "fused_uplevel": lambda: bneck(
+            bneck(x64, "upsample_f1_short") + fi.upsample2x(x32),
+            "upsample_f1_merged"),
+    }
     cases = {
         "fused_bottleneck": ("64x64", lambda: bk.fused_bottleneck(x64, p),
                              lambda: bk.fused_bottleneck_plain(x64, p)),
@@ -673,11 +772,16 @@ def phase_times(report, model, card):
             ms = cuda_ms(kern, iters=5)
             plain_ms = cuda_ms(plain, iters=5)
             device_ms = kernel_device_ms(kern, name)
+            lib_ms = (cuda_ms(library[name], iters=5) if name in library
+                      else None)
             report.setdefault(name, {}).update(ms=ms, plain_ms=plain_ms,
-                                               device_ms=device_ms)
+                                               device_ms=device_ms,
+                                               library_ms=lib_ms)
             log(f"times {name} bf16 B={B_TIME} {shape}: kernel {ms:.3f} ms "
                 f"({device_ms:.3f} ms on the device), plain {plain_ms:.3f} "
-                f"ms [{card}]")
+                f"ms, library "
+                f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'} "
+                f"[{card}]")
 
 
 def kernel_device_ms(fn, name, calls=9, before=None):
@@ -712,9 +816,10 @@ def kernel_device_ms(fn, name, calls=9, before=None):
 def device_trace(fn, calls=3, attempts=3):
     """Device activity of `calls` back-to-back calls of fn under
     torch.profiler, after one profiled warm-up call that is discarded.
-    Returns per call: (span ms, busy ms, {kernel: [ms, launches]}), and
-    the five longest idle gaps of the whole window as (ms, ms from its
-    start).
+    Returns per call: (span ms, busy ms, {kernel: [ms, launches]}), the
+    five longest idle gaps of the whole window as (ms, ms from its start),
+    and every device event of the window as (start us, end us, name) in
+    time order.
 
     A profiler session now and then delivers no device records at all
     (seen on the H100 for windows of µs-long kernels, which is why
@@ -762,10 +867,12 @@ def device_trace(fn, calls=3, attempts=3):
         ent[0] += (e.time_range.end - e.time_range.start) / 1e3 / calls
         ent[1] += 1 / calls
     return ((reach - ivs[0][0]) / 1e3 / calls, busy / 1e3 / calls, per,
-            sorted(gaps, reverse=True)[:5])
+            sorted(gaps, reverse=True)[:5],
+            sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in evs))
 
 
-def phase_trace(model, card):
+def phase_trace(report, model, card):
     import torch
 
     from single_person_pose_estimation_tpu_torch.models.fused_inference import (
@@ -780,7 +887,7 @@ def phase_trace(model, card):
             "plain": lambda: model(x)[-1]}
     with torch.inference_mode():
         for name, fn in runs.items():
-            span, busy, per, _ = device_trace(fn)
+            span, busy, per, _, evs = device_trace(fn)
             log(f"trace S4/256 bf16 B={B_TIME} {name}: device span "
                 f"{span:.2f} ms/forward, busy {busy:.2f} ms, idle share "
                 f"{1 - busy / span:.4f} [{card}]")
@@ -788,6 +895,49 @@ def phase_trace(model, card):
             for kname, (ms, n) in top:
                 log(f"  {ms:9.3f} ms/forward {ms / busy:6.1%} x{n:6.1f}  "
                     f"{kname}")
+            if name != "kernels":
+                continue
+            if any(BF16_FMA_BNECK in e[2] for e in evs):
+                raise AssertionError(f"the bf16 forward ran the FMA body "
+                                     f"{BF16_FMA_BNECK}")
+            per_kernel, launches = forward_device_ms(evs)
+            if launches != PER_FORWARD:
+                raise AssertionError(f"the trace attributes {launches} "
+                                     f"launches a forward, not "
+                                     f"{PER_FORWARD}")
+            for kname, ms in per_kernel.items():
+                report.setdefault(kname, {})["forward_device_ms"] = ms
+                log(f"trace {kname}: {ms:.3f} device ms per forward over "
+                    f"its {launches[kname]} launches, every shape [{card}]")
+
+
+# The bf16 body's kernel names in a trace (csrc/bottleneck.cu), by mode,
+# and the FMA body's bf16 instantiation, which no bf16 path may run.
+TC_BNECK = "bneck_tc_kernel<"
+BF16_FMA_BNECK = "bottleneck_kernel<__nv_bfloat16"
+
+
+def forward_device_ms(evs, calls=3):
+    """Device ms and launches per forward of #1-#4 from the trace's events
+    of `calls` forwards, summed over every shape: a bneck_tc_kernel<1>
+    launch is #2's, <2> is #3's first launch and the <0> launch right after
+    it #3's second, every other <0> launch #1's; `head_kernel` is #4's."""
+    ms, n = dict.fromkeys(PER_FORWARD, 0.0), dict.fromkeys(PER_FORWARD, 0)
+    prev = None
+    for start, end, name in evs:
+        if "head_kernel" in name:
+            owner = "fused_head"
+        elif TC_BNECK in name:
+            mode = name.split(TC_BNECK)[1][0]
+            owner = ("fused_bottleneck_pool" if mode == "1" else
+                     "fused_uplevel" if "2" in (mode, prev) else
+                     "fused_bottleneck")
+            prev = mode
+        else:
+            continue
+        ms[owner] += (end - start) / 1e3 / calls
+        n[owner] += 1
+    return ms, {k: v // calls for k, v in n.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -862,10 +1012,6 @@ def phase_mobile_slice(report, model):
     from single_person_pose_estimation_tpu_torch.models import (
         fused_inference as fi,
     )
-    from single_person_pose_estimation_tpu_torch.models.fused_inference import (
-        fused_apply,
-        prepare_fused,
-    )
     from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
     from single_person_pose_estimation_tpu_torch.serving import PoseServer
 
@@ -913,12 +1059,32 @@ def phase_mobile_slice(report, model):
     for name in MOBILE_KERNELS:
         report.setdefault(name, {})["launches"] = all_counts[name]
 
-    # The random S4/256 saturates 99.8% of its last-stack sigmoids to
-    # exactly 0 or 1, which hides what the kernels compute. So the kernel
-    # path is held against the plain model on a copy whose last predict
-    # conv is scaled to bring every pre-sigmoid value into [-4, 4]: the
-    # heatmaps then carry the relative error of the whole stream.
-    x = torch.from_numpy(imgs[:8]).cuda()
+    # The kernel path against the plain mobile model, on an unsaturated
+    # copy at the standard model's f32 tolerances.
+    scaled_readings(model, torch.from_numpy(imgs[:8]).cuda(), "mobile_slice")
+
+
+def scaled_readings(model, x, label):
+    """The kernel path against the plain model on an unsaturated copy.
+
+    A random S4/256 saturates 99.8% of its last-stack sigmoids to exactly
+    0 or 1, which hides what the kernels compute. So the kernel path is
+    held against the plain model on a deep copy whose last predict conv
+    is scaled by 4 / max|z| (z: the plain f32 last-stack logits) to bring
+    every pre-sigmoid value into [-4, 4]: the heatmaps then carry the
+    relative error of the whole stream. At least 99% of the plain f32
+    heatmap values must lie strictly between 0 and 1. Logs the four
+    readings (kernels bf16 and plain bf16 against each other and against
+    plain f32, kernels f32 against plain f32), holds the f32 kernel path
+    within TOL_S4_F32_MAX and TOL_S4_F32_MEAN (and logs whether it holds
+    TOL_F32, the North star's 1e-4) and returns {reading: (max, mean)}."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models.fused_inference import (
+        fused_apply,
+        prepare_fused,
+    )
+
     peaked = copy.deepcopy(model)
     peaked.compute_dtype = torch.float32
     with torch.inference_mode():
@@ -934,33 +1100,36 @@ def phase_mobile_slice(report, model):
         peaked.compute_dtype = torch.bfloat16
         plain = peaked(x)[-1]
         fused = fused_apply(prepare_fused(peaked), x, **MAIN_FLAGS)[-1]
+    del peaked
     if not torch.isfinite(fused).all() or not torch.isfinite(fused32).all():
-        raise AssertionError("non-finite heatmaps on the mobile kernel path")
+        raise AssertionError(f"{label}: non-finite heatmaps on the kernel "
+                             f"path")
     open_share = ((plain32 > 0) & (plain32 < 1)).float().mean().item()
-    log(f"mobile_slice: last-stack logits max|z| = {z.abs().max().item():.4g}"
+    log(f"{label}: last-stack logits max|z| = {z.abs().max().item():.4g}"
         f", std {z.std().item():.4g}; predict conv scaled by {k:.4g}; "
         f"{open_share:.4f} of the plain f32 heatmap values lie strictly "
         f"between 0 and 1, range [{plain32.min().item():.4f}, "
         f"{plain32.max().item():.4f}]")
     if not open_share >= 0.99:
-        raise AssertionError(f"the scaled mobile heatmaps still saturate: "
-                             f"{open_share:.4f} open")
-    for label, a, b in (("kernels bf16 vs plain bf16", fused, plain),
-                        ("kernels bf16 vs plain f32", fused, plain32),
-                        ("plain bf16 vs plain f32", plain, plain32),
-                        ("kernels f32 vs plain f32", fused32, plain32)):
+        raise AssertionError(f"{label}: the scaled heatmaps still "
+                             f"saturate: {open_share:.4f} open")
+    readings = {}
+    for name, a, b in (("kernels bf16 vs plain bf16", fused, plain),
+                       ("kernels bf16 vs plain f32", fused, plain32),
+                       ("plain bf16 vs plain f32", plain, plain32),
+                       ("kernels f32 vs plain f32", fused32, plain32)):
         d = (a - b).abs()
-        log(f"mobile_slice heatmaps (batch 8, scaled predict), {label}: "
-            f"max|d| = {d.max().item():.3e}, mean|d| = "
-            f"{d.mean().item():.3e}")
-    # At f32 (TF32 off) the kernel path and the plain mobile model differ
-    # only in the order of float32 sums: the standard model's tolerances.
-    d = (fused32 - plain32).abs()
-    if not (d.max().item() <= TOL_S4_F32_MAX
-            and d.mean().item() <= TOL_S4_F32_MEAN):
-        raise AssertionError(f"mobile S4/256 f32 kernels vs plain model: max "
-                             f"{d.max().item()}, mean {d.mean().item()}")
-    del peaked
+        readings[name] = (d.max().item(), d.mean().item())
+        log(f"{label} heatmaps (batch {x.shape[0]}, scaled predict), "
+            f"{name}: max|d| = {readings[name][0]:.3e}, mean|d| = "
+            f"{readings[name][1]:.3e}")
+    top, mean = readings["kernels f32 vs plain f32"]
+    log(f"{label}: f32 kernels within the North star's {TOL_F32:g}: "
+        f"{top <= TOL_F32}")
+    if not (top <= TOL_S4_F32_MAX and mean <= TOL_S4_F32_MEAN):
+        raise AssertionError(f"{label}: f32 kernels vs plain model on the "
+                             f"scaled copy: max {top}, mean {mean}")
+    return readings
 
 
 def predict_logits(model, x):
@@ -1017,7 +1186,7 @@ def phase_mobile_times(report, model, card):
             report.setdefault("_mobile_forward", {})[name] = \
                 B_TIME / med * 1e3
         for name, fn in runs.items():
-            span, busy, per, _ = device_trace(fn)
+            span, busy, per, _, _ = device_trace(fn)
             log(f"trace mobile S4/256 bf16 B={B_TIME} {name}: device span "
                 f"{span:.2f} ms/forward, busy {busy:.2f} ms, idle share "
                 f"{1 - busy / span:.4f} [{card}]")
@@ -1506,7 +1675,7 @@ def phase_eval_times(report, cfg, card):
         fwd_ms = cuda_ms(fwd, iters=3)
         hm = fwd()
         prep_ms = cuda_ms(lambda: prepare_fused(model), iters=1)
-    span, busy, per, gaps = device_trace(lambda: one_pass(False), calls=1)
+    span, busy, per, gaps, _ = device_trace(lambda: one_pass(False), calls=1)
     log(f"eval_times S4/256 bf16 B={B_TIME} forward (kernels): "
         f"{fwd_ms:.2f} ms per batch; prepare_fused (BN folding, once per "
         f"predict_ds call) {prep_ms:.2f} ms; one plain pass under the "
@@ -1936,7 +2105,7 @@ def phase_train_times(report, card):
             f"over {len(times[name])} runs [{card}]")
     log(f"train_times S4/256 bf16 B={B_TRAIN} train step: "
         f"{B_TRAIN / med['step'] * 1e3:.1f} img/s [{card}]")
-    span, busy, per, _ = device_trace(lambda: step(state, batch), calls=2)
+    span, busy, per, _, _ = device_trace(lambda: step(state, batch), calls=2)
     log(f"trace S4/256 bf16 B={B_TRAIN} train step: device span "
         f"{span:.2f} ms/step, busy {busy:.2f} ms, idle share "
         f"{1 - busy / span:.4f} [{card}]")
@@ -2642,7 +2811,7 @@ def phase_fused_train_times(report, card):
             f"[{card}]")
     report["_fused_step_ms"] = med["fused"]
     report["_default_step_ms"] = med["flax"]
-    span, busy, per, _ = device_trace(steps["fused"], calls=2)
+    span, busy, per, _, _ = device_trace(steps["fused"], calls=2)
     log(f"trace S4/256 bf16 B={B_TRAIN} fused train step: device span "
         f"{span:.2f} ms/step, busy {busy:.2f} ms, idle share "
         f"{1 - busy / span:.4f} [{card}]")
@@ -2774,14 +2943,14 @@ def convskip_params(rng, dtype, device):
         *affs[0], *affs[1], *affs[2], dtype=dtype, device=device)
 
 
-def subtree_params(rng, dtype, device, depth):
+def subtree_params(rng, dtype, device, depth, c=C):
     from single_person_pose_estimation_tpu_torch.ops.cuda.bottom_kernel import (
         SubtreeParams,
         bneck_order,
     )
 
     return SubtreeParams.pack(
-        {f"hg0_{s}": bneck_params(rng, dtype, device)
+        {f"hg0_{s}": bneck_params(rng, dtype, device, c)
          for s in bneck_order(depth)}, "hg0", depth)
 
 
@@ -2866,6 +3035,16 @@ def dial_kernel_cases(rng, dtype, device, b):
     cases.append(("fused_bottleneck_rows@128", "fused_bottleneck_rows",
                   lambda: bk.fused_bottleneck_rows(x128, p128),
                   lambda: bk.fused_bottleneck_rows_plain(x128, p128)))
+    # The bf16 body's edges in the walk: a batch of 11 at depth 1, and C=64
+    # (output chunks of 32) at depth 2.
+    for nb, d, c in ((11, 1, C), (b, 2, 64)):
+        xd = nhwc(rng, nb, 4 << d, dtype, device, c)
+        sp = subtree_params(rng, dtype, device, d, c)
+        cases.append((f"fused_subtree@depth{d} B={nb} C={c}", "fused_subtree",
+                      lambda xd=xd, sp=sp, d=d: bt.fused_subtree(xd, sp, d),
+                      lambda xd=xd, sp=sp, d=d:
+                          bt.fused_subtree_plain(xd, sp, d),
+                      subtree_hold(xd, sp, d)))
     return cases
 
 
@@ -3024,6 +3203,7 @@ def phase_dial_times(report, model, card):
         raise AssertionError(f"#5 launched {launches} times in the A/B")
     report["fused_bottleneck_rows"]["launches"] = launches
     k_ms, c_ms = (statistics.median(ab[k]) for k in ("kernel", "cudnn"))
+    report["fused_bottleneck_rows"]["library_ms"] = c_ms
     log(f"dial_times rows A/B bf16 B={B_TIME} 128x128 C={C}: kernel "
         f"{k_ms:.3f} ms, plain cuDNN bottleneck {c_ms:.3f} ms, kernel/"
         f"cuDNN {k_ms / c_ms:.3f} (medians of 4, {launches} launches of "
@@ -3057,13 +3237,13 @@ def main():
     log(card)
     report = {}
     timed("build", phase_build)
-    timed("kernels", phase_kernels, report)
+    timed("kernels", phase_kernels, report, main_kernel_cases, twice=True)
     timed("golden", phase_golden)
     model = build_s4().to("cuda")
     timed("decode_kernel", phase_decode_kernel, report, model)
     timed("slice", phase_slice, report, model)
     timed("times", phase_times, report, model, card)
-    timed("trace", phase_trace, model, card)
+    timed("trace", phase_trace, report, model, card)
     timed("dial_kernels", phase_kernels, report, dial_kernel_cases, seed=30,
           twice=True)
     timed("dial_slice", phase_dial_slice, report, model)
@@ -3096,7 +3276,8 @@ def main():
     torch.cuda.empty_cache()
     timed("fused_train_times", phase_fused_train_times, report, card)
     for name, (bms, by) in inference_bounds().items():
-        report[name].update(bound_ms=bms, bound_by=by, library_ms=None)
+        report[name].update(bound_ms=bms, bound_by=by)
+        report[name].setdefault("library_ms", None)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"forward_img_per_s_b128_bf16": report.pop("_forward"),
                     "dial_forward_img_per_s_b128_bf16":

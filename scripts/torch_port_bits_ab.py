@@ -8,9 +8,12 @@ Runs `chip_smoke.kernel_cases` (seed 0, batch 8: #1 at 64 and 4 px, #2 at
 and bfloat16) in this checkout and in OTHER_CHECKOUT, each in its own
 process that builds its own kernels, on one NVIDIA card. It prints, for
 every output, whether the two checkouts wrote the same bits, and exits 1
-if any differs. Both checkouts must draw the same inputs, so
-`kernel_cases` must be the same in both. Use it to show that a refactor of
-`csrc/bottleneck.cu` left the kernels' results as they were.
+if any differs, except the bfloat16 outputs of MAY_DIFFER (#1-#3, whose
+bf16 body moved from FMA to the tensor cores), for which it prints how
+far they moved: max |d|, and the share of values that differ. Both
+checkouts must draw the same inputs, so `kernel_cases` must be the same
+in both. Use it to show that a refactor of `csrc/bottleneck.cu` left the
+kernels' results as they were.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MAY_DIFFER = ("fused_bottleneck", "fused_bottleneck_pool", "fused_uplevel")
 
 _DUMP = """
 import sys
@@ -69,13 +73,20 @@ def main(argv):
     if a.keys() != b.keys():
         print(f"the checkouts ran other cases: {sorted(a)} vs {sorted(b)}")
         return 1
-    differ = 0
+    differ = held = 0
     for key in a:
         same = torch.equal(a[key], b[key])
+        if " bfloat16 " in key and key.split("@")[0] in MAY_DIFFER:
+            d = (a[key].float() - b[key].float()).abs()
+            print(f"{key}: {'bit-equal' if same else 'moved'}, max |d| "
+                  f"{d.max().item():.6g}, {(d > 0).float().mean().item():.6f}"
+                  f" of the values differ (may differ: {MAY_DIFFER})")
+            continue
+        held += 1
         differ += not same
         print(f"{key}: {'bit-equal' if same else 'DIFFERS'}")
-    print(f"{len(a) - differ} of {len(a)} outputs bit-equal between "
-          f"{HERE} and {os.path.abspath(argv[1])}")
+    print(f"{held - differ} of {held} outputs that must match bit-equal "
+          f"between {HERE} and {os.path.abspath(argv[1])}")
     return 1 if differ else 0
 
 

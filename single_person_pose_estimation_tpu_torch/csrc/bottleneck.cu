@@ -21,17 +21,20 @@
 // 1.74 GFLOP per image against 4 MB of HBM traffic (x in, out back, bf16),
 // ~430 FLOP/byte, so the tensor math bounds it, not HBM. The conv skip at
 // 64 px (128 -> 256, Cm=128) is 0.55 GFLOP per image against 3 MB, ~180
-// FLOP/byte: also the math. This first version runs that math as FMA on
-// the CUDA cores in f32 (no tensor cores yet), so it is bound by the FMA
-// rate and by shared-memory reads of t1/t2.
+// FLOP/byte: also the math. In bfloat16 the identity-skip kernel runs that
+// math on the tensor cores (bneck_tc_kernel, the body of
+// bottleneck_tc.cuh); in float32, and for the conv skip in both types, it
+// runs as FMA on the CUDA cores, bound by the FMA rate and by
+// shared-memory reads of t1/t2.
 //
 // Design: the TPU kernel holds a whole 64x64x256 map per image in VMEM; an
 // SM block holds at most 227 KB, so each block takes one TH x TW output tile
 // (8x8, or the whole map when smaller) of one image. It loads x over a
 // one-pixel halo, recomputes t1 on the (TH+2)x(TW+2) halo (t1 is forced to
 // ZERO outside the image: the reference pads t1, not x), keeps t1 and t2 in
-// shared memory and writes only the outputs. Weights stream from L2 with
-// coalesced reads. Nothing is allocated here; the wrapper allocates outputs.
+// shared memory and writes only the outputs. Weights stream from L2 (the
+// FMA body: coalesced reads; the tensor-core body: a cp.async ring).
+// Nothing is allocated here; the wrapper allocates outputs.
 //
 // fused_bottleneck_rows: the TPU kernel cuts a map taller than 64 rows into
 // hb-row strips, each with its two halo rows passed in and t1 zeroed on
@@ -50,7 +53,7 @@
 // needs the x of every output pixel for the skip product: at 8x8 tiles,
 // Cin=128, Cm=128 that is (100*128 + 100*128 + 64*128) values, 67.6 KB at
 // bf16. Phase 3 runs the skip product and the t3 product side by side.
-#include "bottleneck.cuh"
+#include "bottleneck_tc.cuh"
 
 namespace spe {
 
@@ -88,6 +91,64 @@ cudaError_t launch_bottleneck(const void* x, const void* w1, const void* w2,
       static_cast<T*>(pooled), static_cast<const T*>(ulo), H, W, C, Cm, TH, TW,
       tiles_x);
   return cudaGetLastError();
+}
+
+// The bf16 body on the tensor cores: one tile (the plan's TSH x TSW,
+// clipped to the map) per block, the plan from ops/cuda/bottleneck_kernel.py
+// bneck_tc_plan. MW = 4 (tiles up to 8 x 8) runs two blocks an SM within
+// 128 registers a thread; MW = 6 (up to 8 x 16) one.
+template <int MODE, int MW>
+__global__ void __launch_bounds__(kThreads, MW <= 4 ? 2 : 1)
+bneck_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                const bf16* __restrict__ w2, const bf16* __restrict__ w3,
+                const float* __restrict__ vec, bf16* __restrict__ out,
+                bf16* __restrict__ pooled, const bf16* __restrict__ ulo, int H,
+                int W, int C, int Cm, int TH, int TW, int tiles_x, int CK,
+                int NT, int NST) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bneck_tile_tc<MODE, MW>(smem_raw, x, w1, w2, w3, vec, out, pooled, ulo,
+                          blockIdx.y, (blockIdx.x / tiles_x) * TH,
+                          (blockIdx.x % tiles_x) * TW, H, W, C, Cm, TH, TW, CK,
+                          NT, NST);
+}
+
+template <int MODE, int MW>
+cudaError_t launch_bneck_tc_mw(const void* x, const void* w1, const void* w2,
+                               const void* w3, const void* vec, void* out,
+                               void* pooled, const void* ulo, int B, int H,
+                               int W, int C, int Cm, int TH, int TW, int CK,
+                               int NT, int NST, size_t smem,
+                               cudaStream_t stream) {
+  const int tiles_y = (H + TH - 1) / TH, tiles_x = (W + TW - 1) / TW;
+  auto kernel = bneck_tc_kernel<MODE, MW>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tiles_y * tiles_x, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(w3),
+      static_cast<const float*>(vec), static_cast<bf16*>(out),
+      static_cast<bf16*>(pooled), static_cast<const bf16*>(ulo), H, W, C, Cm,
+      TH, TW, tiles_x, CK, NT, NST);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_bneck_tc(const void* x, const void* w1, const void* w2,
+                            const void* w3, const void* vec, void* out,
+                            void* pooled, const void* ulo, int B, int H, int W,
+                            int C, int Cm, int TSH, int TSW, int CK, int NT,
+                            int NST, size_t smem, cudaStream_t stream) {
+  const int TH = H < TSH ? H : TSH, TW = W < TSW ? W : TSW;
+  if (!bneck_tc_plan_ok(C, Cm, TH, TW, CK, NT, NST, smem, pools<MODE>()))
+    return cudaErrorInvalidValue;
+  if (bneck_tc_mw(TH, TW, NT) <= 4)
+    return launch_bneck_tc_mw<MODE, 4>(x, w1, w2, w3, vec, out, pooled, ulo, B,
+                                       H, W, C, Cm, TH, TW, CK, NT, NST, smem,
+                                       stream);
+  return launch_bneck_tc_mw<MODE, kBtMaxMw>(x, w1, w2, w3, vec, out, pooled,
+                                            ulo, B, H, W, C, Cm, TH, TW, CK,
+                                            NT, NST, smem, stream);
 }
 
 template <typename T>
@@ -198,19 +259,39 @@ cudaError_t launch_convskip(const void* x, const void* ws, const void* w1,
 
 }  // namespace spe
 
-// mode: 0 plain, 1 pool, 2 up-add. bf16: 1 for bfloat16 storage, 0 for f32.
-// Returns cudaGetLastError() after the launch (0 on success).
+// mode: 0 plain, 1 pool, 2 up-add; float32 storage (bfloat16 runs
+// spe_bottleneck_tc: bf16 = 1 is refused). Returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int spe_bottleneck(int mode, int bf16, const void* x,
                               const void* w1, const void* w2, const void* w3,
                               const void* vec, void* out, void* pooled,
                               const void* ulo, int B, int H, int W, int C,
                               int Cm, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)spe::dispatch_mode<__nv_bfloat16>(mode, x, w1, w2, w3, vec, out,
-                                                  pooled, ulo, B, H, W, C, Cm, s);
+  if (bf16) return (int)cudaErrorInvalidValue;
   return (int)spe::dispatch_mode<float>(mode, x, w1, w2, w3, vec, out, pooled,
-                                        ulo, B, H, W, C, Cm, s);
+                                        ulo, B, H, W, C, Cm,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// The same in bfloat16 on the tensor cores, with the plan of
+// bneck_tc_plan: tile tsh x tsw, input chunk ck, output chunk nt, ring
+// stages nst, smem bytes.
+extern "C" int spe_bottleneck_tc(int mode, const void* x, const void* w1,
+                                 const void* w2, const void* w3,
+                                 const void* vec, void* out, void* pooled,
+                                 const void* ulo, int B, int H, int W, int C,
+                                 int Cm, int tsh, int tsw, int ck, int nt,
+                                 int nst, int smem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case spe::kPlain:
+      return (int)spe::launch_bneck_tc<spe::kPlain>(x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, tsh, tsw, ck, nt, nst, smem, s);
+    case spe::kPool:
+      return (int)spe::launch_bneck_tc<spe::kPool>(x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, tsh, tsw, ck, nt, nst, smem, s);
+    case spe::kUpAdd:
+      return (int)spe::launch_bneck_tc<spe::kUpAdd>(x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, tsh, tsw, ck, nt, nst, smem, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // The conv-skip bottleneck: x (B, H, W, Cin), ws (Cin, C), w1 (Cin, Cm),

@@ -17,22 +17,28 @@
 // Bound on the H100: the same math as the separate bottleneck launches,
 // ~426 KFLOP per pixel per bottleneck at C=256, against only the subtree's
 // input and output in HBM, so the math bounds it (at depth 2, B=128: 9
-// bottlenecks over 16, 8 and 4 px maps). Like the other kernels it runs
-// that math as f32 FMA on the CUDA cores.
+// bottlenecks over 16, 8 and 4 px maps). In bfloat16 it runs that math on
+// the tensor cores, with the body of bottleneck_tc.cuh and the tile plan of
+// the separate launches (subtree_tc_kernel); in float32 as FMA on the CUDA
+// cores (subtree_kernel).
 //
 // Design: the TPU kernel keeps every intermediate of a block of images in
 // VMEM. An H100 block has 227 KB of shared memory, less than one 16 px map
 // at C=256 in f32, so here ONE BLOCK WALKS ONE IMAGE: for each bottleneck
-// of the walk it loops over the 8x8 tiles of the level's map and runs the
-// three phases of bottleneck.cuh on each, with the pool (kPlainPool) and
-// the up-add (kUpAdd) as tile epilogues. The level maps live in a global
+// of the walk it loops over the tiles of the level's map (8x8, or the
+// tensor-core plan's TS x TS, clipped to the map) and runs the three phases
+// of the body on each, with the pool (kPlainPool) and the up-add (kUpAdd)
+// as tile epilogues. The level maps live in a global
 // workspace that the wrapper allocates, per image (about 1.6 MB at depth 3,
 // bf16). A __syncthreads() after every tile orders one stage's global
 // writes before the next stage's reads within the block; no block reads
 // another block's data, so no grid-wide barrier is needed. At B=128 that is
 // 128 blocks on 132 SMs, one block per SM; a thread-block cluster per image
-// (distributed shared memory) is the way to more SMs per image.
-#include "bottleneck.cuh"
+// (distributed shared memory) is the way to more SMs per image. The
+// tensor-core body sums every output element in one fixed order wherever
+// its tile lies, so in bf16 the walk gives the bits of the same walk
+// composed of bottleneck.cu launches.
+#include "bottleneck_tc.cuh"
 
 namespace spe {
 
@@ -70,14 +76,11 @@ __device__ void bneck_map(T* smem, const T* in, const T* __restrict__ w1,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-subtree_kernel(const T* __restrict__ x, const T* __restrict__ w1s,
-               const T* __restrict__ w2s, const T* __restrict__ w3s,
-               const float* __restrict__ vecs, T* out, T* ws, int H, int C,
-               int Cm, int depth, size_t ws_image) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+// The walk of one image (blockIdx.x): `bneck(i, MODE, in, out, pooled,
+// ulo, h)` runs bottleneck i of the walk over one h x h map.
+template <typename T, typename Bneck>
+__device__ void subtree_walk(const Bneck& bneck, const T* x, T* out, T* ws,
+                             int H, int C, int depth, size_t ws_image) {
   const size_t map = (size_t)H * H * C;
   const T* xin = x + blockIdx.x * map;
   T* xout = out + blockIdx.x * map;
@@ -97,33 +100,98 @@ subtree_kernel(const T* __restrict__ x, const T* __restrict__ w1s,
   T* T0 = wsb + off;
   T* T1 = T0 + (size_t)(H >> depth) * (H >> depth) * C;
 
-  const size_t s1 = (size_t)C * Cm, s2 = (size_t)9 * Cm * Cm, sv = 6 * Cm + 3 * C;
   int i = 0;  // the walk's bottleneck index = its weight set
-#define SPE_BNECK(MODE, IN, OUT, POOLED, ULO, h)                            \
-  bneck_map<T, MODE>(smem, IN, w1s + i * s1, w2s + i * s2, w3s + i * s1,   \
-                     vecs + i * sv, OUT, POOLED, ULO, h, C, Cm);           \
-  ++i
-
   // Down: f_k = b(in_k), in_{k+1} = maxpool(f_k).
   const T* in = xin;
   for (int k = 0; k < depth; ++k) {
-    SPE_BNECK(kPlainPool, in, F[k], P[k], nullptr, H >> k);
+    bneck.template run<kPlainPool>(i++, in, F[k], P[k], nullptr, H >> k);
     in = P[k];
   }
   // Bottom: three bottlenecks; the result goes back into the pooled map it
   // started from (dead after the first), or to out when depth is 0.
   const int hd = H >> depth;
   T* r = depth ? P[depth - 1] : xout;
-  SPE_BNECK(kPlain, in, T0, nullptr, nullptr, hd);
-  SPE_BNECK(kPlain, T0, T1, nullptr, nullptr, hd);
-  SPE_BNECK(kPlain, T1, r, nullptr, nullptr, hd);
+  bneck.template run<kPlain>(i++, in, T0, nullptr, nullptr, hd);
+  bneck.template run<kPlain>(i++, T0, T1, nullptr, nullptr, hd);
+  bneck.template run<kPlain>(i++, T1, r, nullptr, nullptr, hd);
   // Up: s_k = round(b(f_k) + up2x(inner)), level out = b(s_k); the inner
   // walk's output of level k is in P[k].
   for (int k = depth - 1; k >= 0; --k) {
-    SPE_BNECK(kUpAdd, F[k], S[k], nullptr, P[k], H >> k);
-    SPE_BNECK(kPlain, S[k], k ? P[k - 1] : xout, nullptr, nullptr, H >> k);
+    bneck.template run<kUpAdd>(i++, F[k], S[k], nullptr, P[k], H >> k);
+    bneck.template run<kPlain>(i++, S[k], k ? P[k - 1] : xout, nullptr,
+                               nullptr, H >> k);
   }
-#undef SPE_BNECK
+}
+
+// Bottleneck i of the walk on the FMA body: 8x8 tiles.
+template <typename T>
+struct FmaBneck {
+  T* smem;
+  const T *w1s, *w2s, *w3s;
+  const float* vecs;
+  int C, Cm;
+  template <int MODE>
+  __device__ void run(int i, const T* in, T* out, T* pooled, const T* ulo,
+                      int h) const {
+    const size_t s1 = (size_t)C * Cm, s2 = (size_t)9 * Cm * Cm,
+                 sv = 6 * Cm + 3 * C;
+    bneck_map<T, MODE>(smem, in, w1s + i * s1, w2s + i * s2, w3s + i * s1,
+                       vecs + i * sv, out, pooled, ulo, h, C, Cm);
+  }
+};
+
+// Bottleneck i of the walk on the tensor-core body: the tiles of the
+// separate launches' plan, TSH x TSW clipped to the map.
+struct TcBneck {
+  unsigned char* smem;
+  const bf16 *w1s, *w2s, *w3s;
+  const float* vecs;
+  int C, Cm, TSH, TSW, CK, NT, NST;
+  template <int MODE>
+  __device__ void run(int i, const bf16* in, bf16* out, bf16* pooled,
+                      const bf16* ulo, int h) const {
+    const size_t s1 = (size_t)C * Cm, s2 = (size_t)9 * Cm * Cm,
+                 sv = 6 * Cm + 3 * C;
+    const int th = h < TSH ? h : TSH, tw = h < TSW ? h : TSW;
+    const int tiles_x = (h + tw - 1) / tw, tiles = ((h + th - 1) / th) * tiles_x;
+    for (int t = 0; t < tiles; ++t) {
+      bneck_tile_tc<MODE, kBtMaxMw>(
+          smem, in, w1s + i * s1, w2s + i * s2, w3s + i * s1, vecs + i * sv,
+          out, pooled, ulo, 0, (t / tiles_x) * th, (t % tiles_x) * tw, h, h,
+          C, Cm, th, tw, CK, NT, NST);
+      __syncthreads();
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+subtree_kernel(const T* __restrict__ x, const T* __restrict__ w1s,
+               const T* __restrict__ w2s, const T* __restrict__ w3s,
+               const float* __restrict__ vecs, T* out, T* ws, int H, int C,
+               int Cm, int depth, size_t ws_image) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const FmaBneck<T> bneck{reinterpret_cast<T*>(smem_raw), w1s, w2s, w3s, vecs,
+                          C, Cm};
+  subtree_walk<T>(bneck, x, out, ws, H, C, depth, ws_image);
+}
+
+__global__ void __launch_bounds__(kThreads)
+subtree_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1s,
+                  const bf16* __restrict__ w2s, const bf16* __restrict__ w3s,
+                  const float* __restrict__ vecs, bf16* out, bf16* ws, int H,
+                  int C, int Cm, int depth, size_t ws_image, int TSH, int TSW,
+                  int CK, int NT, int NST) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TcBneck bneck{smem_raw, w1s, w2s, w3s, vecs, C,
+                      Cm,       TSH, TSW, CK,  NT,   NST};
+  subtree_walk<bf16>(bneck, x, out, ws, H, C, depth, ws_image);
+}
+
+inline bool subtree_shape_ok(int H, int C, int depth, long long ws_image) {
+  return depth >= 0 && depth <= kMaxDepth && (H >> depth) >= 1 &&
+         (H % (1 << depth)) == 0 &&
+         ws_image >= (long long)subtree_ws_elems(H, C, depth);
 }
 
 template <typename T>
@@ -131,10 +199,7 @@ cudaError_t launch_subtree(const void* x, const void* w1s, const void* w2s,
                            const void* w3s, const void* vecs, void* out,
                            void* ws, int B, int H, int C, int Cm, int depth,
                            long long ws_image, cudaStream_t stream) {
-  if (depth < 0 || depth > kMaxDepth || (H >> depth) < 1 ||
-      (H % (1 << depth)) != 0 ||
-      ws_image < (long long)subtree_ws_elems(H, C, depth))
-    return cudaErrorInvalidValue;
+  if (!subtree_shape_ok(H, C, depth, ws_image)) return cudaErrorInvalidValue;
   const int TS = H < 8 ? H : 8;
   const size_t smem = tile_smem_elems(TS, TS, C, Cm, true) * sizeof(T);
   auto kernel = subtree_kernel<T>;
@@ -148,6 +213,27 @@ cudaError_t launch_subtree(const void* x, const void* w1s, const void* w2s,
   return cudaGetLastError();
 }
 
+inline cudaError_t launch_subtree_tc(const void* x, const void* w1s,
+                                     const void* w2s, const void* w3s,
+                                     const void* vecs, void* out, void* ws,
+                                     int B, int H, int C, int Cm, int depth,
+                                     long long ws_image, int TSH, int TSW,
+                                     int CK, int NT, int NST, size_t smem,
+                                     cudaStream_t stream) {
+  if (!subtree_shape_ok(H, C, depth, ws_image) ||
+      !bneck_tc_plan_ok(C, Cm, TSH, TSW, CK, NT, NST, smem, true))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(subtree_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
+  subtree_tc_kernel<<<B, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1s),
+      static_cast<const bf16*>(w2s), static_cast<const bf16*>(w3s),
+      static_cast<const float*>(vecs), static_cast<bf16*>(out),
+      static_cast<bf16*>(ws), H, C, Cm, depth, (size_t)ws_image, TSH, TSW,
+      CK, NT, NST);
+  return cudaGetLastError();
+}
+
 }  // namespace spe
 
 // x and out (B, H, H, C); w1s (nb, C, Cm), w2s (nb, 3, 3, Cm, Cm), w3s
@@ -158,12 +244,23 @@ extern "C" int spe_subtree(int bf16, const void* x, const void* w1s,
                            const void* w2s, const void* w3s, const void* vecs,
                            void* out, void* ws, int B, int H, int C, int Cm,
                            int depth, long long ws_image, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)spe::launch_subtree<__nv_bfloat16>(
-        x, w1s, w2s, w3s, vecs, out, ws, B, H, C, Cm, depth, ws_image, s);
+  if (bf16) return (int)cudaErrorInvalidValue;  // spe_subtree_tc
   return (int)spe::launch_subtree<float>(x, w1s, w2s, w3s, vecs, out, ws, B, H,
-                                         C, Cm, depth, ws_image, s);
+                                         C, Cm, depth, ws_image,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+// The same in bfloat16 on the tensor cores, with the plan of
+// bneck_tc_plan for the walk (tile tsh x tsw, ck, nt, nst, smem bytes).
+extern "C" int spe_subtree_tc(const void* x, const void* w1s, const void* w2s,
+                              const void* w3s, const void* vecs, void* out,
+                              void* ws, int B, int H, int C, int Cm, int depth,
+                              long long ws_image, int tsh, int tsw, int ck,
+                              int nt, int nst, int smem, void* stream) {
+  return (int)spe::launch_subtree_tc(x, w1s, w2s, w3s, vecs, out, ws, B, H, C,
+                                     Cm, depth, ws_image, tsh, tsw, ck, nt,
+                                     nst, smem,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" long long spe_subtree_ws_elems(int H, int C, int depth) {

@@ -11,7 +11,11 @@ maxpool of `out`), `fused_bottleneck_rows` (the same function as
 `fused_bottleneck`, on maps too tall for one TPU block) and
 `fused_bottleneck_convskip` (a 1x1 conv + ReLU skip from Cin to C channels
 in place of the identity). The kernels are in `csrc/bottleneck.cu`; its
-source note says what bounds them on the H100 and how they are tiled.
+source note says what bounds them on the H100 and how they are tiled. In
+bfloat16 the identity-skip bottleneck (#1, #2, #3's two launches, #5) runs
+the tensor-core body of `csrc/bottleneck_tc.cuh` with the plan of
+`bneck_tc_plan`; in float32, and for the conv skip, the FMA body of
+`csrc/bottleneck.cuh`.
 
 Layout is NHWC, as in the JAX package. Weights are (C, Cm), (3, 3, Cm, Cm)
 and (Cm, C) in the storage dtype (float32 or bfloat16); biases and the
@@ -32,7 +36,14 @@ import torch.nn.functional as F
 from single_person_pose_estimation_tpu_torch.ops.cuda import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MODE_PLAIN, MODE_POOL, MODE_UPADD = 0, 1, 2
+# csrc/bottleneck.cuh Mode; MODE_PLAIN_POOL is the subtree walk's (#7).
+MODE_PLAIN, MODE_POOL, MODE_UPADD, MODE_PLAIN_POOL = 0, 1, 2, 3
+SMEM_LIMIT = 232448       # shared memory of one block on the H100
+# The bf16 body on the tensor cores (csrc/bottleneck_tc.cuh).
+BNECK_TC_TILES = ((8, 8), (4, 8), (4, 4), (2, 2))  # tried widest first
+BNECK_TC_CK = 64          # widest input-channel chunk of a ring stage
+BNECK_TC_NT = 128         # widest output-channel chunk of a ring stage
+BNECK_TC_STAGES = 4       # ring stages, at most
 
 
 def bn_affine(scale, bias, mean, var, eps: float = 1e-3):
@@ -212,6 +223,89 @@ def _check_convskip(x, p: ConvSkipParams):
                          f"got {p.vec.numel()}")
 
 
+def _bneck_tc_smem(th, tw, C, Cm, pooling, ck, nt, nst):
+    """Bytes of shared memory of one th x tw tile (csrc/bottleneck_tc.cuh
+    bneck_tc_smem): region A, the x halo (rows of C + 8 bf16), which t2
+    (rows of Cm + 8) and, when pooling, the out tile (rows of C + 8)
+    replace after phase 1; t1 on the halo (rows of Cm + 8); nst ring
+    stages of ck x (nt + 8)."""
+    hw2, p = (th + 2) * (tw + 2), th * tw
+    reg_a = max(hw2 * (C + 8), p * (Cm + 8) + (p * (C + 8) if pooling else 0))
+    return (reg_a + hw2 * (Cm + 8) + nst * ck * (nt + 8)) * 2
+
+
+def _bneck_tc_mw(th, tw, nt):
+    """m16 tiles of one warp, at most, in phase 1 of a th x tw tile
+    (csrc/bottleneck_tc.cuh bneck_tc_mw): 4 fits two blocks an SM, 6 one."""
+    m16_tiles = -(-(th + 2) * (tw + 2) // 16)
+    warps_m = 8 // (2 if nt == 16 else 4)
+    return -(-m16_tiles // warps_m)
+
+
+def bneck_tc_plan(B, H, W, C, Cm, mode, blocks=2, tile=None, ck=None):
+    """The plan of the bf16 bottleneck body on the tensor cores
+    (csrc/bottleneck_tc.cuh), which the wrappers pass to the kernel as
+    integers. For a (B, H, W, C) input of `mode` it gives:
+
+    tsh x tsw, the tile: the first of BNECK_TC_TILES (or `tile`) whose
+    tile fits one block with two ring stages, pooling or not, and leaves a
+    warp at most 6 m16 tiles; it depends on the channels alone, so a map's
+    tiles (tsh x tsw clipped to it: th x tw) are the same in a grid launch
+    and in the subtree walk, and pooling tiles are even (the tile is, and
+    a map under it is even where it pools);
+    ck, the input chunk of a stage: the widest multiple of 16 up to
+    BNECK_TC_CK (or `ck`) that divides Cm; nt, the output chunk: the widest
+    multiple of 32 up to BNECK_TC_NT that divides Cm, or 16 (the warps
+    split a product 2 x 4 over m16 and n8 tiles, or 4 x 2 for nt = 16);
+    mw, the m16 tiles of a warp, at most: 4 runs the kernel's two-block
+    instantiation, 6 its one-block one; stages, the ring's slices per tile
+    (phase 1, 2 and 3 in turn); nst, the most ring stages, up to
+    BNECK_TC_STAGES, with which `blocks` blocks (2, or 1 for the walk's one
+    block per image) fit an SM, else with which one does; smem, the bytes
+    of the th x tw tile, or, for the walk (MODE_PLAIN_POOL), of the tsh x
+    tsw tile that its widest level takes; the grid (tiles_y * tiles_x,
+    B).
+
+    The bf16 channel contract, a ValueError outside it: C a multiple of 32
+    up to 1024 and Cm = C/2, a multiple of 16, the k16 depth of phases 2
+    and 3 (float32 keeps `_check`'s C a multiple of 16)."""
+    if C % 32 or Cm * 2 != C or not 0 < C <= 1024:
+        raise ValueError(f"the bfloat16 bottleneck takes C a multiple of 32 "
+                         f"(<= 1024) with Cm = C/2, got C={C}, Cm={Cm}")
+    pooling = mode in (MODE_POOL, MODE_PLAIN_POOL)
+    ck = _widest(Cm, ck or BNECK_TC_CK)
+    nt = next((d for d in range(BNECK_TC_NT, 0, -32) if Cm % d == 0), 16)
+    tsh, tsw = next(
+        ((a, b) for a, b in ((tile,) if tile else BNECK_TC_TILES)
+         if _bneck_tc_mw(a, b, nt) <= 6
+         and _bneck_tc_smem(a, b, C, Cm, True, ck, nt, 2) <= SMEM_LIMIT),
+        (None, None))
+    if tsh is None:
+        raise ValueError(f"no bottleneck tile of {tile or BNECK_TC_TILES} "
+                         f"fits {SMEM_LIMIT} bytes at C={C}")
+    th, tw = (tsh, tsw) if mode == MODE_PLAIN_POOL else (min(H, tsh),
+                                                         min(W, tsw))
+    mw = 4 if _bneck_tc_mw(th, tw, nt) <= 4 else 6
+    smem = lambda n: _bneck_tc_smem(th, tw, C, Cm, pooling, ck, nt, n)
+    limits = ((SMEM_LIMIT // 2 - 1024,) if blocks == 2 and mw == 4 else ()) \
+        + (SMEM_LIMIT,)
+    nst = next(n for limit in limits for n in range(BNECK_TC_STAGES, 1, -1)
+               if smem(n) <= limit)
+    tiles_y, tiles_x = -(-H // th), -(-W // tw)
+    k1, k2 = C // ck, Cm // ck
+    return dict(tsh=tsh, tsw=tsw, th=th, tw=tw, tiles_y=tiles_y,
+                tiles_x=tiles_x, ck=ck, nt=nt, mw=mw, nst=nst,
+                stages=(Cm // nt) * k1 + (Cm // nt) * 9 * k2 + (C // nt) * k2,
+                smem=smem(nst),
+                grid=(tiles_y * tiles_x, B))
+
+
+def _widest(n, cap):
+    """The largest multiple of 16 that divides n (a multiple of 16), at
+    most cap."""
+    return next(d for d in range(cap, 0, -16) if n % d == 0)
+
+
 def _rows_check(x, hb):
     """The TPU kernel's strip contract: HB = min(hb, H) divides H."""
     H = x.shape[1]
@@ -228,8 +322,10 @@ def _require_cuda(x):
 
 
 def launch_bottleneck(mode, x, p: BottleneckParams, out, pooled=None,
-                      u_lo=None):
-    """Launch csrc/bottleneck.cu on x's current stream (no sync)."""
+                      u_lo=None, plan=None):
+    """Launch csrc/bottleneck.cu on x's current stream (no sync): the
+    tensor-core body for bfloat16 (with `plan`, by default
+    `bneck_tc_plan`'s), the FMA body for float32."""
     _require_cuda(x)
     B, H, W, C = x.shape
     if B > 65535:
@@ -241,12 +337,19 @@ def launch_bottleneck(mode, x, p: BottleneckParams, out, pooled=None,
         raise ValueError(f"u_lo must be (B, H/2, W/2, C) for x "
                          f"{tuple(x.shape)}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = build.lib().spe_bottleneck(
-        mode, int(x.dtype == torch.bfloat16), x.data_ptr(),
-        p.w1.data_ptr(), p.w2.data_ptr(), p.w3.data_ptr(), p.vec.data_ptr(),
-        out.data_ptr(), pooled.data_ptr() if pooled is not None else None,
-        u_lo.data_ptr() if u_lo is not None else None,
-        B, H, W, C, p.w1.shape[1], stream)
+    ptrs = (x.data_ptr(), p.w1.data_ptr(), p.w2.data_ptr(), p.w3.data_ptr(),
+            p.vec.data_ptr(), out.data_ptr(),
+            pooled.data_ptr() if pooled is not None else None,
+            u_lo.data_ptr() if u_lo is not None else None)
+    Cm = p.w1.shape[1]
+    if x.dtype == torch.bfloat16:
+        plan = plan or bneck_tc_plan(B, H, W, C, Cm, mode)
+        err = build.lib().spe_bottleneck_tc(
+            mode, *ptrs, B, H, W, C, Cm, plan["tsh"], plan["tsw"],
+            plan["ck"], plan["nt"], plan["nst"], plan["smem"], stream)
+    else:
+        err = build.lib().spe_bottleneck(mode, 0, *ptrs, B, H, W, C, Cm,
+                                         stream)
     build.check(err, "bottleneck kernel")
 
 

@@ -62,7 +62,9 @@ import torch.nn.functional as F
 from single_person_pose_estimation_tpu_torch.ops.cuda import build
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     _DTYPES,
+    SMEM_LIMIT,
     _require_cuda,
+    _widest,
 )
 
 MAX_PARTS = 1024          # csrc/bottleneck_train.cu kMaxParts
@@ -75,7 +77,6 @@ EPI_RELU_STATS, EPI_DIN, EPI_DIN_SUMS, EPI_DIN_SKIP = 0, 1, 2, 3
 TC_M = 128                # kTcM: output pixels of one tile
 TC_NT = 128               # widest output-channel chunk of a work item
 TC_CK = 64                # widest input-channel chunk of the halo
-SMEM_LIMIT = 232448       # shared memory of one block on the H100
 TC_HALO = 320             # halo pixels of one tile, at most
 TC_STAGES = 4             # weight slices in flight in unit3_tc_kernel, at most
 TC_MIN_WORK = 132         # work items a tensor-core unit aims at, at least (132 SMs)
@@ -253,12 +254,6 @@ def dw_slices(rows: int, length: int):
     per = -(-rows // slices)
     per = -(-per // 32) * 32
     return -(-rows // per), per
-
-
-def _widest(n, cap):
-    """The largest multiple of 16 that divides n (a multiple of 16), at
-    most cap."""
-    return next(d for d in range(cap, 0, -16) if n % d == 0)
 
 
 def _tc_channels(*cs):

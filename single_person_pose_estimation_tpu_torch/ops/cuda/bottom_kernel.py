@@ -16,7 +16,10 @@ Replaces `single_person_pose_estimation_tpu/ops/pallas/bottom_kernel.py`
 `csrc/bottom.cu`: one block walks one image through `bneck_order`, tile
 by tile, with the level maps in a workspace this wrapper allocates; its
 source note says what bounds it on the H100 and why the TPU kernel's
-all-in-VMEM blocking does not carry over.
+all-in-VMEM blocking does not carry over. In bfloat16 each bottleneck of
+the walk runs the tensor-core body of `csrc/bottleneck_tc.cuh` on the tiles
+of `bneck_tc_plan`, as the separate launches of `bottleneck_kernel` do, so
+the walk gives their bits; in float32 the FMA body.
 
 For a tensor on the CPU the wrapper runs the plain PyTorch version; for a
 CUDA tensor it launches the kernel or raises. `fused_subtree.launches`
@@ -31,9 +34,11 @@ import torch
 
 from single_person_pose_estimation_tpu_torch.ops.cuda import build
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
+    MODE_PLAIN_POOL,
     BottleneckParams,
     _check,
     _require_cuda,
+    bneck_tc_plan,
     bottleneck_upadd_plain,
     fused_bottleneck_plain,
     maxpool2x2,
@@ -146,10 +151,16 @@ def fused_subtree(x, sp: SubtreeParams, depth: int):
     ws = torch.empty(B * per_image, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.spe_subtree(
-        int(x.dtype == torch.bfloat16), x.data_ptr(), sp.w1s.data_ptr(),
-        sp.w2s.data_ptr(), sp.w3s.data_ptr(), sp.vecs.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), B, H, C, Cm, depth, per_image, stream)
+    args = (x.data_ptr(), sp.w1s.data_ptr(), sp.w2s.data_ptr(),
+            sp.w3s.data_ptr(), sp.vecs.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), B, H, C, Cm, depth, per_image)
+    if x.dtype == torch.bfloat16:
+        plan = bneck_tc_plan(B, H, H, C, Cm, MODE_PLAIN_POOL, blocks=1)
+        err = lib.spe_subtree_tc(*args, plan["tsh"], plan["tsw"], plan["ck"],
+                                 plan["nt"], plan["nst"], plan["smem"],
+                                 stream)
+    else:
+        err = lib.spe_subtree(0, *args, stream)
     build.check(err, "subtree kernel")
     fused_subtree.launches += 1
     return out

@@ -38,11 +38,18 @@ _SIGNATURES = {
     # mode, bf16, x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, stream
     "spe_bottleneck": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P],
+    # mode, x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, tsh, tsw,
+    # ck, nt, nst, smem, stream
+    "spe_bottleneck_tc": [_I] + [_P] * 8 + [_I] * 11 + [_P],
     # bf16, x, ws, w1, w2, w3, vec, out, B, H, W, Cin, C, Cm, stream
     "spe_convskip": [_I] + [_P] * 7 + [_I] * 6 + [_P],
     # bf16, x, w1s, w2s, w3s, vecs, out, ws, B, H, C, Cm, depth, ws_image,
     # stream
     "spe_subtree": [_I] + [_P] * 7 + [_I] * 5 + [ctypes.c_longlong, _P],
+    # x, w1s, w2s, w3s, vecs, out, ws, B, H, C, Cm, depth, ws_image, tsh,
+    # tsw, ck, nt, nst, smem, stream
+    "spe_subtree_tc": [_P] * 7 + [_I] * 5 + [ctypes.c_longlong] + [_I] * 6
+                      + [_P],
     # mid, bf16, u, y, wh, wpT, w2, w3p, vec, pred, ynext, M, C, K, stream
     "spe_head": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _P],
