@@ -19,9 +19,10 @@ failure:
 2. build: compile the kernels from `single_person_pose_estimation_tpu_torch/
    csrc` with nvcc and print the build time;
 3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (batch 8), and #1-#3 at the bf16 body's contract edges
-   (BNECK_EDGES), in float32 and bfloat16, each run twice for the same
-   bits; then decode_kernel:
+   path's shapes (batch 8), #1-#3 at the bf16 body's contract edges
+   (BNECK_EDGES) and the head, mid and last, at HEAD_EDGES (batch 11 at
+   12 px; 32, 64, 512 and 1024 channels; 4 px), in float32 and bfloat16,
+   each run twice for the same bits; then decode_kernel:
    the decode kernel against its plain version at batch 128, 64x64x17
    float32, legacy and corrected, on random, peaked, tied and border maps
    and on S4/256 bf16 heatmaps (kernel path and plain model), exactly;
@@ -32,42 +33,51 @@ failure:
    launches the served forwards and decodes imply; then the kernel path
    against the plain model at batch 8, as it is and on a copy whose last
    predict conv is scaled so that no heatmap value saturates
-   (`scaled_readings`: f32 within TOL_S4_F32_MAX/MEAN, bf16 within
-   S4_BF16_FACTOR times the plain bf16 model's distance from plain f32);
+   (`scaled_readings`: f32 within TOL_F32, the North star's 1e-4, and
+   TOL_S4_F32_MEAN, bf16 within S4_BF16_FACTOR times the plain bf16
+   model's distance from plain f32);
 6. times: S4/256 forward img/s at batch 128 with the kernels and with the
    plain model, and each kernel's time (per call and on the device alone)
-   beside its plain version's and, for #1-#3, the plain cuDNN bf16
-   bottleneck's at the same shape (the library yardstick);
+   beside its plain version's and the plain cuDNN bf16 model's own block
+   at the same shape (the library yardstick: for #1-#3 its bottlenecks,
+   for #4 its mid-stack head);
 7. trace: torch.profiler over 3 forwards of each path at batch 128: device
    busy time, span and idle share, the device time of each kernel, and
    the device ms per forward of #1-#4 over every shape (no bf16 FMA
-   bottleneck may run);
+   bottleneck or head may run);
 7'. dial_kernels: the conv-skip bottleneck (#6) at 64 px, 128 -> 256
    channels, the subtree (#7) at depths 1, 2 and 3 (8, 16 and 32 px
    inputs) and the row-blocked bottleneck (#5) at 128 px, C=256, batch 8,
-   against their plain versions in float32 and bfloat16, each run twice
-   for the same bits (#7 in bfloat16 as SUBTREE_ULP_FACTOR says);
+   and #6 and #7 at 512 and 1024 channels, against their plain versions in
+   float32 and bfloat16, each run twice for the same bits (#7 in bfloat16
+   as SUBTREE_ULP_FACTOR says);
    dial_slice: S4/256 bf16 at batch 128 through `fused_apply` with the
    main flags plus `fuse_front`, and plus `fuse_bottom` = 1, 2 and 3, with
    exact launch counts (`dial_want`) and finite heatmaps, then at float32
    and batch 8 each dial's last stack against the main flags' kernel path;
    dial_times: the forward's img/s with each dial (median of 10,
-   alternating), #5-#7 beside their plain versions and bounds, and #5 at
-   128 px against the plain bf16 bottleneck (cuDNN convs);
+   alternating), #5-#7 beside their plain versions, bounds and the plain
+   bf16 model's own blocks (#6 front_bottleneck_3, #7 its walk; #5 at 128
+   px against the plain bf16 bottleneck, cuDNN convs, in turns);
 7a. mobile_kernels: the mobile kernels (#8-#10) against their plain
    versions at batch 8, C=256, at every level the mobile path runs them:
    #8 at 64 and 4 px, #9 at 32, 16 and 8 px, #10 at 64, 32, 16 and 8 px,
-   float32 and bfloat16;
+   and at MOBILE_EDGES (batch 11; 32, 64, 512 and 1024 channels; 4 and 12
+   px; the up-add at 8 px), float32 and bfloat16, each run twice for the
+   same bits;
 7b. mobile_golden: the fused mobile path with the kernels at float32
    against `tests/fixtures/golden_ref_s1c32_mobile.npz`;
 7c. mobile_slice: mobile S4/256 from `init_variables(seed=0, mobile=True)`
    (5,818,564 parameters) served by `PoseServer(device="cuda")` in
    bfloat16, with launch counts equal to what the forwards imply; then the
-   kernel path against the plain mobile model at float32 on a copy whose
-   last predict conv is scaled so that no heatmap value saturates;
+   kernel path against the plain mobile model on a copy whose last predict
+   conv is scaled so that no heatmap value saturates (`scaled_readings`);
 7d. mobile_times: mobile S4/256 forward img/s at batch 128 with the kernels
    and with the plain mobile model, the device idle share of 3 forwards of
-   each, and each mobile kernel's time beside its plain version's;
+   each, the device ms per forward of #8-#10 and #4 (no bf16 FMA mobile or
+   head body may run), and each mobile kernel's time beside its plain
+   version's and the plain mobile model's own block (the library
+   yardstick);
 8. eval: a synthetic COCO split of 1,024 person crops at 256x256 (and 256
    training crops) written to TFRecords by the port's ETL and read back by
    its native reader; an S4/256 checkpoint restored with
@@ -271,7 +281,7 @@ def bneck_params(rng, dtype, device, c=C):
         *affs[0], *affs[1], *affs[2], dtype=dtype, device=device)
 
 
-def head_params(rng, last, dtype, device):
+def head_params(rng, last, dtype, device, c=C):
     from single_person_pose_estimation_tpu_torch.ops.cuda.head_kernel import (
         HeadParams,
     )
@@ -280,11 +290,11 @@ def head_params(rng, last, dtype, device):
     def u(lo, hi, *shape):
         return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
 
-    lim = np.sqrt(6 / (2 * C))
-    glue = {} if last else dict(w2=u(-lim, lim, C, C), b2=u(-.1, .1, C),
-                                w3=u(-.3, .3, K, C), b3=u(-.1, .1, C))
-    return HeadParams.pack(u(-lim, lim, C, C), u(-.1, .1, C), u(.5, 1.5, C),
-                           u(-.3, .3, C), u(-.2, .2, C, K), u(-.1, .1, K),
+    lim = np.sqrt(6 / (2 * c))
+    glue = {} if last else dict(w2=u(-lim, lim, c, c), b2=u(-.1, .1, c),
+                                w3=u(-.3, .3, K, c), b3=u(-.1, .1, c))
+    return HeadParams.pack(u(-lim, lim, c, c), u(-.1, .1, c), u(.5, 1.5, c),
+                           u(-.3, .3, c), u(-.2, .2, c, K), u(-.1, .1, K),
                            **glue, dtype=dtype, device=device)
 
 
@@ -340,14 +350,38 @@ def kernel_cases(rng, dtype, device, b):
 # the narrowest output chunk, warps 4 x 2), 64 and 512 (two output chunks
 # in phases 1-2, one block an SM); 4 px maps (one 4 x 4 tile, half the
 # warps idle in phases 2-3); 12 px (a ragged last tile, pooled); kUpAdd at
-# 8 px. C=512 runs in bf16 only: the f32 FMA body's 8 x 8 tile takes 600
-# bytes of shared memory per channel, over a block's 227 KB above C=384
-# (ROADMAP.md Queue 3).
+# 8 px; C = 512 and 1024 in float32 too, where the FMA body's tile
+# (fma_tile_plan) is 4 x 4 (an 8 x 8 tile's 600 bytes a channel exceed a
+# block's shared memory above C=384) and, at 1024, the tensor-core tile 4 x
+# 8.
 BNECK_EDGES = (("fused_bottleneck", 11, 4, C), ("fused_bottleneck", 2, 16, 32),
                ("fused_bottleneck_pool", 2, 16, 64),
                ("fused_bottleneck_pool", 2, 12, 64),
                ("fused_bottleneck_pool", 11, 8, 512),
-               ("fused_uplevel", 2, 8, C), ("fused_uplevel", 2, 16, 512))
+               ("fused_uplevel", 2, 8, C), ("fused_uplevel", 2, 16, 512),
+               ("fused_bottleneck", 2, 12, 512),
+               ("fused_bottleneck", 2, 8, 1024),
+               ("fused_bottleneck_pool", 2, 8, 1024),
+               ("fused_uplevel", 2, 8, 1024))
+# The head's edges, mid and last stack: (batch, side, channels). A batch of
+# 11 at 12 px (1,584 rows, a ragged last block); C = 32 and 64 (output
+# chunks of 32 and 64 on the tensor cores), 512 and 1024 (32 and 16 rows a
+# block of the FMA head, 64 and 32 of the tensor-core head); 4 px.
+HEAD_EDGES = ((11, 12, C), (2, 16, 32), (2, 16, 64), (2, 8, 512),
+              (2, 8, 1024), (2, 4, C))
+# The mobile body's edges, as BNECK_EDGES: batch 11; C = 32, 64, 512 and
+# 1024; 4 and 12 px; the up-add at 8 px.
+MOBILE_EDGES = (("fused_bottleneck_mobile", 11, 4, C),
+                ("fused_bottleneck_mobile", 2, 16, 32),
+                ("fused_bottleneck_mobile", 2, 12, 64),
+                ("fused_bottleneck_mobile_pool", 2, 16, 64),
+                ("fused_bottleneck_mobile_pool", 2, 12, 64),
+                ("fused_bottleneck_mobile_pool", 11, 8, 512),
+                ("fused_uplevel_mobile", 2, 8, C),
+                ("fused_uplevel_mobile", 2, 16, 512),
+                ("fused_bottleneck_mobile", 2, 8, 1024),
+                ("fused_bottleneck_mobile_pool", 2, 8, 1024),
+                ("fused_uplevel_mobile", 2, 8, 1024))
 
 
 def bneck_edge_cases(rng, dtype, device, b=None):
@@ -358,12 +392,8 @@ def bneck_edge_cases(rng, dtype, device, b=None):
         uplevel_kernel as uk,
     )
 
-    import torch
-
     cases = []
     for name, nb, h, c in BNECK_EDGES:
-        if c > 384 and dtype == torch.float32:
-            continue
         x, p = nhwc(rng, nb, h, dtype, device, c), bneck_params(
             rng, dtype, device, c)
         label = f"{name}@{h} B={nb} C={c}"
@@ -385,14 +415,35 @@ def bneck_edge_cases(rng, dtype, device, b=None):
     return cases
 
 
+def head_edge_cases(rng, dtype, device, b=None):
+    """(name, kernel call, plain call) of #4, mid and last, at HEAD_EDGES
+    (b is unused)."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        head_kernel as hk,
+    )
+
+    cases = []
+    for nb, h, c in HEAD_EDGES:
+        for last in (False, True):
+            u = nhwc(rng, nb, h, dtype, device, c)
+            y = None if last else nhwc(rng, nb, h, dtype, device, c)
+            p = head_params(rng, last, dtype, device, c)
+            cases.append((f"fused_head@{h}{'_last' if last else '_mid'} "
+                          f"B={nb} C={c}", "fused_head",
+                          lambda u=u, y=y, p=p: hk.fused_head(u, y, p),
+                          lambda u=u, y=y, p=p: hk.fused_head_plain(u, y, p)))
+    return cases
+
+
 def main_kernel_cases(rng, dtype, device, b):
-    """kernel_cases, then the bf16 body's edges (same draws for the main
-    shapes as kernel_cases alone)."""
+    """kernel_cases, then the bf16 body's edges and the head's (same draws
+    for the main shapes as kernel_cases alone)."""
     return (kernel_cases(rng, dtype, device, b)
-            + bneck_edge_cases(rng, dtype, device))
+            + bneck_edge_cases(rng, dtype, device)
+            + head_edge_cases(rng, dtype, device))
 
 
-def mobile_params(rng, dtype, device):
+def mobile_params(rng, dtype, device, c=C):
     """One mobile bottleneck's operands (MobileParams) from the seed: 1x1
     depthwise scales around 1, 3x3 taps, glorot-sized pointwise weights."""
     from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
@@ -406,13 +457,14 @@ def mobile_params(rng, dtype, device):
     def u(lo, hi, *shape):
         return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
 
-    lim1, lim2 = np.sqrt(6 / (C + CM)), np.sqrt(6 / (2 * CM))
+    cm = c // 2
+    lim1, lim2 = np.sqrt(6 / (c + cm)), np.sqrt(6 / (2 * cm))
     affs = [bn_affine(u(.5, 1.5, n), u(-.3, .3, n), u(-.5, .5, n),
-                      u(.5, 1.5, n)) for n in (CM, CM, C)]
+                      u(.5, 1.5, n)) for n in (cm, cm, c)]
     return MobileParams.pack(
-        u(.5, 1.5, C), u(-lim1, lim1, C, CM), u(-.1, .1, CM),
-        u(-.3, .3, 3, 3, CM), u(-lim2, lim2, CM, CM), u(-.1, .1, CM),
-        u(.5, 1.5, CM), u(-lim1, lim1, CM, C), u(-.1, .1, C),
+        u(.5, 1.5, c), u(-lim1, lim1, c, cm), u(-.1, .1, cm),
+        u(-.3, .3, 3, 3, cm), u(-lim2, lim2, cm, cm), u(-.1, .1, cm),
+        u(.5, 1.5, cm), u(-lim1, lim1, cm, c), u(-.1, .1, c),
         *affs[0], *affs[1], *affs[2], dtype=dtype, device=device)
 
 
@@ -448,6 +500,44 @@ def mobile_kernel_cases(rng, dtype, device, b):
                       lambda f=f, lo=lo, ps=ps, pm=pm:
                           mk.fused_uplevel_mobile_plain(f, lo, ps, pm)))
     return cases
+
+
+def mobile_edge_cases(rng, dtype, device, b=None):
+    """(name, kernel call, plain call) of #8-#10 at MOBILE_EDGES (each
+    edge names its own batch; b is unused)."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        mobile_kernel as mk,
+    )
+
+    cases = []
+    for name, nb, h, c in MOBILE_EDGES:
+        x, p = nhwc(rng, nb, h, dtype, device, c), mobile_params(
+            rng, dtype, device, c)
+        label = f"{name}@{h} B={nb} C={c}"
+        if name == "fused_uplevel_mobile":
+            lo, pm = nhwc(rng, nb, h // 2, dtype, device, c), mobile_params(
+                rng, dtype, device, c)
+            cases.append((label, name,
+                          lambda x=x, lo=lo, p=p, pm=pm:
+                              mk.fused_uplevel_mobile(x, lo, p, pm),
+                          lambda x=x, lo=lo, p=p, pm=pm:
+                              mk.fused_uplevel_mobile_plain(x, lo, p, pm)))
+        else:
+            kern, plain = ((mk.fused_bottleneck_mobile,
+                            mk.fused_bottleneck_mobile_plain)
+                           if name == "fused_bottleneck_mobile" else
+                           (mk.fused_bottleneck_mobile_pool,
+                            mk.fused_bottleneck_mobile_pool_plain))
+            cases.append((label, name, lambda x=x, p=p, k=kern: k(x, p),
+                          lambda x=x, p=p, f=plain: f(x, p)))
+    return cases
+
+
+def mobile_main_cases(rng, dtype, device, b):
+    """mobile_kernel_cases, then the mobile body's edges (same draws for
+    the main shapes as mobile_kernel_cases alone)."""
+    return (mobile_kernel_cases(rng, dtype, device, b)
+            + mobile_edge_cases(rng, dtype, device))
 
 
 def max_err(got, want, dtype):
@@ -682,19 +772,8 @@ def phase_slice(report, model):
         raise AssertionError(f"S4/256 f32 kernels vs plain model: max "
                              f"{d.max().item()}, mean {d.mean().item()}")
 
-    # The same batch on an unsaturated copy (scaled_readings). In bf16 the
-    # kernel path is held, in max|d| and in mean|d| from plain f32, within
-    # S4_BF16_FACTOR times the plain bf16 model's own distance from plain
-    # f32 in the same run: the plain bf16 model is the control.
-    r = scaled_readings(model, x, "slice")
-    kern, ctrl = r["kernels bf16 vs plain f32"], r["plain bf16 vs plain f32"]
-    ok = all(k <= S4_BF16_FACTOR * c for k, c in zip(kern, ctrl))
-    log(f"slice: bf16 kernels vs plain f32 (max {kern[0]:.3e}, mean "
-        f"{kern[1]:.3e}) within {S4_BF16_FACTOR:g}x plain bf16 vs plain f32 "
-        f"(max {ctrl[0]:.3e}, mean {ctrl[1]:.3e}): {ok}")
-    if not ok:
-        raise AssertionError(f"S4/256 bf16 kernels on the scaled copy: "
-                             f"{kern} against the control {ctrl}")
+    # The same batch on an unsaturated copy, held as scaled_readings says.
+    scaled_readings(model, x, "slice")
 
 
 def phase_times(report, model, card):
@@ -745,7 +824,8 @@ def phase_times(report, model, card):
     # Library yardsticks, never called by the port: the plain cuDNN bf16
     # bottleneck of the model (fi._bottleneck_plain) at the same shape; for
     # #2 followed by the 2x2 maxpool, for #3 two of them around the
-    # upsample-add.
+    # upsample-add; for #4 the model's mid-stack head (fi._head_plain: the
+    # 1x1 convs, BN, sigmoid, the next-stack convs and the adds).
     bneck = lambda v, n: fi._bottleneck_plain(fp, v, f"hg0_{n}", C)
     library = {
         "fused_bottleneck": lambda: bneck(x64, "downsample_f1"),
@@ -754,6 +834,7 @@ def phase_times(report, model, card):
         "fused_uplevel": lambda: bneck(
             bneck(x64, "upsample_f1_short") + fi.upsample2x(x32),
             "upsample_f1_merged"),
+        "fused_head": lambda: fi._head_plain(fp, x64, x64, "hg0", False),
     }
     cases = {
         "fused_bottleneck": ("64x64", lambda: bk.fused_bottleneck(x64, p),
@@ -897,9 +978,11 @@ def phase_trace(report, model, card):
                     f"{kname}")
             if name != "kernels":
                 continue
-            if any(BF16_FMA_BNECK in e[2] for e in evs):
-                raise AssertionError(f"the bf16 forward ran the FMA body "
-                                     f"{BF16_FMA_BNECK}")
+            fma = {e[2][:60] for e in evs
+                   if BF16_FMA_BNECK in e[2] or BF16_FMA_HEAD in e[2]}
+            if fma:
+                raise AssertionError(f"the bf16 forward ran an FMA body: "
+                                     f"{fma}")
             per_kernel, launches = forward_device_ms(evs)
             if launches != PER_FORWARD:
                 raise AssertionError(f"the trace attributes {launches} "
@@ -911,27 +994,35 @@ def phase_trace(report, model, card):
                     f"its {launches[kname]} launches, every shape [{card}]")
 
 
-# The bf16 body's kernel names in a trace (csrc/bottleneck.cu), by mode,
-# and the FMA body's bf16 instantiation, which no bf16 path may run.
+# The bf16 bodies' kernel names in a trace (csrc/bottleneck.cu,
+# csrc/mobile.cu, csrc/head.cu), and the FMA bodies' bf16 instantiations,
+# which no bf16 path may run.
 TC_BNECK = "bneck_tc_kernel<"
+TC_MOBILE = "mobile_tc_kernel<"
+TC_HEAD = "head_tc_kernel<"
 BF16_FMA_BNECK = "bottleneck_kernel<__nv_bfloat16"
+BF16_FMA_HEAD = "head_kernel<__nv_bfloat16"
+BF16_FMA_MOBILE = "mobile_kernel<__nv_bfloat16"
 
 
-def forward_device_ms(evs, calls=3):
-    """Device ms and launches per forward of #1-#4 from the trace's events
-    of `calls` forwards, summed over every shape: a bneck_tc_kernel<1>
-    launch is #2's, <2> is #3's first launch and the <0> launch right after
-    it #3's second, every other <0> launch #1's; `head_kernel` is #4's."""
-    ms, n = dict.fromkeys(PER_FORWARD, 0.0), dict.fromkeys(PER_FORWARD, 0)
+def forward_device_ms(evs, calls=3, per_forward=PER_FORWARD, tc=TC_BNECK):
+    """Device ms and launches per forward of #1-#4 (or, with the mobile
+    `per_forward` and `tc`, #8-#10 and #4) from the trace's events of
+    `calls` forwards, summed over every shape: a <1> launch of the body
+    (bneck_tc_kernel, or mobile_tc_kernel whose kPlainPool is mode 3) is
+    the pooled bottleneck's, <2> is the up-level's first launch and the <0>
+    launch right after it the up-level's second, every other <0> launch the
+    plain bottleneck's; `head_tc_kernel` is #4's."""
+    plain, pool, uplevel, head = per_forward
+    ms, n = dict.fromkeys(per_forward, 0.0), dict.fromkeys(per_forward, 0)
     prev = None
     for start, end, name in evs:
-        if "head_kernel" in name:
-            owner = "fused_head"
-        elif TC_BNECK in name:
-            mode = name.split(TC_BNECK)[1][0]
-            owner = ("fused_bottleneck_pool" if mode == "1" else
-                     "fused_uplevel" if "2" in (mode, prev) else
-                     "fused_bottleneck")
+        if TC_HEAD in name:
+            owner = head
+        elif tc in name:
+            mode = name.split(tc)[1][0]
+            owner = (pool if mode in "13" else
+                     uplevel if "2" in (mode, prev) else plain)
             prev = mode
         else:
             continue
@@ -1060,7 +1151,7 @@ def phase_mobile_slice(report, model):
         report.setdefault(name, {})["launches"] = all_counts[name]
 
     # The kernel path against the plain mobile model, on an unsaturated
-    # copy at the standard model's f32 tolerances.
+    # copy, held as scaled_readings says.
     scaled_readings(model, torch.from_numpy(imgs[:8]).cuda(), "mobile_slice")
 
 
@@ -1075,9 +1166,12 @@ def scaled_readings(model, x, label):
     relative error of the whole stream. At least 99% of the plain f32
     heatmap values must lie strictly between 0 and 1. Logs the four
     readings (kernels bf16 and plain bf16 against each other and against
-    plain f32, kernels f32 against plain f32), holds the f32 kernel path
-    within TOL_S4_F32_MAX and TOL_S4_F32_MEAN (and logs whether it holds
-    TOL_F32, the North star's 1e-4) and returns {reading: (max, mean)}."""
+    plain f32, kernels f32 against plain f32) and holds two bounds: the f32
+    kernel path within TOL_F32 (the North star's 1e-4) in max|d| and
+    TOL_S4_F32_MEAN in mean|d| of plain f32; the bf16 kernel path, in
+    max|d| and in mean|d| from plain f32, within S4_BF16_FACTOR times the
+    plain bf16 model's own distance from plain f32 in the same run (the
+    plain bf16 model is the control). Returns {reading: (max, mean)}."""
     import torch
 
     from single_person_pose_estimation_tpu_torch.models.fused_inference import (
@@ -1124,11 +1218,19 @@ def scaled_readings(model, x, label):
             f"{name}: max|d| = {readings[name][0]:.3e}, mean|d| = "
             f"{readings[name][1]:.3e}")
     top, mean = readings["kernels f32 vs plain f32"]
+    kern = readings["kernels bf16 vs plain f32"]
+    ctrl = readings["plain bf16 vs plain f32"]
+    bf16_ok = all(k <= S4_BF16_FACTOR * c for k, c in zip(kern, ctrl))
     log(f"{label}: f32 kernels within the North star's {TOL_F32:g}: "
-        f"{top <= TOL_F32}")
-    if not (top <= TOL_S4_F32_MAX and mean <= TOL_S4_F32_MEAN):
+        f"{top <= TOL_F32}; bf16 kernels vs plain f32 (max {kern[0]:.3e}, "
+        f"mean {kern[1]:.3e}) within {S4_BF16_FACTOR:g}x plain bf16 vs "
+        f"plain f32 (max {ctrl[0]:.3e}, mean {ctrl[1]:.3e}): {bf16_ok}")
+    if not (top <= TOL_F32 and mean <= TOL_S4_F32_MEAN):
         raise AssertionError(f"{label}: f32 kernels vs plain model on the "
                              f"scaled copy: max {top}, mean {mean}")
+    if not bf16_ok:
+        raise AssertionError(f"{label}: bf16 kernels on the scaled copy: "
+                             f"{kern} against the control {ctrl}")
     return readings
 
 
@@ -1152,10 +1254,15 @@ def predict_logits(model, x):
 
 def phase_mobile_times(report, model, card):
     """Mobile S4/256 forward img/s (kernels and plain model, alternating),
-    the device idle share of 3 forwards of each, and #8-#10 each beside
-    its plain version."""
+    the device idle share of 3 forwards of each, the device ms per forward
+    of #8-#10 and #4 from the kernels' trace (no bf16 FMA mobile or head
+    body may run), and #8-#10 each beside its plain version and the plain
+    mobile model's own block at the same shape (the library yardstick)."""
     import torch
 
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
     from single_person_pose_estimation_tpu_torch.models.fused_inference import (
         fused_apply,
         prepare_fused,
@@ -1186,7 +1293,7 @@ def phase_mobile_times(report, model, card):
             report.setdefault("_mobile_forward", {})[name] = \
                 B_TIME / med * 1e3
         for name, fn in runs.items():
-            span, busy, per, _, _ = device_trace(fn)
+            span, busy, per, _, evs = device_trace(fn)
             log(f"trace mobile S4/256 bf16 B={B_TIME} {name}: device span "
                 f"{span:.2f} ms/forward, busy {busy:.2f} ms, idle share "
                 f"{1 - busy / span:.4f} [{card}]")
@@ -1194,36 +1301,67 @@ def phase_mobile_times(report, model, card):
             for kname, (ms, n) in top:
                 log(f"  {ms:9.3f} ms/forward {ms / busy:6.1%} x{n:6.1f}  "
                     f"{kname}")
+            if name != "kernels":
+                continue
+            fma = {e[2][:60] for e in evs
+                   if BF16_FMA_MOBILE in e[2] or BF16_FMA_HEAD in e[2]}
+            if fma:
+                raise AssertionError(f"the bf16 mobile forward ran an FMA "
+                                     f"body: {fma}")
+            per_kernel, launches = forward_device_ms(
+                evs, per_forward=MOBILE_PER_FORWARD, tc=TC_MOBILE)
+            if launches != MOBILE_PER_FORWARD:
+                raise AssertionError(f"the mobile trace attributes "
+                                     f"{launches} launches a forward, not "
+                                     f"{MOBILE_PER_FORWARD}")
+            for kname, ms in per_kernel.items():
+                key = "mobile_forward_device_ms" if kname == "fused_head" \
+                    else "forward_device_ms"
+                report.setdefault(kname, {})[key] = ms
+                log(f"trace mobile {kname}: {ms:.3f} device ms per forward "
+                    f"over its {launches[kname]} launches, every shape "
+                    f"[{card}]")
 
     dt = torch.bfloat16
     p = mobile_params(rng, dt, "cuda")
     p2 = mobile_params(rng, dt, "cuda")
     x64 = nhwc(rng, B_TIME, 64, dt, "cuda")
     x32 = nhwc(rng, B_TIME, 32, dt, "cuda")
+    # Library yardsticks, never called by the port: the plain mobile
+    # model's own bottleneck (fi._bottleneck_plain: separable cuDNN convs,
+    # BN and the adds) at the same shape; for #9 followed by the 2x2
+    # maxpool, for #10 two of them around the upsample-add.
+    bneck = lambda v, n: fi._bottleneck_plain(fp, v, f"hg0_{n}", C)
     cases = {
         "fused_bottleneck_mobile": (
             "64x64", lambda: mk.fused_bottleneck_mobile(x64, p),
-            lambda: mk.fused_bottleneck_mobile_plain(x64, p)),
+            lambda: mk.fused_bottleneck_mobile_plain(x64, p),
+            lambda: bneck(x64, "downsample_f1")),
         "fused_bottleneck_mobile_pool": (
             "32x32", lambda: mk.fused_bottleneck_mobile_pool(x32, p),
-            lambda: mk.fused_bottleneck_mobile_pool_plain(x32, p)),
+            lambda: mk.fused_bottleneck_mobile_pool_plain(x32, p),
+            lambda: fi.maxpool2x2(bneck(x32, "downsample_f2"))),
         "fused_uplevel_mobile": (
             "64x64", lambda: mk.fused_uplevel_mobile(x64, x32, p, p2),
-            lambda: mk.fused_uplevel_mobile_plain(x64, x32, p, p2)),
+            lambda: mk.fused_uplevel_mobile_plain(x64, x32, p, p2),
+            lambda: bneck(bneck(x64, "upsample_f1_short")
+                          + fi.upsample2x(x32), "upsample_f1_merged")),
     }
     bounds = mobile_bounds()
     with torch.inference_mode():
-        for name, (shape, kern, plain) in cases.items():
+        for name, (shape, kern, plain, lib) in cases.items():
             ms = cuda_ms(kern, iters=5)
             plain_ms = cuda_ms(plain, iters=5)
             device_ms = kernel_device_ms(kern, name)
+            lib_ms = cuda_ms(lib, iters=5)
             bms, by = bounds[name]
             report.setdefault(name, {}).update(
                 ms=ms, plain_ms=plain_ms, device_ms=device_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=lib_ms)
             log(f"times {name} bf16 B={B_TIME} {shape}: kernel {ms:.3f} ms "
                 f"({device_ms:.3f} ms on the device), plain {plain_ms:.3f} "
-                f"ms, bound {bms:.4f} ms ({by}) [{card}]")
+                f"ms, library {lib_ms:.3f} ms, bound {bms:.4f} ms ({by}) "
+                f"[{card}]")
 
 
 def phase_mobile_eval(report, cfg, val, card):
@@ -2841,6 +2979,8 @@ def phase_fused_train_times(report, card):
     w2c = p["w2"].to(bf).permute(3, 2, 0, 1)
     w3b, w1b = p["w3"].to(bf), p["w1"].to(bf)
     flat = lambda t: t.reshape(-1, t.shape[-1])
+    zero_c = torch.zeros(p["g"].shape[-1], device="cuda")
+    one_c = torch.ones(p["g"].shape[-1], device="cuda")
     cases = {
         "conv1x1_relu_stats": (
             (p["x"], p["w1"], p["b1"]), {},
@@ -2848,7 +2988,13 @@ def phase_fused_train_times(report, card):
         "conv3x3_relu_stats": (
             (p["a1"], p["w2"], p["b2"], *p["aff1"]), {},
             lambda: F.conv2d(nchw(p["a1"]), w2c, padding=1)),
-        "bn_bwd_reduce": ((p["g"], p["a3"]), {}, None),
+        # [sum dz, sum dz*a] per channel in one call: the batch-norm
+        # backward reduction with mean 0 and invstd 1 (sum_dy, sum_dy_xmu).
+        "bn_bwd_reduce": (
+            (p["g"], p["a3"]), {},
+            lambda: torch.ops.aten.batch_norm_backward_reduce(
+                flat(p["g"]), flat(p["a3"]), zero_c, one_c, None, True,
+                False, False)),
         "unit1x1_bwd": (
             (p["g"], p["a3"], p["a2"], p["w3"], p["k3"], p["aff2"]), {},
             lambda: (flat(p["g"]) @ w3b.T, flat(p["a2"]).T @ flat(p["g"]))),
@@ -2921,8 +3067,9 @@ def dial_want(flags, stacks=4):
     return want
 
 
-def convskip_params(rng, dtype, device):
-    """front_bottleneck_3's operands: 128 -> 256 channels, Cm 128."""
+def convskip_params(rng, dtype, device, c=C):
+    """front_bottleneck_3's operands: c/2 -> c channels, Cm c/2 (128 ->
+    256, Cm 128 at the model's width)."""
     from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
         ConvSkipParams,
         bn_affine,
@@ -2932,14 +3079,14 @@ def convskip_params(rng, dtype, device):
     def u(lo, hi, *shape):
         return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
 
-    cin = C // 2
-    lim1, lim2 = np.sqrt(6 / (cin + CM)), np.sqrt(6 / (18 * CM))
+    cin = cm = c // 2
+    lim1, lim2 = np.sqrt(6 / (cin + cm)), np.sqrt(6 / (18 * cm))
     affs = [bn_affine(u(.5, 1.5, n), u(-.3, .3, n), u(-.5, .5, n),
-                      u(.5, 1.5, n)) for n in (CM, CM, C)]
+                      u(.5, 1.5, n)) for n in (cm, cm, c)]
     return ConvSkipParams.pack(
-        u(-lim1, lim1, cin, C), u(-.1, .1, C),
-        u(-lim1, lim1, cin, CM), u(-.1, .1, CM), u(-lim2, lim2, 3, 3, CM, CM),
-        u(-.1, .1, CM), u(-lim1, lim1, CM, C), u(-.1, .1, C),
+        u(-lim1, lim1, cin, c), u(-.1, .1, c),
+        u(-lim1, lim1, cin, cm), u(-.1, .1, cm), u(-lim2, lim2, 3, 3, cm, cm),
+        u(-.1, .1, cm), u(-lim1, lim1, cm, c), u(-.1, .1, c),
         *affs[0], *affs[1], *affs[2], dtype=dtype, device=device)
 
 
@@ -2974,6 +3121,25 @@ def subtree_composed(x, sp, depth):
 
 def rel_l2(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def plain_walk(fp, x, sp, depth, stack="hg0"):
+    """#7's library yardstick: the walk of `bneck_order(depth)` composed
+    of the plain model's own bottlenecks (fi._bottleneck_plain, cuDNN
+    convs), exact pools and upsample-adds, in the walk's order."""
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottom_kernel as bt,
+    )
+
+    names = iter(bt.bneck_order(depth))
+    c = x.shape[-1]
+    block = lambda v: fi._bottleneck_plain(fp, v, f"{stack}_{next(names)}", c)
+    return bt.subtree_walk(x, sp, depth, lambda v, p: block(v),
+                           lambda f, inner, p: block(f)
+                           + fi.upsample2x(inner))
 
 
 def subtree_hold(x, sp, depth):
@@ -3035,9 +3201,20 @@ def dial_kernel_cases(rng, dtype, device, b):
     cases.append(("fused_bottleneck_rows@128", "fused_bottleneck_rows",
                   lambda: bk.fused_bottleneck_rows(x128, p128),
                   lambda: bk.fused_bottleneck_rows_plain(x128, p128)))
+    # #6 at C = 512 and 1024 (Cin = C/2): the FMA tile of fma_tile_plan, 8 x
+    # 8 in bf16 and 4 x 4 in float32 at 512, 4 x 4 and 2 x 2 at 1024.
+    for c in (512, 1024):
+        xc = nhwc(rng, 2, 8, dtype, device, c // 2)
+        pc = convskip_params(rng, dtype, device, c)
+        cases.append((f"fused_bottleneck_convskip@8 B=2 C={c}",
+                      "fused_bottleneck_convskip",
+                      lambda xc=xc, pc=pc: bk.fused_bottleneck_convskip(xc, pc),
+                      lambda xc=xc, pc=pc:
+                          bk.fused_bottleneck_convskip_plain(xc, pc)))
     # The bf16 body's edges in the walk: a batch of 11 at depth 1, and C=64
-    # (output chunks of 32) at depth 2.
-    for nb, d, c in ((11, 1, C), (b, 2, 64)):
+    # (output chunks of 32) at depth 2; C = 512 and 1024 at depth 1 (the
+    # float32 walk on 4 x 4 tiles).
+    for nb, d, c in ((11, 1, C), (b, 2, 64), (2, 1, 512), (2, 1, 1024)):
         xd = nhwc(rng, nb, 4 << d, dtype, device, c)
         sp = subtree_params(rng, dtype, device, d, c)
         cases.append((f"fused_subtree@depth{d} B={nb} C={c}", "fused_subtree",
@@ -3153,10 +3330,15 @@ def phase_dial_times(report, model, card):
     xs = torch.from_numpy(rng.uniform(-1, 1, (B_TIME, 64, 64, C // 2))
                           .astype(np.float32)).to(device="cuda", dtype=dt)
     cp = fp.bnecks["front_bottleneck_3"]
+    # Library yardsticks, never called by the port: the plain bf16 model's
+    # own blocks at the same shapes (cuDNN convs, BN and the adds): for #6
+    # front_bottleneck_3 with its conv skip, for #7 the same walk composed
+    # of the model's bottlenecks, pools and upsample-adds (`plain_walk`).
     cases = {"fused_bottleneck_convskip": (
         "64x64 128->256", lambda: bk.fused_bottleneck_convskip(xs, cp),
         lambda: bk.fused_bottleneck_convskip_plain(xs, cp),
-        inference_bounds()["fused_bottleneck_convskip"])}
+        inference_bounds()["fused_bottleneck_convskip"],
+        lambda: fi._bottleneck_plain(fp, xs, "front_bottleneck_3", C))}
     for d in DEPTHS:
         xd = nhwc(rng, B_TIME, 4 << d, dt, "cuda")
         sp = fp.subtree(0, d)
@@ -3164,25 +3346,31 @@ def phase_dial_times(report, model, card):
             f"{4 << d}x{4 << d} in", lambda xd=xd, sp=sp, d=d:
                 bt.fused_subtree(xd, sp, d),
             lambda xd=xd, sp=sp, d=d: bt.fused_subtree_plain(xd, sp, d),
-            subtree_bound(d))
+            subtree_bound(d),
+            lambda xd=xd, sp=sp, d=d: plain_walk(fp, xd, sp, d))
     x128 = nhwc(rng, B_TIME, 128, dt, "cuda")
     name128 = "hg0_downsample_f1"
     pr = fp.bnecks[name128]
     cases["fused_bottleneck_rows"] = (
         "128x128", lambda: bk.fused_bottleneck_rows(x128, pr),
         lambda: bk.fused_bottleneck_rows_plain(x128, pr),
-        inference_bounds()["fused_bottleneck_rows"])
+        inference_bounds()["fused_bottleneck_rows"], None)
     with torch.inference_mode():
-        for label, (shape, kern, plain, (bms, by)) in cases.items():
+        for label, (shape, kern, plain, (bms, by), lib) in cases.items():
             ms = cuda_ms(kern, iters=5)
             plain_ms = cuda_ms(plain, iters=5)
             device_ms = kernel_device_ms(kern, label)
+            lib_ms = cuda_ms(lib, iters=5) if lib is not None else None
             log(f"dial_times {label} bf16 B={B_TIME} {shape}: kernel "
                 f"{ms:.3f} ms ({device_ms:.3f} ms on the device), plain "
-                f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+                f"{plain_ms:.3f} ms, library "
+                f"{'(the rows A/B below)' if lib_ms is None else f'{lib_ms:.3f} ms'}"
+                f", bound {bms:.4f} ms ({by}) [{card}]")
             if label in DIAL_KERNELS or label == "fused_subtree@depth2":
-                report.setdefault(label.split("@")[0], {}).update(
-                    ms=ms, plain_ms=plain_ms, device_ms=device_ms)
+                ent = report.setdefault(label.split("@")[0], {})
+                ent.update(ms=ms, plain_ms=plain_ms, device_ms=device_ms)
+                if lib_ms is not None:
+                    ent["library_ms"] = lib_ms
 
         # JAX's scripts/bench_rows_bneck_ab.py question on this card: #5 at
         # 128 px against the plain bf16 bottleneck (cuDNN convs), in turns.
@@ -3250,8 +3438,8 @@ def main():
     timed("dial_times", phase_dial_times, report, model, card)
     del model
     torch.cuda.empty_cache()
-    timed("mobile_kernels", phase_kernels, report, mobile_kernel_cases,
-          seed=20)
+    timed("mobile_kernels", phase_kernels, report, mobile_main_cases,
+          seed=20, twice=True)
     timed("mobile_golden", phase_mobile_golden)
     model = build_s4_mobile().to("cuda")
     timed("mobile_slice", phase_mobile_slice, report, model)

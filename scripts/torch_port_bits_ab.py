@@ -3,17 +3,29 @@
 
     python3 scripts/torch_port_bits_ab.py OTHER_CHECKOUT
 
-Runs `chip_smoke.kernel_cases` (seed 0, batch 8: #1 at 64 and 4 px, #2 at
-32, 16 and 8 px, #3 at 64-8 px, #4 mid and last; float32 with TF32 off,
-and bfloat16) in this checkout and in OTHER_CHECKOUT, each in its own
-process that builds its own kernels, on one NVIDIA card. It prints, for
-every output, whether the two checkouts wrote the same bits, and exits 1
-if any differs, except the bfloat16 outputs of MAY_DIFFER (#1-#3, whose
-bf16 body moved from FMA to the tensor cores), for which it prints how
-far they moved: max |d|, and the share of values that differ. Both
-checkouts must draw the same inputs, so `kernel_cases` must be the same
-in both. Use it to show that a refactor of `csrc/bottleneck.cu` left the
-kernels' results as they were.
+Runs, in this checkout and in OTHER_CHECKOUT, each in its own process that
+builds its own kernels, on one NVIDIA card, float32 (TF32 off) and
+bfloat16, batch 8:
+
+* `chip_smoke.kernel_cases` (seed 0: #1 at 64 and 4 px, #2 at 32, 16 and
+  8 px, #3 at 64-8 px, #4 mid and last);
+* `chip_smoke.mobile_kernel_cases` (seed 20: #8 at 64 and 4 px, #9 at 32,
+  16 and 8 px, #10 at 64-8 px);
+* the main-shape cases of `chip_smoke.dial_kernel_cases` (seed 30, those
+  whose label names no batch or width: #6 at 64 px, #7 at depths 1-3, #5
+  at 128 px), which both checkouts draw first;
+* each of `chip_smoke.BNECK_EDGES` (#1-#3 at their contract's edges) on
+  its own, drawn from seed 100 + its index, so that two checkouts whose
+  lists share a prefix draw its edges alike.
+
+It prints, for every output both checkouts wrote, whether they wrote the
+same bits, and exits 1 if any differs, except the bfloat16 outputs of
+MAY_DIFFER (#4 and #8-#10, whose bf16 kernels moved from FMA to the
+tensor cores), for which it prints how far they moved: max |d|, and the
+share of values that differ; it lists the outputs only one checkout
+wrote. Both checkouts must draw the same inputs, so those case functions
+must draw alike in both. Use it to show that a change of the kernels left
+the results it does not mean to move as they were.
 """
 
 from __future__ import annotations
@@ -24,7 +36,8 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MAY_DIFFER = ("fused_bottleneck", "fused_bottleneck_pool", "fused_uplevel")
+MAY_DIFFER = ("fused_head", "fused_bottleneck_mobile",
+              "fused_bottleneck_mobile_pool", "fused_uplevel_mobile")
 
 _DUMP = """
 import sys
@@ -37,15 +50,30 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 chip_smoke.phase_build()
 outs = {}
+groups = ((chip_smoke.kernel_cases, 0), (chip_smoke.mobile_kernel_cases, 20),
+          (chip_smoke.dial_kernel_cases, 30))
 for dtype in (torch.float32, torch.bfloat16):
-    cases = chip_smoke.kernel_cases(np.random.default_rng(0), dtype, "cuda",
-                                    chip_smoke.B_CHECK)
-    for label, _, kern, _ in cases:
-        got = kern()
-        got = got if isinstance(got, tuple) else (got,)
-        for i, g in enumerate(got):
-            if g is not None:
+    for make, seed in groups:
+        cases = make(np.random.default_rng(seed), dtype, "cuda",
+                     chip_smoke.B_CHECK)
+        for label, _, kern, *_ in cases:
+            if " B=" in label:
+                continue
+            got = kern()
+            got = got if isinstance(got, tuple) else (got,)
+            for i, g in enumerate(got):
+                if g is not None:
+                    outs[f"{label} {str(dtype)[6:]} out{i}"] = g.cpu()
+    edges = tuple(chip_smoke.BNECK_EDGES)
+    for k, edge in enumerate(edges):
+        chip_smoke.BNECK_EDGES = (edge,)
+        for label, _, kern, *_ in chip_smoke.bneck_edge_cases(
+                np.random.default_rng(100 + k), dtype, "cuda"):
+            got = kern()
+            got = got if isinstance(got, tuple) else (got,)
+            for i, g in enumerate(got):
                 outs[f"{label} {str(dtype)[6:]} out{i}"] = g.cpu()
+    chip_smoke.BNECK_EDGES = edges
 torch.cuda.synchronize()
 torch.save(outs, path)
 """
@@ -70,11 +98,11 @@ def main(argv):
         dump(HERE, mine)
         dump(argv[1], other)
         a, b = torch.load(mine), torch.load(other)
-    if a.keys() != b.keys():
-        print(f"the checkouts ran other cases: {sorted(a)} vs {sorted(b)}")
-        return 1
+    for key in sorted(a.keys() ^ b.keys()):
+        print(f"{key}: written by {'this' if key in a else 'the other'} "
+              f"checkout only")
     differ = held = 0
-    for key in a:
+    for key in (k for k in a if k in b):
         same = torch.equal(a[key], b[key])
         if " bfloat16 " in key and key.split("@")[0] in MAY_DIFFER:
             d = (a[key].float() - b[key].float()).abs()

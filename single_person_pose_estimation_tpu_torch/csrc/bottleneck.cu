@@ -29,7 +29,11 @@
 //
 // Design: the TPU kernel holds a whole 64x64x256 map per image in VMEM; an
 // SM block holds at most 227 KB, so each block takes one TH x TW output tile
-// (8x8, or the whole map when smaller) of one image. It loads x over a
+// of one image: on the FMA body a TS x TS tile (the whole map when
+// smaller), TS from ops/cuda/bottleneck_kernel.py fma_tile_plan, 8 up to
+// C=384 in float32 and smaller above, where an 8 x 8 tile's halo would not
+// fit (4 x 4 takes 216 bytes a channel in float32, up to C=1024); on the
+// tensor-core body the tile of bneck_tc_plan. It loads x over a
 // one-pixel halo, recomputes t1 on the (TH+2)x(TW+2) halo (t1 is forced to
 // ZERO outside the image: the reference pads t1, not x), keeps t1 and t2 in
 // shared memory and writes only the outputs. Weights stream from L2 (the
@@ -40,7 +44,7 @@
 // hb-row strips, each with its two halo rows passed in and t1 zeroed on
 // halo rows at the image border, because a whole 128x128x256 map does not
 // fit Mosaic's VMEM budget. Its function is kPlain's on a map of any size:
-// kPlain already tiles every map in 8x8 tiles with a one-pixel halo and t1
+// kPlain already tiles every map in small tiles with a one-pixel halo and t1
 // zero outside the image, so the port launches kPlain. The strips do not
 // carry over: an hb=64 strip at W=128 with its f32 temporaries is megabytes,
 // against 227 KB of shared memory per block. Like kPlain at 64 px, #5 at
@@ -71,12 +75,17 @@ bottleneck_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                       H, W, C, Cm, TH, TW);
 }
 
+// An FMA tile side: 2, 4 or 8 (even, so that pooling tiles are).
+inline bool fma_tile_ok(int ts) { return ts >= 2 && ts <= 8 && ts % 2 == 0; }
+
 template <typename T, int MODE>
 cudaError_t launch_bottleneck(const void* x, const void* w1, const void* w2,
                               const void* w3, const void* vec, void* out,
                               void* pooled, const void* ulo, int B, int H,
-                              int W, int C, int Cm, cudaStream_t stream) {
-  const int TH = H < 8 ? H : 8, TW = W < 8 ? W : 8;
+                              int W, int C, int Cm, int ts,
+                              cudaStream_t stream) {
+  if (!fma_tile_ok(ts)) return cudaErrorInvalidValue;
+  const int TH = H < ts ? H : ts, TW = W < ts ? W : ts;
   const int tiles_y = (H + TH - 1) / TH, tiles_x = (W + TW - 1) / TW;
   const size_t smem =
       tile_smem_elems(TH, TW, C, Cm, pools<MODE>()) * sizeof(T);
@@ -155,14 +164,15 @@ template <typename T>
 cudaError_t dispatch_mode(int mode, const void* x, const void* w1,
                           const void* w2, const void* w3, const void* vec,
                           void* out, void* pooled, const void* ulo, int B,
-                          int H, int W, int C, int Cm, cudaStream_t s) {
+                          int H, int W, int C, int Cm, int ts,
+                          cudaStream_t s) {
   switch (mode) {
     case kPlain:
-      return launch_bottleneck<T, kPlain>(x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, s);
+      return launch_bottleneck<T, kPlain>(x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, ts, s);
     case kPool:
-      return launch_bottleneck<T, kPool>(x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, s);
+      return launch_bottleneck<T, kPool>(x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, ts, s);
     case kUpAdd:
-      return launch_bottleneck<T, kUpAdd>(x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, s);
+      return launch_bottleneck<T, kUpAdd>(x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, ts, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -240,8 +250,9 @@ template <typename T>
 cudaError_t launch_convskip(const void* x, const void* ws, const void* w1,
                             const void* w2, const void* w3, const void* vec,
                             void* out, int B, int H, int W, int Cin, int C,
-                            int Cm, cudaStream_t stream) {
-  const int TH = H < 8 ? H : 8, TW = W < 8 ? W : 8;
+                            int Cm, int ts, cudaStream_t stream) {
+  if (!fma_tile_ok(ts)) return cudaErrorInvalidValue;
+  const int TH = H < ts ? H : ts, TW = W < ts ? W : ts;
   const int tiles_y = (H + TH - 1) / TH, tiles_x = (W + TW - 1) / TW;
   const size_t HW2 = (size_t)(TH + 2) * (TW + 2), P = (size_t)TH * TW;
   const size_t smem = (HW2 * Cin + HW2 * Cm + P * Cm) * sizeof(T);
@@ -260,16 +271,16 @@ cudaError_t launch_convskip(const void* x, const void* ws, const void* w1,
 }  // namespace spe
 
 // mode: 0 plain, 1 pool, 2 up-add; float32 storage (bfloat16 runs
-// spe_bottleneck_tc: bf16 = 1 is refused). Returns cudaGetLastError() after
-// the launch (0 on success).
+// spe_bottleneck_tc: bf16 = 1 is refused), ts x ts tiles (fma_tile_plan).
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int spe_bottleneck(int mode, int bf16, const void* x,
                               const void* w1, const void* w2, const void* w3,
                               const void* vec, void* out, void* pooled,
                               const void* ulo, int B, int H, int W, int C,
-                              int Cm, void* stream) {
+                              int Cm, int ts, void* stream) {
   if (bf16) return (int)cudaErrorInvalidValue;
   return (int)spe::dispatch_mode<float>(mode, x, w1, w2, w3, vec, out, pooled,
-                                        ulo, B, H, W, C, Cm,
+                                        ulo, B, H, W, C, Cm, ts,
                                         static_cast<cudaStream_t>(stream));
 }
 
@@ -295,17 +306,18 @@ extern "C" int spe_bottleneck_tc(int mode, const void* x, const void* w1,
 }
 
 // The conv-skip bottleneck: x (B, H, W, Cin), ws (Cin, C), w1 (Cin, Cm),
-// w2 (3, 3, Cm, Cm), w3 (Cm, C), vec 6*Cm + 4*C floats, out (B, H, W, C).
+// w2 (3, 3, Cm, Cm), w3 (Cm, C), vec 6*Cm + 4*C floats, out (B, H, W, C),
+// ts x ts tiles (fma_tile_plan).
 extern "C" int spe_convskip(int bf16, const void* x, const void* ws,
                             const void* w1, const void* w2, const void* w3,
                             const void* vec, void* out, int B, int H, int W,
-                            int Cin, int C, int Cm, void* stream) {
+                            int Cin, int C, int Cm, int ts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return (int)spe::launch_convskip<__nv_bfloat16>(x, ws, w1, w2, w3, vec,
-                                                    out, B, H, W, Cin, C, Cm, s);
+    return (int)spe::launch_convskip<__nv_bfloat16>(
+        x, ws, w1, w2, w3, vec, out, B, H, W, Cin, C, Cm, ts, s);
   return (int)spe::launch_convskip<float>(x, ws, w1, w2, w3, vec, out, B, H, W,
-                                          Cin, C, Cm, s);
+                                          Cin, C, Cm, ts, s);
 }
 
 extern "C" const char* spe_error_string(int err) {

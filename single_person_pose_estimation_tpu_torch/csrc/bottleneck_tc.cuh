@@ -5,11 +5,23 @@
 // (csrc/mma.cuh). float32 keeps the FMA body of bottleneck.cuh.
 //
 // Serves every bf16 caller of the body: bottleneck.cu's grid kernel
-// (kPlain #1 and #5, kPool #2, kUpAdd + kPlain #3) and bottom.cu's walk
-// (#7, with kPlainPool on the way down). Every output element sums its
+// (kPlain #1 and #5, kPool #2, kUpAdd + kPlain #3), bottom.cu's walk
+// (#7, with kPlainPool on the way down) and, with MOB = true, mobile.cu's
+// separable bottleneck (#8-#10). Every output element sums its
 // products in one fixed order, chunk by chunk as the stage sequence below
 // runs, whatever the tile's place or size, so #7's walk gives the same
 // bits as the walk composed of single-bottleneck launches.
+//
+// The mobile body (MOB) differs in phase 2 alone: the 3x3 depthwise step
+// over the t1 halo on the CUDA cores (tile_depthwise: mobile.cu's tap
+// order, each product and sum rounded as written, the sum rounded to
+// bf16) into region A, then a GEMM, M = TH*TW, K = Cm, N = Cm (pw2), whose
+// bn2 epilogue writes t2 over t1 (dead since the depthwise step). Its
+// weights (W1' and W3' with the 1x1 depthwise scales folded in, pw2) are
+// 160 KB at C=256 and ride the same ring; the taps d2 stay float32 and
+// are read from L2. Its modes are kPlain (kMobPlain), kPlainPool
+// (kMobPool: x + t3 with one rounding, as kMobPlain) and kUpAdd
+// (kMobUpAdd).
 //
 // Bound on the H100: at 64 px (B=128, C=256, Cm=128) one bottleneck is
 // 223 GFLOP against 268 MB of HBM traffic, so the tensor-core math bounds
@@ -172,26 +184,65 @@ __device__ __forceinline__ float bn_relu(float v, float b, float a, float c) {
 __device__ __forceinline__ float bf_lo16(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf_hi16(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
+// The mobile body's 3x3 depthwise step: a (rows of Cm + 8, one per output
+// pixel of the TH x TW tile) from the t1 halo (rows of Cm + 8, zero outside
+// the image) and the float32 taps d2 (9, Cm), 8 channels a thread: per
+// channel the taps in row-major order, each product and sum rounded on its
+// own (no contraction), the sum rounded to bf16, as mobile.cu's FMA kernel
+// and the plain version compute it.
+__device__ __forceinline__ void tile_depthwise(const bf16* t1s, bf16* as,
+                                               const float* __restrict__ d2,
+                                               int TH, int TW, int Cm) {
+  const int LW = TW + 2, S1 = Cm + 8, c8 = Cm / 8;
+  for (int v = threadIdx.x; v < TH * TW * c8; v += kThreads) {
+    const int p = v / c8, c = (v % c8) * 8, py = p / TW, px = p % TW;
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint4 r = *reinterpret_cast<const uint4*>(
+          t1s + (size_t)((py + tap / 3) * LW + px + tap % 3) * S1 + c);
+      const float4 d0 = __ldg(reinterpret_cast<const float4*>(d2 + tap * Cm + c));
+      const float4 d1 = __ldg(reinterpret_cast<const float4*>(d2 + tap * Cm + c + 4));
+      const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+      const float d[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        acc[2 * k] = __fadd_rn(acc[2 * k], __fmul_rn(bf_lo16(w[k]), d[2 * k]));
+        acc[2 * k + 1] =
+            __fadd_rn(acc[2 * k + 1], __fmul_rn(bf_hi16(w[k]), d[2 * k + 1]));
+      }
+    }
+    *reinterpret_cast<uint4*>(as + (size_t)p * S1 + c) =
+        make_uint4(mma::pack_bf16(acc[0], acc[1]), mma::pack_bf16(acc[2], acc[3]),
+                   mma::pack_bf16(acc[4], acc[5]), mma::pack_bf16(acc[6], acc[7]));
+  }
+}
+
 // One identity-skip bottleneck on the TH x TW tile of image b whose top-left
 // pixel is (ty0, tx0), in bf16 on the tensor cores; a warp takes at most MW
-// m16 tiles (bneck_tc_mw). Ends without a barrier: a caller that reuses
-// smem for another tile syncs first.
-template <int MODE, int MW>
+// m16 tiles (bneck_tc_mw). MOB runs the mobile body's phase 2 (the
+// depthwise step with the taps d2, then pw2) in place of the 3x3 product.
+// Ends without a barrier: a caller that reuses smem for another tile syncs
+// first.
+template <int MODE, int MW, bool MOB = false>
 __device__ __forceinline__ void bneck_tile_tc(
     unsigned char* smem, const bf16* x, const bf16* __restrict__ w1,
     const bf16* __restrict__ w2, const bf16* __restrict__ w3,
     const float* __restrict__ vec, bf16* out, bf16* pooled, const bf16* ulo,
     int b, int ty0, int tx0, int H, int W, int C, int Cm, int TH, int TW,
-    int CK, int NT, int NST) {
+    int CK, int NT, int NST, const float* __restrict__ d2 = nullptr) {
   const int LW = TW + 2, HW2 = (TH + 2) * LW, P = TH * TW;
   const int SX = C + 8, S1 = Cm + 8, SR = NT + 8;
   const size_t regA0 = (size_t)HW2 * SX,
                regA1 = (size_t)P * S1 + (pools<MODE>() ? (size_t)P * SX : 0);
   const size_t regA = regA0 > regA1 ? regA0 : regA1;
   bf16* xs = reinterpret_cast<bf16*>(smem);  // phase 1: the x halo
-  bf16* t2s = xs;                             // phases 2-3: t2
-  bf16* outs = xs + (size_t)P * S1;           // pooling: the out tile
   bf16* t1s = xs + regA;
+  // Phases 2-3: t2 (MOB: the depthwise sums a, and t2 over t1).
+  bf16* t2s = MOB ? t1s : xs;
+  bf16* outs = xs + (size_t)P * S1;           // pooling: the out tile
   bf16* ring = t1s + (size_t)HW2 * S1;
   const int tid = threadIdx.x, lane = tid & 31;
   const bf16* xb = x + (size_t)b * H * W * C;
@@ -211,9 +262,10 @@ __device__ __forceinline__ void bneck_tile_tc(
 
   // The stage sequence: phase 1 runs Cm/NT column groups of C/CK stages
   // (W1 rows kc*CK.., columns nc*NT..), phase 2 Cm/NT groups of 9 taps x
-  // Cm/CK stages, phase 3 C/NT groups of Cm/CK stages.
-  const int K1 = C / CK, K2 = Cm / CK;
-  const int S1n = (Cm / NT) * K1, S2n = (Cm / NT) * 9 * K2;
+  // Cm/CK stages (MOB: of Cm/CK stages of pw2), phase 3 C/NT groups of
+  // Cm/CK stages.
+  const int K1 = C / CK, K2 = Cm / CK, T2 = MOB ? 1 : 9;
+  const int S1n = (Cm / NT) * K1, S2n = (Cm / NT) * T2 * K2;
   const int S = S1n + S2n + (C / NT) * K2;
   const int per_row = NT / 8;
   auto issue = [&](int s) {
@@ -224,9 +276,9 @@ __device__ __forceinline__ void bneck_tile_tc(
         src = w1 + (size_t)(s % K1) * CK * Cm + (s / K1) * NT;
         ld = Cm;
       } else if (s < S1n + S2n) {
-        const int s2 = s - S1n, j = s2 % (9 * K2);
+        const int s2 = s - S1n, j = s2 % (T2 * K2);
         src = w2 + ((size_t)(j / K2) * Cm + (j % K2) * CK) * Cm +
-              (s2 / (9 * K2)) * NT;
+              (s2 / (T2 * K2)) * NT;
         ld = Cm;
       } else {
         const int s3 = s - S1n - S2n;
@@ -253,7 +305,8 @@ __device__ __forceinline__ void bneck_tile_tc(
     const int q = min((wp1.m0 + mt) * 16 + lrow, HW2 - 1);
     a1[mt] = mma::smem_u32(xs + (size_t)q * SX + lcol);
     const int p = min((wp.m0 + mt) * 16 + lrow, P - 1);
-    a2[mt] = mma::smem_u32(t1s + (size_t)((p / TW) * LW + p % TW) * S1 + lcol);
+    a2[mt] = MOB ? mma::smem_u32(xs + (size_t)p * S1 + lcol)
+                 : mma::smem_u32(t1s + (size_t)((p / TW) * LW + p % TW) * S1 + lcol);
     a3[mt] = mma::smem_u32(t2s + (size_t)p * S1 + lcol);
   }
   const int SRB = SR * 2;
@@ -267,10 +320,26 @@ __device__ __forceinline__ void bneck_tile_tc(
     // slot stage s + NST - 1 takes, and with the last epilogue's writes.
     __syncthreads();
     issue(s + NST - 1);
+    if (MOB && s == S1n) {
+      // t1 is whole: the depthwise sums take the x halo's place. acc is
+      // zeroed here (phase 2 starts a column group), so that its registers
+      // are free during the depthwise step.
+      tile_depthwise(t1s, xs, d2, TH, TW, Cm);
+#pragma unroll
+      for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+        for (int jj = 0; jj < kBtNw; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][jj][e] = 0.f;
+      __syncthreads();
+    }
 
     int phase, nc, j, jn, off;  // off: bytes added to the A rows
     if (s < S1n) {
       phase = 1, nc = s / K1, j = s % K1, jn = K1, off = j * CK * 2;
+    } else if (MOB && s < S1n + S2n) {
+      const int s2 = s - S1n;
+      phase = 2, nc = s2 / K2, j = s2 % K2, jn = K2, off = j * CK * 2;
     } else if (s < S1n + S2n) {
       const int s2 = s - S1n, tap = (s2 % (9 * K2)) / K2;
       phase = 2, nc = s2 / (9 * K2), j = s2 % (9 * K2), jn = 9 * K2;

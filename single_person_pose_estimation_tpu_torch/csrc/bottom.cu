@@ -25,8 +25,8 @@
 // Design: the TPU kernel keeps every intermediate of a block of images in
 // VMEM. An H100 block has 227 KB of shared memory, less than one 16 px map
 // at C=256 in f32, so here ONE BLOCK WALKS ONE IMAGE: for each bottleneck
-// of the walk it loops over the tiles of the level's map (8x8, or the
-// tensor-core plan's TS x TS, clipped to the map) and runs the three phases
+// of the walk it loops over the tiles of the level's map (the FMA body's
+// fma_tile_plan side, or the tensor-core plan's TS x TS, clipped to the map) and runs the three phases
 // of the body on each, with the pool (kPlainPool) and the up-add (kUpAdd)
 // as tile epilogues. The level maps live in a global
 // workspace that the wrapper allocates, per image (about 1.6 MB at depth 3,
@@ -65,8 +65,8 @@ template <typename T, int MODE>
 __device__ void bneck_map(T* smem, const T* in, const T* __restrict__ w1,
                           const T* __restrict__ w2, const T* __restrict__ w3,
                           const float* __restrict__ vec, T* out, T* pooled,
-                          const T* ulo, int h, int C, int Cm) {
-  const int TS = h < 8 ? h : 8;
+                          const T* ulo, int h, int C, int Cm, int ts) {
+  const int TS = h < ts ? h : ts;
   const int tiles = (h + TS - 1) / TS;
   for (int t = 0; t < tiles * tiles; ++t) {
     bneck_tile<T, MODE>(smem, in, w1, w2, w3, vec, out, pooled, ulo, 0,
@@ -123,20 +123,20 @@ __device__ void subtree_walk(const Bneck& bneck, const T* x, T* out, T* ws,
   }
 }
 
-// Bottleneck i of the walk on the FMA body: 8x8 tiles.
+// Bottleneck i of the walk on the FMA body: ts x ts tiles (fma_tile_plan).
 template <typename T>
 struct FmaBneck {
   T* smem;
   const T *w1s, *w2s, *w3s;
   const float* vecs;
-  int C, Cm;
+  int C, Cm, ts;
   template <int MODE>
   __device__ void run(int i, const T* in, T* out, T* pooled, const T* ulo,
                       int h) const {
     const size_t s1 = (size_t)C * Cm, s2 = (size_t)9 * Cm * Cm,
                  sv = 6 * Cm + 3 * C;
     bneck_map<T, MODE>(smem, in, w1s + i * s1, w2s + i * s2, w3s + i * s1,
-                       vecs + i * sv, out, pooled, ulo, h, C, Cm);
+                       vecs + i * sv, out, pooled, ulo, h, C, Cm, ts);
   }
 };
 
@@ -169,10 +169,10 @@ __global__ void __launch_bounds__(kThreads)
 subtree_kernel(const T* __restrict__ x, const T* __restrict__ w1s,
                const T* __restrict__ w2s, const T* __restrict__ w3s,
                const float* __restrict__ vecs, T* out, T* ws, int H, int C,
-               int Cm, int depth, size_t ws_image) {
+               int Cm, int depth, size_t ws_image, int ts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const FmaBneck<T> bneck{reinterpret_cast<T*>(smem_raw), w1s, w2s, w3s, vecs,
-                          C, Cm};
+                          C, Cm, ts};
   subtree_walk<T>(bneck, x, out, ws, H, C, depth, ws_image);
 }
 
@@ -198,9 +198,10 @@ template <typename T>
 cudaError_t launch_subtree(const void* x, const void* w1s, const void* w2s,
                            const void* w3s, const void* vecs, void* out,
                            void* ws, int B, int H, int C, int Cm, int depth,
-                           long long ws_image, cudaStream_t stream) {
-  if (!subtree_shape_ok(H, C, depth, ws_image)) return cudaErrorInvalidValue;
-  const int TS = H < 8 ? H : 8;
+                           long long ws_image, int ts, cudaStream_t stream) {
+  if (!subtree_shape_ok(H, C, depth, ws_image) || ts < 2 || ts > 8 || ts % 2)
+    return cudaErrorInvalidValue;
+  const int TS = H < ts ? H : ts;
   const size_t smem = tile_smem_elems(TS, TS, C, Cm, true) * sizeof(T);
   auto kernel = subtree_kernel<T>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -209,7 +210,7 @@ cudaError_t launch_subtree(const void* x, const void* w1s, const void* w2s,
       static_cast<const T*>(x), static_cast<const T*>(w1s),
       static_cast<const T*>(w2s), static_cast<const T*>(w3s),
       static_cast<const float*>(vecs), static_cast<T*>(out),
-      static_cast<T*>(ws), H, C, Cm, depth, (size_t)ws_image);
+      static_cast<T*>(ws), H, C, Cm, depth, (size_t)ws_image, ts);
   return cudaGetLastError();
 }
 
@@ -239,14 +240,16 @@ inline cudaError_t launch_subtree_tc(const void* x, const void* w1s,
 // x and out (B, H, H, C); w1s (nb, C, Cm), w2s (nb, 3, 3, Cm, Cm), w3s
 // (nb, Cm, C) in the storage dtype, vecs (nb, 6*Cm + 3*C) float32, nb =
 // 3*depth + 3 in the walk's order; ws holds B * ws_image elements of the
-// storage dtype, ws_image >= spe_subtree_ws_elems(H, C, depth).
+// storage dtype, ws_image >= spe_subtree_ws_elems(H, C, depth); ts x ts
+// tiles of the FMA body (fma_tile_plan).
 extern "C" int spe_subtree(int bf16, const void* x, const void* w1s,
                            const void* w2s, const void* w3s, const void* vecs,
                            void* out, void* ws, int B, int H, int C, int Cm,
-                           int depth, long long ws_image, void* stream) {
+                           int depth, long long ws_image, int ts,
+                           void* stream) {
   if (bf16) return (int)cudaErrorInvalidValue;  // spe_subtree_tc
   return (int)spe::launch_subtree<float>(x, w1s, w2s, w3s, vecs, out, ws, B, H,
-                                         C, Cm, depth, ws_image,
+                                         C, Cm, depth, ws_image, ts,
                                          static_cast<cudaStream_t>(stream));
 }
 

@@ -22,19 +22,23 @@
 // Bound on the H100: at the 64 px level (C=256, Cm=128) one bottleneck is
 // ~166 kFLOP per pixel against 1 KB of HBM traffic per pixel (x in, out
 // back, bf16), ~160 FLOP/byte: below the bf16 tensor-core ridge (~295), so
-// HBM bounds the ideal kernel. This first version runs the three pointwise
-// products as FMA on the CUDA cores in f32 (no tensor cores yet), so it is
-// bound by the FMA rate and by shared-memory reads, far above that bound.
+// HBM bounds the ideal kernel. In bfloat16 the three pointwise products run
+// on the tensor cores, in the shared body of bottleneck_tc.cuh with its
+// mobile phase 2 (mobile_tc_kernel, the plan of ops/cuda/mobile_kernel.py
+// mobile_tc_plan); the body is held by its serial stages and barriers,
+// not by HBM (PERF.md). In float32 they run as FMA on the CUDA cores
+// (mobile_kernel), bound by the FMA rate and by shared-memory reads.
 //
-// Design: bottleneck.cu's. One block takes one TH x TW output tile (8x8, or
-// the whole map when smaller: the 4 px and 8 px levels) of one image. It
-// loads x over a one-pixel halo, recomputes t1 on the halo (ZERO outside
-// the image: the reference pads t1, not x), and keeps t1, the depthwise sum
-// and t2 in shared memory. The depthwise step is 9 per-channel
-// multiply-adds with separately rounded float32 operations, in the TPU
-// kernel's tap order. Nothing is allocated here; the wrapper allocates the
-// outputs.
-#include "common.cuh"
+// Design of the float32 kernel: bottleneck.cu's. One block takes one TS x
+// TS output tile (TS from ops/cuda/bottleneck_kernel.py fma_tile_plan: 8,
+// or 4 above C=384, where an 8 x 8 tile's halo would not fit a block's
+// shared memory; the whole map when smaller) of one image. It loads x over
+// a one-pixel halo, recomputes t1 on the halo (ZERO outside the image: the
+// reference pads t1, not x), and keeps t1, the depthwise sum and t2 in
+// shared memory. The depthwise step is 9 per-channel multiply-adds with
+// separately rounded float32 operations, in the TPU kernel's tap order.
+// Nothing is allocated here; the wrapper allocates the outputs.
+#include "bottleneck_tc.cuh"
 
 namespace spe {
 
@@ -178,8 +182,9 @@ mobile_kernel(const T* __restrict__ x, const T* __restrict__ ulo,
 template <typename T, int MODE>
 cudaError_t launch_mobile(const void* x, const void* ulo, MobileW<T> P,
                           void* out, void* pooled, int B, int H, int W, int C,
-                          int Cm, cudaStream_t stream) {
-  const int TH = H < 8 ? H : 8, TW = W < 8 ? W : 8;
+                          int Cm, int ts, cudaStream_t stream) {
+  if (ts < 2 || ts > 8 || ts % 2) return cudaErrorInvalidValue;
+  const int TH = H < ts ? H : ts, TW = W < ts ? W : ts;
   const int tiles_y = (H + TH - 1) / TH, tiles_x = (W + TW - 1) / TW;
   // A holds x on the halo (the larger of it, the depthwise sums and the
   // out tile); Tt holds t1 on the halo.
@@ -199,16 +204,71 @@ cudaError_t launch_mobile(const void* x, const void* ulo, MobileW<T> P,
 template <typename T>
 cudaError_t dispatch_mobile(int mode, const void* x, const void* ulo,
                             MobileW<T> P, void* out, void* pooled, int B,
-                            int H, int W, int C, int Cm, cudaStream_t s) {
+                            int H, int W, int C, int Cm, int ts,
+                            cudaStream_t s) {
   switch (mode) {
     case kMobPlain:
-      return launch_mobile<T, kMobPlain>(x, ulo, P, out, pooled, B, H, W, C, Cm, s);
+      return launch_mobile<T, kMobPlain>(x, ulo, P, out, pooled, B, H, W, C, Cm, ts, s);
     case kMobPool:
-      return launch_mobile<T, kMobPool>(x, ulo, P, out, pooled, B, H, W, C, Cm, s);
+      return launch_mobile<T, kMobPool>(x, ulo, P, out, pooled, B, H, W, C, Cm, ts, s);
     case kMobUpAdd:
-      return launch_mobile<T, kMobUpAdd>(x, ulo, P, out, pooled, B, H, W, C, Cm, s);
+      return launch_mobile<T, kMobUpAdd>(x, ulo, P, out, pooled, B, H, W, C, Cm, ts, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The bf16 mobile bottleneck on the tensor cores: one tile (the plan's TSH
+// x TSW, clipped to the map) per block, the body of bottleneck_tc.cuh with
+// MOB = true. MODE is the body's epilogue: kPlain (kMobPlain), kPlainPool
+// (kMobPool) or kUpAdd (kMobUpAdd).
+template <int MODE, int MW>
+__global__ void __launch_bounds__(kThreads, MW <= 4 ? 2 : 1)
+mobile_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                 const float* __restrict__ d2, const bf16* __restrict__ w2,
+                 const bf16* __restrict__ w3, const float* __restrict__ vec,
+                 bf16* __restrict__ out, bf16* __restrict__ pooled,
+                 const bf16* __restrict__ ulo, int H, int W, int C, int Cm,
+                 int TH, int TW, int tiles_x, int CK, int NT, int NST) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bneck_tile_tc<MODE, MW, true>(smem_raw, x, w1, w2, w3, vec, out, pooled,
+                                ulo, blockIdx.y, (blockIdx.x / tiles_x) * TH,
+                                (blockIdx.x % tiles_x) * TW, H, W, C, Cm, TH,
+                                TW, CK, NT, NST, d2);
+}
+
+template <int MODE, int MW>
+cudaError_t launch_mobile_tc_mw(const void* x, const void* ulo,
+                                MobileW<bf16> P, void* out, void* pooled,
+                                int B, int H, int W, int C, int Cm, int TH,
+                                int TW, int CK, int NT, int NST, size_t smem,
+                                cudaStream_t stream) {
+  const int tiles_y = (H + TH - 1) / TH, tiles_x = (W + TW - 1) / TW;
+  auto kernel = mobile_tc_kernel<MODE, MW>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tiles_y * tiles_x, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), P.w1, P.d2, P.w2, P.w3, P.vec,
+      static_cast<bf16*>(out), static_cast<bf16*>(pooled),
+      static_cast<const bf16*>(ulo), H, W, C, Cm, TH, TW, tiles_x, CK, NT,
+      NST);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_mobile_tc(const void* x, const void* ulo, MobileW<bf16> P,
+                             void* out, void* pooled, int B, int H, int W,
+                             int C, int Cm, int TSH, int TSW, int CK, int NT,
+                             int NST, size_t smem, cudaStream_t stream) {
+  const int TH = H < TSH ? H : TSH, TW = W < TSW ? W : TSW;
+  if (!bneck_tc_plan_ok(C, Cm, TH, TW, CK, NT, NST, smem, pools<MODE>()))
+    return cudaErrorInvalidValue;
+  if (bneck_tc_mw(TH, TW, NT) <= 4)
+    return launch_mobile_tc_mw<MODE, 4>(x, ulo, P, out, pooled, B, H, W, C,
+                                        Cm, TH, TW, CK, NT, NST, smem, stream);
+  return launch_mobile_tc_mw<MODE, kBtMaxMw>(x, ulo, P, out, pooled, B, H, W,
+                                             C, Cm, TH, TW, CK, NT, NST, smem,
+                                             stream);
 }
 
 template <typename T>
@@ -221,21 +281,40 @@ MobileW<T> weights(const void* w1, const void* d2, const void* w2,
 
 }  // namespace spe
 
-// mode: 0 plain, 1 pool, 2 up-add. bf16: 1 for bfloat16 storage, 0 for
-// float32. The operands come as (W1', d2, pw2, W3', vec); ulo is read by
-// the up-add only. Returns cudaGetLastError() after the launch (0 on
-// success).
+// mode: 0 plain, 1 pool, 2 up-add; float32 storage (bfloat16 runs
+// spe_mobile_tc: bf16 = 1 is refused), ts x ts tiles (fma_tile_plan). The
+// operands come as (W1', d2, pw2, W3', vec); ulo is read by the up-add
+// only. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int spe_mobile(int mode, int bf16, const void* x, const void* ulo,
                           const void* w1, const void* d2, const void* w2,
                           const void* w3, const void* vec, void* out,
                           void* pooled, int B, int H, int W, int C, int Cm,
-                          void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)spe::dispatch_mobile<__nv_bfloat16>(
-        mode, x, ulo, spe::weights<__nv_bfloat16>(w1, d2, w2, w3, vec), out,
-        pooled, B, H, W, C, Cm, s);
+                          int ts, void* stream) {
+  if (bf16) return (int)cudaErrorInvalidValue;
   return (int)spe::dispatch_mobile<float>(
       mode, x, ulo, spe::weights<float>(w1, d2, w2, w3, vec), out, pooled, B,
-      H, W, C, Cm, s);
+      H, W, C, Cm, ts, static_cast<cudaStream_t>(stream));
+}
+
+// The same in bfloat16 on the tensor cores, with the plan of
+// mobile_tc_plan: tile tsh x tsw, input chunk ck, output chunk nt, ring
+// stages nst, smem bytes.
+extern "C" int spe_mobile_tc(int mode, const void* x, const void* ulo,
+                             const void* w1, const void* d2, const void* w2,
+                             const void* w3, const void* vec, void* out,
+                             void* pooled, int B, int H, int W, int C, int Cm,
+                             int tsh, int tsw, int ck, int nt, int nst,
+                             int smem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const spe::MobileW<spe::bf16> P =
+      spe::weights<spe::bf16>(w1, d2, w2, w3, vec);
+  switch (mode) {
+    case spe::kMobPlain:
+      return (int)spe::launch_mobile_tc<spe::kPlain>(x, ulo, P, out, pooled, B, H, W, C, Cm, tsh, tsw, ck, nt, nst, smem, s);
+    case spe::kMobPool:
+      return (int)spe::launch_mobile_tc<spe::kPlainPool>(x, ulo, P, out, pooled, B, H, W, C, Cm, tsh, tsw, ck, nt, nst, smem, s);
+    case spe::kMobUpAdd:
+      return (int)spe::launch_mobile_tc<spe::kUpAdd>(x, ulo, P, out, pooled, B, H, W, C, Cm, tsh, tsw, ck, nt, nst, smem, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -15,7 +15,7 @@ source note says what bounds them on the H100 and how they are tiled. In
 bfloat16 the identity-skip bottleneck (#1, #2, #3's two launches, #5) runs
 the tensor-core body of `csrc/bottleneck_tc.cuh` with the plan of
 `bneck_tc_plan`; in float32, and for the conv skip, the FMA body of
-`csrc/bottleneck.cuh`.
+`csrc/bottleneck.cuh` with the tile of `fma_tile_plan`.
 
 Layout is NHWC, as in the JAX package. Weights are (C, Cm), (3, 3, Cm, Cm)
 and (Cm, C) in the storage dtype (float32 or bfloat16); biases and the
@@ -44,6 +44,9 @@ BNECK_TC_TILES = ((8, 8), (4, 8), (4, 4), (2, 2))  # tried widest first
 BNECK_TC_CK = 64          # widest input-channel chunk of a ring stage
 BNECK_TC_NT = 128         # widest output-channel chunk of a ring stage
 BNECK_TC_STAGES = 4       # ring stages, at most
+# The FMA bodies (float32, and the conv skip in both types): square tiles,
+# tried widest first.
+FMA_TILES = (8, 4, 2)
 
 
 def bn_affine(scale, bias, mean, var, eps: float = 1e-3):
@@ -300,6 +303,40 @@ def bneck_tc_plan(B, H, W, C, Cm, mode, blocks=2, tile=None, ck=None):
                 grid=(tiles_y * tiles_x, B))
 
 
+def fma_smem(kind, ts, C, Cm, itemsize=4, cin=None):
+    """Bytes of shared memory of one ts x ts tile of an FMA body: "bneck"
+    (csrc/bottleneck.cuh tile_smem_elems, pooling or not: #1-#3, #5 and
+    #7's walk), "convskip" (#6: the Cin-wide x halo, t1 and t2) or "mobile"
+    (csrc/mobile.cu: the x halo and t1 on the halo)."""
+    hw2, p = (ts + 2) ** 2, ts * ts
+    if kind == "bneck":
+        elems = max(hw2 * C, p * Cm + p * C) + hw2 * Cm
+    elif kind == "convskip":
+        elems = hw2 * cin + hw2 * Cm + p * Cm
+    elif kind == "mobile":
+        elems = hw2 * (C + Cm)
+    else:
+        raise ValueError(f"no FMA body {kind!r}")
+    return elems * itemsize
+
+
+def fma_tile_plan(kind, C, Cm, itemsize=4, cin=None):
+    """The tile of an FMA body (`fma_smem`'s kinds), which the wrappers
+    pass to the kernel: the widest ts of FMA_TILES whose ts x ts tile fits
+    one block's shared memory, clipped by the kernel to a smaller map. An
+    8 x 8 tile takes 600 bytes a channel in float32 (C=384 is the widest
+    that fits) and a 4 x 4 tile 216 (up to C=1024), so at C <= 384 every
+    float32 tile is 8 x 8, and the conv skip, whose x halo is Cin wide,
+    takes 2 x 2 at Cin = C = 1024 in float32. Returns {"ts", "smem"}; a
+    ValueError where no tile fits."""
+    for ts in FMA_TILES:
+        smem = fma_smem(kind, ts, C, Cm, itemsize, cin)
+        if smem <= SMEM_LIMIT:
+            return dict(ts=ts, smem=smem)
+    raise ValueError(f"no {kind} tile of {FMA_TILES} fits {SMEM_LIMIT} "
+                     f"bytes at C={C}, Cm={Cm}, Cin={cin}")
+
+
 def _widest(n, cap):
     """The largest multiple of 16 that divides n (a multiple of 16), at
     most cap."""
@@ -348,7 +385,8 @@ def launch_bottleneck(mode, x, p: BottleneckParams, out, pooled=None,
             mode, *ptrs, B, H, W, C, Cm, plan["tsh"], plan["tsw"],
             plan["ck"], plan["nt"], plan["nst"], plan["smem"], stream)
     else:
-        err = build.lib().spe_bottleneck(mode, 0, *ptrs, B, H, W, C, Cm,
+        ts = fma_tile_plan("bneck", C, Cm)["ts"]
+        err = build.lib().spe_bottleneck(mode, 0, *ptrs, B, H, W, C, Cm, ts,
                                          stream)
     build.check(err, "bottleneck kernel")
 
@@ -410,9 +448,10 @@ def fused_bottleneck_convskip(x, p: ConvSkipParams):
     Replaces the JAX package's `ops/pallas/bottleneck_kernel.py`
     `fused_bottleneck_convskip` (`front_bottleneck_3` under `fuse_front`:
     64 px, 128 -> 256 channels). Bound by its operations (0.243 ms at
-    B=128 in bf16); the kernel runs them as FMA on the CUDA cores, one 8x8
-    tile per block, and keeps the Cin-wide x halo in shared memory beside
-    t1 and t2 for the skip product (csrc/bottleneck.cu)."""
+    B=128 in bf16); the kernel runs them as FMA on the CUDA cores, one
+    tile of `fma_tile_plan` per block (8x8 at the front's widths), and
+    keeps the Cin-wide x halo in shared memory beside t1 and t2 for the
+    skip product (csrc/bottleneck.cu)."""
     _check_convskip(x, p)
     if x.device.type == "cpu":
         return fused_bottleneck_convskip_plain(x, p)
@@ -423,10 +462,11 @@ def fused_bottleneck_convskip(x, p: ConvSkipParams):
         raise ValueError(f"batch {B} exceeds the kernel grid's 65535 images")
     out = torch.empty((B, H, W, c), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ts = fma_tile_plan("convskip", c, cm, x.element_size(), cin)["ts"]
     err = build.lib().spe_convskip(
         int(x.dtype == torch.bfloat16), x.data_ptr(), p.ws.data_ptr(),
         p.w1.data_ptr(), p.w2.data_ptr(), p.w3.data_ptr(), p.vec.data_ptr(),
-        out.data_ptr(), B, H, W, cin, c, cm, stream)
+        out.data_ptr(), B, H, W, cin, c, cm, ts, stream)
     build.check(err, "conv-skip bottleneck kernel")
     fused_bottleneck_convskip.launches += 1
     return out

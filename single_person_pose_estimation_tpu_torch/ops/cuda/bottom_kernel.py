@@ -19,7 +19,8 @@ source note says what bounds it on the H100 and why the TPU kernel's
 all-in-VMEM blocking does not carry over. In bfloat16 each bottleneck of
 the walk runs the tensor-core body of `csrc/bottleneck_tc.cuh` on the tiles
 of `bneck_tc_plan`, as the separate launches of `bottleneck_kernel` do, so
-the walk gives their bits; in float32 the FMA body.
+the walk gives their bits; in float32 the FMA body, on the tiles of
+`fma_tile_plan`.
 
 For a tensor on the CPU the wrapper runs the plain PyTorch version; for a
 CUDA tensor it launches the kernel or raises. `fused_subtree.launches`
@@ -40,6 +41,7 @@ from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     _require_cuda,
     bneck_tc_plan,
     bottleneck_upadd_plain,
+    fma_tile_plan,
     fused_bottleneck_plain,
     maxpool2x2,
 )
@@ -160,7 +162,8 @@ def fused_subtree(x, sp: SubtreeParams, depth: int):
                                  plan["nt"], plan["nst"], plan["smem"],
                                  stream)
     else:
-        err = lib.spe_subtree(0, *args, stream)
+        err = lib.spe_subtree(0, *args, fma_tile_plan("bneck", C, Cm)["ts"],
+                              stream)
     build.check(err, "subtree kernel")
     fused_subtree.launches += 1
     return out

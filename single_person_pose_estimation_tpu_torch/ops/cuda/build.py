@@ -35,31 +35,39 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # mode, bf16, x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, stream
+    # mode, bf16, x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, ts,
+    # stream
     "spe_bottleneck": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _P],
     # mode, x, w1, w2, w3, vec, out, pooled, ulo, B, H, W, C, Cm, tsh, tsw,
     # ck, nt, nst, smem, stream
     "spe_bottleneck_tc": [_I] + [_P] * 8 + [_I] * 11 + [_P],
-    # bf16, x, ws, w1, w2, w3, vec, out, B, H, W, Cin, C, Cm, stream
-    "spe_convskip": [_I] + [_P] * 7 + [_I] * 6 + [_P],
+    # bf16, x, ws, w1, w2, w3, vec, out, B, H, W, Cin, C, Cm, ts, stream
+    "spe_convskip": [_I] + [_P] * 7 + [_I] * 7 + [_P],
     # bf16, x, w1s, w2s, w3s, vecs, out, ws, B, H, C, Cm, depth, ws_image,
-    # stream
-    "spe_subtree": [_I] + [_P] * 7 + [_I] * 5 + [ctypes.c_longlong, _P],
+    # ts, stream
+    "spe_subtree": [_I] + [_P] * 7 + [_I] * 5 + [ctypes.c_longlong, _I, _P],
     # x, w1s, w2s, w3s, vecs, out, ws, B, H, C, Cm, depth, ws_image, tsh,
     # tsw, ck, nt, nst, smem, stream
     "spe_subtree_tc": [_P] * 7 + [_I] * 5 + [ctypes.c_longlong] + [_I] * 6
                       + [_P],
-    # mid, bf16, u, y, wh, wpT, w2, w3p, vec, pred, ynext, M, C, K, stream
+    # mid, bf16, u, y, wh, wpT, w2, w3p, vec, pred, ynext, M, C, K, rows,
+    # stream
     "spe_head": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _P],
+                 _I, _I, _I, _I, _P],
+    # mid, u, y, wh, wpp, w2, w3p, vec, pred, ynext, M, C, K, rows, ck, nt,
+    # nst, smem, stream
+    "spe_head_tc": [_I] + [_P] * 9 + [_I] * 8 + [_P],
     # kx, ky, kv, out, B, H, W, K, radius, 2 sigma^2, stream
     "spe_heatmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # img, params, out, B, C, L, K, stream
     "spe_resample": [_P, _P, _P, _I, _I, _I, _I, _P],
     # mode, bf16, x, ulo, w1, d2, w2, w3, vec, out, pooled, B, H, W, C, Cm,
-    # stream
-    "spe_mobile": [_I, _I] + [_P] * 9 + [_I] * 5 + [_P],
+    # ts, stream
+    "spe_mobile": [_I, _I] + [_P] * 9 + [_I] * 6 + [_P],
+    # mode, x, ulo, w1, d2, w2, w3, vec, out, pooled, B, H, W, C, Cm, tsh,
+    # tsw, ck, nt, nst, smem, stream
+    "spe_mobile_tc": [_I] + [_P] * 9 + [_I] * 11 + [_P],
     # heatmaps, out, B, H, W, K, threshold, legacy, stream
     "spe_decode": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
     # bf16, ks, pro, epi, x, a, pv, w, bias, aux, out, ws, sums, B, H, W, K,

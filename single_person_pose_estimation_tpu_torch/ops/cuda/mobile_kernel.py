@@ -13,7 +13,10 @@ Replaces `single_person_pose_estimation_tpu/ops/pallas/mobile_kernel.py`
 s = d + up2x(u_lo), out = bneck_merged(s), in two launches: the up-add
 epilogue, then the plain bottleneck on s, as `uplevel_kernel.py` serves
 the standard model). The kernels are `csrc/mobile.cu`; its source note
-says what bounds them on the H100 and how they are tiled.
+says what bounds them on the H100 and how they are tiled: in bfloat16 the
+tensor-core body of `csrc/bottleneck_tc.cuh` with its mobile phase 2, on
+the plan of `mobile_tc_plan`; in float32 the FMA kernel, on the tile of
+`fma_tile_plan`.
 
 Rounding follows the TPU kernel, not flax: `MobileParams.pack` (the TPU
 module's `_prep_operands`) folds the 1x1 depthwise scales into the
@@ -36,9 +39,13 @@ import torch
 import torch.nn.functional as F
 
 from single_person_pose_estimation_tpu_torch.ops.cuda import build
+from single_person_pose_estimation_tpu_torch.ops.cuda import (
+    bottleneck_kernel as bk,
+)
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     _DTYPES,
     _require_cuda,
+    fma_tile_plan,
     maxpool2x2,
     upsample2x,
 )
@@ -170,12 +177,39 @@ def _check(x, p: MobileParams):
                             f"{dtype} on x's device {x.device}")
 
 
+def mobile_tc_plan(B, H, W, C, Cm, mode, blocks=2, tile=None, ck=None):
+    """The plan of the bf16 mobile bottleneck on the tensor cores: the
+    shared body of csrc/bottleneck_tc.cuh with its mobile phase 2 takes the
+    standard body's tiles, chunks, ring stages and shared memory (the
+    depthwise sums fit where the standard body keeps t2, and t2 where it
+    keeps t1), so this is `bneck_tc_plan`'s plan for the same mode (MODE_POOL
+    pools; `blocks`, `tile` and `ck` as there), with the mobile stage count:
+    W1' in Cm/nt column groups of C/ck stages, pw2 in Cm/nt groups of
+    Cm/ck, W3' in C/nt groups of Cm/ck.
+
+    The bf16 contract, a ValueError outside it: C a multiple of 32 up to
+    1024 and Cm = C/2, the k16 depth of the pw2 and W3' products (float32
+    keeps `_check`'s C a multiple of 16)."""
+    if C % 32 or Cm * 2 != C or not 0 < C <= 1024:
+        raise ValueError(f"the bfloat16 mobile bottleneck takes C a multiple "
+                         f"of 32 (<= 1024) with Cm = C/2, got C={C}, Cm={Cm}")
+    plan = bk.bneck_tc_plan(B, H, W, C, Cm,
+                            bk.MODE_POOL if mode == MODE_POOL
+                            else bk.MODE_PLAIN, blocks, tile, ck)
+    nt, k1, k2 = plan["nt"], C // plan["ck"], Cm // plan["ck"]
+    plan["stages"] = (Cm // nt) * k1 + (Cm // nt) * k2 + (C // nt) * k2
+    return plan
+
+
 def _weights(p: MobileParams):
     return [t.data_ptr() for t in (p.w1, p.d2, p.w2, p.w3, p.vec)]
 
 
-def launch_mobile(mode, x, p: MobileParams, out, pooled=None, u_lo=None):
-    """Launch csrc/mobile.cu on x's current stream (no sync)."""
+def launch_mobile(mode, x, p: MobileParams, out, pooled=None, u_lo=None,
+                  plan=None):
+    """Launch csrc/mobile.cu on x's current stream (no sync): the
+    tensor-core body for bfloat16 (with `plan`, by default
+    `mobile_tc_plan`'s), the FMA kernel for float32."""
     _require_cuda(x)
     B, H, W, C = x.shape
     if B > 65535:
@@ -188,11 +222,22 @@ def launch_mobile(mode, x, p: MobileParams, out, pooled=None, u_lo=None):
         raise ValueError(f"u_lo must be (B, H/2, W/2, C) for x "
                          f"{tuple(x.shape)}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = build.lib().spe_mobile(
-        mode, int(x.dtype == torch.bfloat16), x.data_ptr(),
-        u_lo.data_ptr() if u_lo is not None else None, *_weights(p),
-        out.data_ptr(), pooled.data_ptr() if pooled is not None else None,
-        B, H, W, C, p.w1.shape[1], stream)
+    Cm = p.w1.shape[1]
+    ptrs = (x.data_ptr(), u_lo.data_ptr() if u_lo is not None else None,
+            *_weights(p), out.data_ptr(),
+            pooled.data_ptr() if pooled is not None else None)
+    if x.dtype == torch.bfloat16:
+        if p.d2.data_ptr() % 16:
+            raise ValueError("d2 must start on a 16-byte boundary: the "
+                             "kernel reads it 4 taps at a time")
+        plan = plan or mobile_tc_plan(B, H, W, C, Cm, mode)
+        err = build.lib().spe_mobile_tc(
+            mode, *ptrs, B, H, W, C, Cm, plan["tsh"], plan["tsw"],
+            plan["ck"], plan["nt"], plan["nst"], plan["smem"], stream)
+    else:
+        err = build.lib().spe_mobile(
+            mode, 0, *ptrs, B, H, W, C, Cm,
+            fma_tile_plan("mobile", C, Cm)["ts"], stream)
     build.check(err, "mobile bottleneck kernel")
 
 

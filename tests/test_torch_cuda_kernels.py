@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the inference kernels (standard and mobile) at every main-path
 shape at batch 2, float32 (TF32 off) and bfloat16, and the bf16
-bottleneck body at the edges of its contract, the training kernels
+bottleneck body, the head and the mobile body at the edges of their
+contracts (up to 1024 channels, float32 too), the training kernels
 (warp, heatmap) at the train step's batch 64, at chip_smoke.py's
 tolerances, the decode kernel at batch 12, legacy and corrected,
 exactly, and the six train-unit kernels (#14a-f) at every level at batch
@@ -51,9 +52,9 @@ def _hold_cases(cases, dt):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_versions_on_card(card, dtype):
-    """#1-#4 at the main path's shapes and #1-#3 at chip_smoke.BNECK_EDGES
-    (batch 11, 32, 64 and 512 channels, 4 and 12 px maps, kUpAdd at 8
-    px); a rerun gives the same bits."""
+    """#1-#4 at the main path's shapes, #1-#3 at chip_smoke.BNECK_EDGES
+    (batch 11, 32, 64, 512 and 1024 channels, 4 and 12 px maps, kUpAdd at
+    8 px) and #4 at chip_smoke.HEAD_EDGES; a rerun gives the same bits."""
     dt = getattr(torch, dtype)
     cases = chip_smoke.main_kernel_cases(np.random.default_rng(0), dt,
                                          "cuda", 2)
@@ -68,8 +69,9 @@ def test_kernels_match_plain_versions_on_card(card, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dial_kernels_match_plain_versions_on_card(card, dtype):
-    """#6 at 64 px (128 -> 256), #7 at depths 1, 2 and 3 (and at batch 11,
-    and at 64 channels), #5 at 128 px; a rerun gives the same bits."""
+    """#6 at 64 px (128 -> 256) and at 512 and 1024 channels, #7 at depths
+    1, 2 and 3 (and at batch 11, at 64 channels, and at 512 and 1024), #5
+    at 128 px; a rerun gives the same bits."""
     dt = getattr(torch, dtype)
     cases = chip_smoke.dial_kernel_cases(np.random.default_rng(3), dt,
                                          "cuda", 2)
@@ -81,10 +83,16 @@ def test_dial_kernels_match_plain_versions_on_card(card, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mobile_kernels_match_plain_versions_on_card(card, dtype):
     """#8 at 64 and 4 px, #9 at 32, 16 and 8 px, #10 at 64, 32, 16 and
-    8 px."""
+    8 px, and at chip_smoke.MOBILE_EDGES; a rerun gives the same bits."""
     dt = getattr(torch, dtype)
-    _hold_cases(chip_smoke.mobile_kernel_cases(np.random.default_rng(1), dt,
-                                               "cuda", 2), dt)
+    cases = chip_smoke.mobile_main_cases(np.random.default_rng(1), dt,
+                                         "cuda", 2)
+    _hold_cases(cases, dt)
+    for label, _, kern, *_ in cases:
+        got, again = kern(), kern()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), label
 
 
 def test_training_kernels_match_plain_versions_on_card(card):
