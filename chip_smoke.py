@@ -48,17 +48,22 @@ failure:
 7'. dial_kernels: the conv-skip bottleneck (#6) at 64 px, 128 -> 256
    channels, the subtree (#7) at depths 1, 2 and 3 (8, 16 and 32 px
    inputs) and the row-blocked bottleneck (#5) at 128 px, C=256, batch 8,
-   and #6 and #7 at 512 and 1024 channels, against their plain versions in
-   float32 and bfloat16, each run twice for the same bits (#7 in bfloat16
-   as SUBTREE_ULP_FACTOR says);
+   #6 at CONVSKIP_EDGES (batch 11, a ragged 12 px map, 4 px, Cin/C from
+   32/64 to 512/1024, 1024/1024 and 48/32) and #7 at 512 and 1024
+   channels, against their plain versions in float32 and bfloat16, each
+   run twice for the same bits (#7 in bfloat16 as SUBTREE_ULP_FACTOR
+   says);
    dial_slice: S4/256 bf16 at batch 128 through `fused_apply` with the
    main flags plus `fuse_front`, and plus `fuse_bottom` = 1, 2 and 3, with
    exact launch counts (`dial_want`) and finite heatmaps, then at float32
-   and batch 8 each dial's last stack against the main flags' kernel path;
+   and batch 8 each dial's last stack against the main flags' kernel path,
+   and the `fuse_front` path on the unsaturated copy (`scaled_readings`);
    dial_times: the forward's img/s with each dial (median of 10,
-   alternating), #5-#7 beside their plain versions, bounds and the plain
-   bf16 model's own blocks (#6 front_bottleneck_3, #7 its walk; #5 at 128
-   px against the plain bf16 bottleneck, cuDNN convs, in turns);
+   alternating), the `fuse_front` forward traced once (no bf16 FMA body,
+   whole launches a forward, #6's device ms a forward), #5-#7 beside their
+   plain versions, bounds and the plain bf16 model's own blocks (#6
+   front_bottleneck_3, #7 its walk; #5 at 128 px against the plain bf16
+   bottleneck, cuDNN convs, in turns);
 7a. mobile_kernels: the mobile kernels (#8-#10) against their plain
    versions at batch 8, C=256, at every level the mobile path runs them:
    #8 at 64 and 4 px, #9 at 32, 16 and 8 px, #10 at 64, 32, 16 and 8 px,
@@ -92,8 +97,9 @@ failure:
 9a. mobile_eval: one `predict_ds` pass of mobile S4/256 over the same
    records, with exact launch counts and predictions equal to those of
    the plain decode;
-10. train_kernels: the warp kernel (both passes) and the heatmap kernel
-   against their plain versions at batch 64, 256x256x3 and 64x64x17, f32,
+10. train_kernels: the warp kernel (both passes, bit for bit) and the
+   heatmap kernel against their plain versions at batch 64, 256x256x3 and
+   64x64x17, f32,
    with flips, scales that push samples off the edge, and keypoints on the
    border, negative and invisible;
 11. train: S4/256, bf16 compute and f32 params from `init_variables(seed=0)`,
@@ -106,7 +112,7 @@ failure:
    targets, fwd+bwd+Adam), a torch.profiler trace of two train steps
    (busy, span, idle share, top kernels), the warp on each backend, and
    each training kernel beside its plain version (per call, and on the
-   device alone);
+   device alone, as it comes and after an L2 scrub);
 13. fused_train_kernels: the six train-unit kernels (#14a-f) against their
    plain versions at batch 8 and 64, C=256, Cm=128, at every level (64,
    32, 16, 8, 4 px), float32 and bfloat16, each run twice for the same
@@ -894,6 +900,20 @@ def kernel_device_ms(fn, name, calls=9, before=None):
     return ms
 
 
+def l2_scrub():
+    """A `before` for kernel_device_ms that evicts the 50 MB L2 by writing
+    128 MB. The buffer is written 16 times here first: on the H100 the
+    first writes of a freshly allocated buffer left the kernel timed right
+    after them up to 9x slower for several calls (PERF.md, #11)."""
+    import torch
+
+    buf = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for _ in range(16):
+        buf.zero_()
+    torch.cuda.synchronize()
+    return buf.zero_
+
+
 def device_trace(fn, calls=3, attempts=3):
     """Device activity of `calls` back-to-back calls of fn under
     torch.profiler, after one profiled warm-up call that is discarded.
@@ -1000,9 +1020,11 @@ def phase_trace(report, model, card):
 TC_BNECK = "bneck_tc_kernel<"
 TC_MOBILE = "mobile_tc_kernel<"
 TC_HEAD = "head_tc_kernel<"
+TC_CONVSKIP = "convskip_tc_kernel<"
 BF16_FMA_BNECK = "bottleneck_kernel<__nv_bfloat16"
 BF16_FMA_HEAD = "head_kernel<__nv_bfloat16"
 BF16_FMA_MOBILE = "mobile_kernel<__nv_bfloat16"
+BF16_FMA_CONVSKIP = "convskip_kernel<__nv_bfloat16"
 
 
 def forward_device_ms(evs, calls=3, per_forward=PER_FORWARD, tc=TC_BNECK):
@@ -1155,7 +1177,7 @@ def phase_mobile_slice(report, model):
     scaled_readings(model, torch.from_numpy(imgs[:8]).cuda(), "mobile_slice")
 
 
-def scaled_readings(model, x, label):
+def scaled_readings(model, x, label, flags=MAIN_FLAGS):
     """The kernel path against the plain model on an unsaturated copy.
 
     A random S4/256 saturates 99.8% of its last-stack sigmoids to exactly
@@ -1171,7 +1193,8 @@ def scaled_readings(model, x, label):
     TOL_S4_F32_MEAN in mean|d| of plain f32; the bf16 kernel path, in
     max|d| and in mean|d| from plain f32, within S4_BF16_FACTOR times the
     plain bf16 model's own distance from plain f32 in the same run (the
-    plain bf16 model is the control). Returns {reading: (max, mean)}."""
+    plain bf16 model is the control). `flags`: the kernel path's
+    fused_apply flags. Returns {reading: (max, mean)}."""
     import torch
 
     from single_person_pose_estimation_tpu_torch.models.fused_inference import (
@@ -1190,10 +1213,10 @@ def scaled_readings(model, x, label):
         pred.bias.mul_(k)
     with torch.inference_mode():
         plain32 = peaked(x)[-1]
-        fused32 = fused_apply(prepare_fused(peaked), x, **MAIN_FLAGS)[-1]
+        fused32 = fused_apply(prepare_fused(peaked), x, **flags)[-1]
         peaked.compute_dtype = torch.bfloat16
         plain = peaked(x)[-1]
-        fused = fused_apply(prepare_fused(peaked), x, **MAIN_FLAGS)[-1]
+        fused = fused_apply(prepare_fused(peaked), x, **flags)[-1]
     del peaked
     if not torch.isfinite(fused).all() or not torch.isfinite(fused32).all():
         raise AssertionError(f"{label}: non-finite heatmaps on the kernel "
@@ -1830,8 +1853,7 @@ def phase_eval_times(report, cfg, card):
     # Straight from the forward, and back to back here, the 35.65 MB of
     # maps sit in the 50 MB L2; after a 128 MB write they come from HBM.
     device_ms = kernel_device_ms(kern, "decode_batch")
-    scrub = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
-    cold_ms = kernel_device_ms(kern, "decode_batch", before=scrub.zero_)
+    cold_ms = kernel_device_ms(kern, "decode_batch", before=l2_scrub())
     plain_ms = cuda_ms(lambda: dk.decode_batch_plain(hm), iters=20)
     argmax_ms = cuda_ms(lambda: flat.argmax(1), iters=20)
     n = hm.numel()
@@ -1858,8 +1880,10 @@ B_TRAIN = 64        # the train step's batch
 IMG = 256
 # #11 and #12 run the plain version's float32 operations in the same order
 # with every operation rounded (no FMA contraction, expf without fast-math),
-# so they should agree bit for bit or within an ulp of expf: 1e-6.
+# so they should agree bit for bit or within an ulp of expf: 1e-6. #11 has
+# no expf, so it is held bit for bit (TOL_RESAMPLE).
 TOL_TRAIN_KERNELS = 1e-6
+TOL_RESAMPLE = 0.0
 # Bounds: the card's peaks (NVIDIA H100 SXM data sheet, dense): bf16 tensor
 # cores 989 TFLOP/s, float32 outside the tensor cores 67 TFLOP/s, HBM
 # 3.35 TB/s.
@@ -2003,7 +2027,7 @@ def phase_train_kernels(report):
         err = (got - want).abs().max().item()
         zero = (want == 0).float().mean().item()
         ok = got.shape == want.shape and torch.isfinite(got).all().item() \
-            and err <= TOL_TRAIN_KERNELS
+            and err <= TOL_RESAMPLE
         log(f"kernel resample_last_axis pass {i + 1} {tuple(x.shape)} f32: "
             f"max|d| = {err:.3e}, zero-filled share {zero:.3f} "
             f"{'ok' if ok else 'FAIL'}")
@@ -2281,17 +2305,24 @@ def phase_train_times(report, card):
             lambda: hk.render_heatmaps_batch_plain(kx, ky, kv),
             heatmap_bound(kx, ky, kv)),
     }
+    # Back to back, part of #11's 50.3 MB input can sit in the 50 MB L2;
+    # after a 128 MB write it comes from HBM.
+    scrub = l2_scrub()
     for name, (kern, plain, (bms, by)) in kern_cases.items():
         ms, plain_ms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=20)
         # The events above time back-to-back wrapper calls, host work
         # included; kernel_device_ms the device's time alone.
         device_ms = kernel_device_ms(kern, name)
+        cold_ms = kernel_device_ms(kern, name, before=scrub)
         report.setdefault(name, {}).update(
-            ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=None)
+            ms=ms, device_ms=device_ms, device_ms_cold_l2=cold_ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
         log(f"times {name} f32 B={B_TRAIN}: kernel {ms:.4f} ms per call "
-            f"({device_ms:.4f} ms on the device), plain {plain_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}) [{card}]")
+            f"({device_ms:.4f} ms on the device, {cold_ms:.4f} ms after an "
+            f"L2 scrub), plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"device/bound {device_ms / bms:.2f}, after a scrub "
+            f"{cold_ms / bms:.2f}) [{card}]")
+    del scrub
 
 
 def heatmap_bound(kx, ky, kv, height=64, width=64, sigma=1.0):
@@ -3051,6 +3082,13 @@ DIALS = {"front": dict(fuse_front=True),
 # SUBTREE_ULP_FACTOR times, in relative L2, what one ulp on every input
 # value moves the plain walk (readings 0.23-0.64).
 SUBTREE_ULP_FACTOR = 1.0
+# #6 at its contract's edges, (batch, side, Cin, C), on top of the 64 px
+# main case: batch 11 on a 12 px map (ragged 8 x 8 tiles), 4 px, Cin/C =
+# 32/64 (chunks of 32) through 512/1024 (4 x 8 tiles in bf16), Cin = C =
+# 1024 (the widest x halo) and Cin > C = 32 (chunks of 16).
+CONVSKIP_EDGES = ((11, 12, C // 2, C), (11, 4, C // 2, C), (2, 8, 32, 64),
+                  (2, 8, 64, 128), (2, 8, 256, 512), (2, 8, 512, 1024),
+                  (2, 12, 1024, 1024), (2, 6, 48, 32))
 
 
 def dial_want(flags, stacks=4):
@@ -3067,9 +3105,9 @@ def dial_want(flags, stacks=4):
     return want
 
 
-def convskip_params(rng, dtype, device, c=C):
-    """front_bottleneck_3's operands: c/2 -> c channels, Cm c/2 (128 ->
-    256, Cm 128 at the model's width)."""
+def convskip_params(rng, dtype, device, c=C, cin=None):
+    """front_bottleneck_3's operands: c/2 (or cin) -> c channels, Cm c/2
+    (128 -> 256, Cm 128 at the model's width)."""
     from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
         ConvSkipParams,
         bn_affine,
@@ -3079,7 +3117,8 @@ def convskip_params(rng, dtype, device, c=C):
     def u(lo, hi, *shape):
         return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32))
 
-    cin = cm = c // 2
+    cm = c // 2
+    cin = cin or cm
     lim1, lim2 = np.sqrt(6 / (cin + cm)), np.sqrt(6 / (18 * cm))
     affs = [bn_affine(u(.5, 1.5, n), u(-.3, .3, n), u(-.5, .5, n),
                       u(.5, 1.5, n)) for n in (cm, cm, c)]
@@ -3174,7 +3213,8 @@ def subtree_hold(x, sp, depth):
 def dial_kernel_cases(rng, dtype, device, b):
     """(name, kernel call, plain call[, hold]) of #5-#7 at the dials'
     shapes: #6 at 64 px (128 -> 256), #7 at depths 1-3 (8, 16 and 32 px
-    inputs, with `subtree_hold`), #5 at 128 px."""
+    inputs, with `subtree_hold`), #5 at 128 px; then #6 at CONVSKIP_EDGES
+    and #7 at its edges."""
     import torch
 
     from single_person_pose_estimation_tpu_torch.ops.cuda import (
@@ -3201,12 +3241,13 @@ def dial_kernel_cases(rng, dtype, device, b):
     cases.append(("fused_bottleneck_rows@128", "fused_bottleneck_rows",
                   lambda: bk.fused_bottleneck_rows(x128, p128),
                   lambda: bk.fused_bottleneck_rows_plain(x128, p128)))
-    # #6 at C = 512 and 1024 (Cin = C/2): the FMA tile of fma_tile_plan, 8 x
-    # 8 in bf16 and 4 x 4 in float32 at 512, 4 x 4 and 2 x 2 at 1024.
-    for c in (512, 1024):
-        xc = nhwc(rng, 2, 8, dtype, device, c // 2)
-        pc = convskip_params(rng, dtype, device, c)
-        cases.append((f"fused_bottleneck_convskip@8 B=2 C={c}",
+    # #6 at its contract's edges (CONVSKIP_EDGES): in bf16 the tile of
+    # convskip_tc_plan, in float32 the FMA tile of fma_tile_plan (8 x 8 up
+    # to C=384, then 4 x 4, and 2 x 2 at Cin = C = 1024).
+    for nb, h, cin, c in CONVSKIP_EDGES:
+        xc = nhwc(rng, nb, h, dtype, device, cin)
+        pc = convskip_params(rng, dtype, device, c, cin)
+        cases.append((f"fused_bottleneck_convskip@{h} B={nb} Cin={cin} C={c}",
                       "fused_bottleneck_convskip",
                       lambda xc=xc, pc=pc: bk.fused_bottleneck_convskip(xc, pc),
                       lambda xc=xc, pc=pc:
@@ -3287,6 +3328,10 @@ def phase_dial_slice(report, model):
                                          f"{d.mean().item()}")
     finally:
         model.compute_dtype = torch.bfloat16
+    # The fuse_front path (#6 on the tensor cores in bf16) against the plain
+    # model on the unsaturated copy, as phase_slice holds the main flags.
+    scaled_readings(model, x8, "dial_slice front",
+                    {**MAIN_FLAGS, **DIALS["front"]})
 
 
 def phase_dial_times(report, model, card):
@@ -3325,6 +3370,29 @@ def phase_dial_times(report, model, card):
             f"{ms:.2f} ms over 10 runs = {B_TIME / ms * 1e3:.1f} img/s, "
             f"{med['main'] / ms:.4f}x main flags [{card}]")
     report["_dial_forward"] = {k: B_TIME / ms * 1e3 for k, ms in med.items()}
+
+    # The fuse_front forward, traced once: no bf16 FMA body may run; the
+    # trace must give whole launches a forward (#6 once on the tensor
+    # cores, #1-#4 as the main flags plus the front's #1) and #6's device
+    # ms a forward.
+    with torch.inference_mode():
+        span, busy, _, _, evs = device_trace(runs["front"])
+    fma = {e[2][:60] for e in evs if any(
+        n in e[2] for n in (BF16_FMA_BNECK, BF16_FMA_HEAD, BF16_FMA_CONVSKIP))}
+    _, launches = forward_device_ms(evs)
+    want = {**PER_FORWARD,
+            "fused_bottleneck": PER_FORWARD["fused_bottleneck"] + 1}
+    six = [(e - s) / 1e3 for s, e, n in evs if TC_CONVSKIP in n]
+    log(f"trace S4/256 bf16 B={B_TIME} fuse_front: device span {span:.2f} "
+        f"ms/forward, busy {busy:.2f} ms, idle share {1 - busy / span:.4f}; "
+        f"#6 {len(six) / 3:g} launches and {sum(six) / 3:.3f} device ms a "
+        f"forward; #1-#4 launches {launches} [{card}]")
+    if fma or launches != want or len(six) != 3:
+        raise AssertionError(f"fuse_front trace: bf16 FMA bodies {fma}, "
+                             f"launches {launches} (want {want}), "
+                             f"{len(six)} #6 launches over 3 forwards")
+    report.setdefault("fused_bottleneck_convskip", {})[
+        "forward_device_ms"] = sum(six) / 3
 
     dt = torch.bfloat16
     xs = torch.from_numpy(rng.uniform(-1, 1, (B_TIME, 64, 64, C // 2))

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Are the port's inference kernels bit-equal between two checkouts?
+"""Are the port's inference kernels and its warp bit-equal between two
+checkouts?
 
     python3 scripts/torch_port_bits_ab.py OTHER_CHECKOUT
 
@@ -16,14 +17,16 @@ bfloat16, batch 8:
   at 128 px), which both checkouts draw first;
 * each of `chip_smoke.BNECK_EDGES` (#1-#3 at their contract's edges) on
   its own, drawn from seed 100 + its index, so that two checkouts whose
-  lists share a prefix draw its edges alike.
+  lists share a prefix draw its edges alike;
+* the warp resample #11, float32: both passes of `chip_smoke.warp_passes`
+  on `chip_smoke.warp_inputs` (seed 4, batch 64, 256x256x3), pass 2 on
+  pass 1's output.
 
 It prints, for every output both checkouts wrote, whether they wrote the
 same bits, and exits 1 if any differs, except the bfloat16 outputs of
-MAY_DIFFER (#4 and #8-#10, whose bf16 kernels moved from FMA to the
-tensor cores), for which it prints how far they moved: max |d|, and the
-share of values that differ; it lists the outputs only one checkout
-wrote. Both checkouts must draw the same inputs, so those case functions
+MAY_DIFFER (#6, whose bf16 kernel moved from FMA to the tensor cores),
+for which it prints how far they moved: max |d|, and the share of values
+that differ; it lists the outputs only one checkout wrote. Both checkouts must draw the same inputs, so those case functions
 must draw alike in both. Use it to show that a change of the kernels left
 the results it does not mean to move as they were.
 """
@@ -36,8 +39,7 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MAY_DIFFER = ("fused_head", "fused_bottleneck_mobile",
-              "fused_bottleneck_mobile_pool", "fused_uplevel_mobile")
+MAY_DIFFER = ("fused_bottleneck_convskip",)
 
 _DUMP = """
 import sys
@@ -74,6 +76,11 @@ for dtype in (torch.float32, torch.bfloat16):
             for i, g in enumerate(got):
                 outs[f"{label} {str(dtype)[6:]} out{i}"] = g.cpu()
     chip_smoke.BNECK_EDGES = edges
+from single_person_pose_estimation_tpu_torch.ops.cuda import warp_kernel as wk
+warp = chip_smoke.warp_inputs(np.random.default_rng(4), "cuda")
+for i, (x, p) in enumerate(chip_smoke.warp_passes(*warp)):
+    outs[f"resample_last_axis pass {i + 1} float32 out0"] = \
+        wk.resample_last_axis(x, *p).cpu()
 torch.cuda.synchronize()
 torch.save(outs, path)
 """

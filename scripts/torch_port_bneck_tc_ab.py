@@ -11,7 +11,11 @@ Times, at the main path's shapes (bf16, B=128, C=256), each plan of
 * the same PLANS for the mobile body (`mobile_tc_plan`): #8 at 64 px, #9
   at 32 px and #10's first launch at 64 px;
 * HEAD_PLANS, the head of `csrc/head.cu` (`head_tc_plan`'s overrides: rows
-  a block, input chunk, blocks an SM): #4 mid and last stack at 64 px,
+  a block, input chunk, blocks an SM): #4 mid and last stack at 64 px;
+* CONVSKIP_PLANS, the conv-skip bottleneck on the same body
+  (`convskip_tc_plan`'s overrides: ring stages, input chunk, blocks an SM,
+  tile): #6 at 64 px, 128 -> 256 (the skip parked in out between its
+  product and phase 3's epilogue; the only design built),
 
 each plan in turn, four rounds alternating in order, with CUDA events
 (median ms of the rounds). Every plan must give the bits of its kernel's
@@ -41,6 +45,12 @@ HEAD_PLANS = (("64 rows ck64 2 blocks (default)", {}),
               ("32 rows ck64 2 blocks", dict(rows=32)),
               ("64 rows ck64 1 block", dict(blocks=1)),
               ("32 rows ck32 2 blocks", dict(rows=32, ck=32)))
+# (label, convskip_tc_plan overrides)
+CONVSKIP_PLANS = (("8x8 ck64 2 blocks 3 stages (default)", {}),
+                  ("8x8 ck64 2 blocks 2 stages", dict(nst=2)),
+                  ("8x8 ck32 2 blocks", dict(ck=32)),
+                  ("8x8 ck64 1 block", dict(blocks=1)),
+                  ("8x16 ck64 1 block", dict(tile=(8, 16))))
 
 
 def main():
@@ -71,6 +81,8 @@ def main():
     u32 = chip_smoke.nhwc(rng, B, 32, dt, "cuda")
     C, Cm = p.w1.shape
     K = hmid.wpT.shape[0]
+    cp = chip_smoke.convskip_params(rng, dt, "cuda")
+    xc = chip_smoke.nhwc(rng, B, 64, dt, "cuda", Cm)
 
     def body(mobile):
         planner, launch, params = ((mk.mobile_tc_plan, mk.launch_mobile, mp)
@@ -105,6 +117,15 @@ def main():
     def head_planned(last, x, over):
         return hk.head_tc_plan(B * 64 * 64, C, K, **over)
 
+    def convskip_call(_, x, over):
+        plan = bk.convskip_tc_plan(*x.shape, C, Cm, **over)
+        out = torch.empty((*x.shape[:3], C), dtype=dt, device="cuda")
+        bk.launch_convskip(x, cp, out, plan=plan)
+        return (out,)
+
+    def convskip_planned(_, x, over):
+        return bk.convskip_tc_plan(*x.shape, C, Cm, **over)
+
     bcall, bplanned = body(False)
     mcall, mplanned = body(True)
     # (kernel, plans, [(shape label, mode, x)], call, planned)
@@ -120,6 +141,8 @@ def main():
         ("head", HEAD_PLANS,
          (("#4 mid 64 px", False, x64), ("#4 last 64 px", True, x64)),
          head_call, head_planned),
+        ("convskip", CONVSKIP_PLANS,
+         (("#6 64 px 128->256", None, xc),), convskip_call, convskip_planned),
     )
     differ = 0
     times = {}

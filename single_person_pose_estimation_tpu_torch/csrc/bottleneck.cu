@@ -13,18 +13,18 @@
 // Replaces the TPU kernels single_person_pose_estimation_tpu/ops/pallas/
 // bottleneck_kernel.py:fused_bottleneck (kPlain), :fused_bottleneck_pool
 // (kPool), :fused_bottleneck_rows (kPlain; see below), :fused_bottleneck_
-// convskip (convskip_kernel) and, as the first of two launches,
-// uplevel_kernel.py:fused_uplevel (kUpAdd; the second launch is kPlain on
-// the sum).
+// convskip (convskip_tc_kernel; float32: convskip_kernel) and, as the first
+// of two launches, uplevel_kernel.py:fused_uplevel (kUpAdd; the second
+// launch is kPlain on the sum).
 //
 // Bound on the H100: at the 64 px level (C=256, Cm=128) a bottleneck is
 // 1.74 GFLOP per image against 4 MB of HBM traffic (x in, out back, bf16),
 // ~430 FLOP/byte, so the tensor math bounds it, not HBM. The conv skip at
-// 64 px (128 -> 256, Cm=128) is 0.55 GFLOP per image against 3 MB, ~180
-// FLOP/byte: also the math. In bfloat16 the identity-skip kernel runs that
-// math on the tensor cores (bneck_tc_kernel, the body of
-// bottleneck_tc.cuh); in float32, and for the conv skip in both types, it
-// runs as FMA on the CUDA cores, bound by the FMA rate and by
+// 64 px (128 -> 256, Cm=128) is 1.88 GFLOP per image against 3 MB, ~620
+// FLOP/byte: also the math. In bfloat16 both run that math on the tensor
+// cores (bneck_tc_kernel and convskip_tc_kernel, the body of
+// bottleneck_tc.cuh); in float32 they run as FMA on the CUDA cores
+// (bottleneck_kernel, convskip_kernel), bound by the FMA rate and by
 // shared-memory reads of t1/t2.
 //
 // Design: the TPU kernel holds a whole 64x64x256 map per image in VMEM; an
@@ -33,10 +33,11 @@
 // smaller), TS from ops/cuda/bottleneck_kernel.py fma_tile_plan, 8 up to
 // C=384 in float32 and smaller above, where an 8 x 8 tile's halo would not
 // fit (4 x 4 takes 216 bytes a channel in float32, up to C=1024); on the
-// tensor-core body the tile of bneck_tc_plan. It loads x over a
-// one-pixel halo, recomputes t1 on the (TH+2)x(TW+2) halo (t1 is forced to
-// ZERO outside the image: the reference pads t1, not x), keeps t1 and t2 in
-// shared memory and writes only the outputs. Weights stream from L2 (the
+// tensor-core body the tile of bneck_tc_plan (convskip_tc_plan for the
+// conv skip). It loads x over a one-pixel halo, recomputes t1 on the
+// (TH+2)x(TW+2) halo (t1 is forced to ZERO outside the image: the
+// reference pads t1, not x), keeps t1 and t2 in shared memory and writes
+// only the outputs. Weights stream from L2 (the
 // FMA body: coalesced reads; the tensor-core body: a cp.async ring).
 // Nothing is allocated here; the wrapper allocates outputs.
 //
@@ -52,11 +53,14 @@
 // image). Every offset into a map is computed in size_t: at B=128, 128 px,
 // C=256 a map holds 2^29 values, and B=512 would overflow an int.
 //
-// convskip_kernel keeps the Cin-wide x halo apart from t2 (region A of the
-// identity kernel is overwritten by t2 after phase 1), because phase 3
-// needs the x of every output pixel for the skip product: at 8x8 tiles,
-// Cin=128, Cm=128 that is (100*128 + 100*128 + 64*128) values, 67.6 KB at
-// bf16. Phase 3 runs the skip product and the t3 product side by side.
+// The float32 convskip_kernel keeps the Cin-wide x halo apart from t2
+// (region A of the identity kernel is overwritten by t2 after phase 1),
+// because its phase 3 runs the skip product and the t3 product side by
+// side and needs the x of every output pixel: at 4x4 tiles, Cin=128,
+// Cm=128 that is (36*128 + 36*128 + 16*128) values, 45 KB. The bf16
+// convskip_tc_kernel runs the skip product right after phase 1 instead,
+// while the halo is whole, and parks the rounded skip in out
+// (bottleneck_tc.cuh says how).
 #include "bottleneck_tc.cuh"
 
 namespace spe {
@@ -177,8 +181,9 @@ cudaError_t dispatch_mode(int mode, const void* x, const void* w1,
   return cudaErrorInvalidValue;
 }
 
-// Conv-skip bottleneck, x (B, H, W, Cin) -> out (B, H, W, C). vec holds
-// [b1 a1 c1 b2 a2 c2] (Cm each), [b3 a3 c3] (C each), then bs (C).
+// Conv-skip bottleneck in float32 (T = float), x (B, H, W, Cin) -> out (B,
+// H, W, C). vec holds [b1 a1 c1 b2 a2 c2] (Cm each), [b3 a3 c3] (C each),
+// then bs (C).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 convskip_kernel(const T* __restrict__ x, const T* __restrict__ ws,
@@ -268,6 +273,64 @@ cudaError_t launch_convskip(const void* x, const void* ws, const void* w1,
   return cudaGetLastError();
 }
 
+// The conv-skip bottleneck in bf16 on the tensor cores: one tile of the
+// plan of ops/cuda/bottleneck_kernel.py convskip_tc_plan per block. out
+// carries no __restrict__: the body writes the rounded skip there and
+// reads it back.
+template <int MW>
+__global__ void __launch_bounds__(kThreads, MW <= 4 ? 2 : 1)
+convskip_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ws,
+                   const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+                   const bf16* __restrict__ w3, const float* __restrict__ vec,
+                   bf16* out, int H, int W, int Cin, int C, int Cm, int TH,
+                   int TW, int tiles_x, int CK, int NT, int NST) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bneck_tile_tc<kConvSkip, MW>(smem_raw, x, w1, w2, w3, vec, out, nullptr,
+                               nullptr, blockIdx.y,
+                               (blockIdx.x / tiles_x) * TH,
+                               (blockIdx.x % tiles_x) * TW, H, W, C, Cm, TH,
+                               TW, CK, NT, NST, nullptr, ws, Cin);
+}
+
+template <int MW>
+cudaError_t launch_convskip_tc_mw(const void* x, const void* ws,
+                                  const void* w1, const void* w2,
+                                  const void* w3, const void* vec, void* out,
+                                  int B, int H, int W, int Cin, int C, int Cm,
+                                  int TH, int TW, int CK, int NT, int NST,
+                                  size_t smem, cudaStream_t stream) {
+  const int tiles_y = (H + TH - 1) / TH, tiles_x = (W + TW - 1) / TW;
+  auto kernel = convskip_tc_kernel<MW>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tiles_y * tiles_x, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ws),
+      static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
+      static_cast<const bf16*>(w3), static_cast<const float*>(vec),
+      static_cast<bf16*>(out), H, W, Cin, C, Cm, TH, TW, tiles_x, CK, NT, NST);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_convskip_tc(const void* x, const void* ws, const void* w1,
+                               const void* w2, const void* w3,
+                               const void* vec, void* out, int B, int H,
+                               int W, int Cin, int C, int Cm, int TSH,
+                               int TSW, int CK, int NT, int NST, size_t smem,
+                               cudaStream_t stream) {
+  const int TH = H < TSH ? H : TSH, TW = W < TSW ? W : TSW;
+  if (Cin < 16 ||
+      !bneck_tc_plan_ok(C, Cm, TH, TW, CK, NT, NST, smem, false, Cin))
+    return cudaErrorInvalidValue;
+  if (bneck_tc_mw(TH, TW, NT) <= 4)
+    return launch_convskip_tc_mw<4>(x, ws, w1, w2, w3, vec, out, B, H, W,
+                                    Cin, C, Cm, TH, TW, CK, NT, NST, smem,
+                                    stream);
+  return launch_convskip_tc_mw<kBtMaxMw>(x, ws, w1, w2, w3, vec, out, B, H,
+                                         W, Cin, C, Cm, TH, TW, CK, NT, NST,
+                                         smem, stream);
+}
+
 }  // namespace spe
 
 // mode: 0 plain, 1 pool, 2 up-add; float32 storage (bfloat16 runs
@@ -307,17 +370,30 @@ extern "C" int spe_bottleneck_tc(int mode, const void* x, const void* w1,
 
 // The conv-skip bottleneck: x (B, H, W, Cin), ws (Cin, C), w1 (Cin, Cm),
 // w2 (3, 3, Cm, Cm), w3 (Cm, C), vec 6*Cm + 4*C floats, out (B, H, W, C),
-// ts x ts tiles (fma_tile_plan).
+// ts x ts tiles (fma_tile_plan); float32 storage (bfloat16 runs
+// spe_convskip_tc: bf16 = 1 is refused).
 extern "C" int spe_convskip(int bf16, const void* x, const void* ws,
                             const void* w1, const void* w2, const void* w3,
                             const void* vec, void* out, int B, int H, int W,
                             int Cin, int C, int Cm, int ts, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return (int)spe::launch_convskip<__nv_bfloat16>(
-        x, ws, w1, w2, w3, vec, out, B, H, W, Cin, C, Cm, ts, s);
+  if (bf16) return (int)cudaErrorInvalidValue;
   return (int)spe::launch_convskip<float>(x, ws, w1, w2, w3, vec, out, B, H, W,
-                                          Cin, C, Cm, ts, s);
+                                          Cin, C, Cm, ts,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+// The same in bfloat16 on the tensor cores, with the plan of
+// convskip_tc_plan: tile tsh x tsw, input chunk ck, output chunk nt, ring
+// stages nst, smem bytes.
+extern "C" int spe_convskip_tc(const void* x, const void* ws, const void* w1,
+                               const void* w2, const void* w3,
+                               const void* vec, void* out, int B, int H,
+                               int W, int Cin, int C, int Cm, int tsh,
+                               int tsw, int ck, int nt, int nst, int smem,
+                               void* stream) {
+  return (int)spe::launch_convskip_tc(x, ws, w1, w2, w3, vec, out, B, H, W,
+                                      Cin, C, Cm, tsh, tsw, ck, nt, nst, smem,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* spe_error_string(int err) {

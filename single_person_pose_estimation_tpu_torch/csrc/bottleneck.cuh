@@ -9,6 +9,8 @@
 //   kPool:      out = x + round(t3), pooled = maxpool2x2(out)
 //   kUpAdd:     d = round(x + t3), out = round(d + up2x(u_lo))
 //   kPlainPool: out = x + t3 as kPlain, pooled = maxpool2x2(out)
+//   kConvSkip:  skip = round(relu(x . Ws + bs)), x (Cin) -> C,
+//               out = round(skip + round(t3))  (bf16 body only)
 //
 // The pointers of maps (x, out, pooled, u_lo) carry no __restrict__: in
 // bottom.cu one block writes a map and reads it back in a later stage, so
@@ -19,7 +21,7 @@
 
 namespace spe {
 
-enum Mode { kPlain = 0, kPool = 1, kUpAdd = 2, kPlainPool = 3 };
+enum Mode { kPlain = 0, kPool = 1, kUpAdd = 2, kPlainPool = 3, kConvSkip = 4 };
 
 template <int MODE>
 __host__ __device__ constexpr bool pools() {

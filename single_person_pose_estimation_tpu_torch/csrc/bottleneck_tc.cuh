@@ -23,6 +23,19 @@
 // (kMobPool: x + t3 with one rounding, as kMobPlain) and kUpAdd
 // (kMobUpAdd).
 //
+// The conv-skip bottleneck (kConvSkip, bottleneck.cu's convskip_tc_kernel,
+// #6) differs in its input and its skip: x has Cin channels (the halo
+// rows are Cin + 8 wide, phase 1 is K = Cin), and the skip is a fourth
+// product, M = TH*TW, K = Cin, N = C, whose A rows are the halo's
+// interior. Its Ws slices ride the ring right after phase 1's, while the
+// x halo is still whole (phase 2 writes t2 over it). The skip's epilogue
+// writes round(relu(acc + bs)) to out; phase 3's epilogue reads it back
+// in place of the residual x (the same lane, the same element: both
+// products split M and N alike) and writes round(skip + round(t3)). So
+// the skip costs no shared memory and no second accumulator set, and its
+// bf16 round trip through L2 is exact, since the skip is rounded to bf16
+// anyway.
+//
 // Bound on the H100: at 64 px (B=128, C=256, Cm=128) one bottleneck is
 // 223 GFLOP against 268 MB of HBM traffic, so the tensor-core math bounds
 // it (0.226 ms at 989 TFLOP/s).
@@ -79,12 +92,13 @@ constexpr int kBtMaxTw = 16; // tile columns, at most
 
 // Bytes of shared memory one TH x TW tile takes: region A (the x halo in
 // phase 1, then t2 and, when pooling, the out tile), t1 on the halo, and the
-// ring (ops/cuda/bottleneck_kernel.py _bneck_tc_smem).
+// ring (ops/cuda/bottleneck_kernel.py _bneck_tc_smem). Cin: the channels
+// of x where they differ from C (the conv skip), else 0.
 __host__ __device__ inline size_t bneck_tc_smem(int TH, int TW, int C, int Cm,
                                                 bool pooling, int CK, int NT,
-                                                int NST) {
+                                                int NST, int Cin = 0) {
   const size_t HW2 = (size_t)(TH + 2) * (TW + 2), P = (size_t)TH * TW;
-  size_t regA = HW2 * (C + 8);
+  size_t regA = HW2 * ((Cin ? Cin : C) + 8);
   const size_t regA2 = P * (Cm + 8) + (pooling ? P * (C + 8) : 0);
   if (regA2 > regA) regA = regA2;
   return (regA + HW2 * (Cm + 8) + (size_t)NST * CK * (NT + 8)) * 2;
@@ -104,16 +118,18 @@ __host__ __device__ inline int bneck_tc_mw(int TH, int TW, int NT) {
 // multiple of 16 up to 64 and NT = 16 or a multiple of 32 up to 128, both
 // dividing Cm; tiles of at most kBtMaxTh x kBtMaxTw, even where they pool,
 // whose halo gives a warp at most kBtMaxMw m16 tiles; NST 2..4; smem enough
-// for a TH x TW tile.
+// for a TH x TW tile. The conv skip (Cin > 0) takes Cin a multiple of 16
+// that CK divides.
 __host__ inline bool bneck_tc_plan_ok(int C, int Cm, int TH, int TW, int CK,
                                       int NT, int NST, size_t smem,
-                                      bool pooling) {
+                                      bool pooling, int Cin = 0) {
   if (C % 32 || Cm * 2 != C || CK % 16 || CK < 16 || CK > 64 || Cm % CK ||
       Cm % NT || NT > 128 || (NT != 16 && NT % 32) || TH < 1 || TW < 1 ||
       TH > kBtMaxTh || TW > kBtMaxTw || (pooling && (TH % 2 || TW % 2)) ||
-      NST < 2 || NST > 4 || bneck_tc_mw(TH, TW, NT) > kBtMaxMw)
+      NST < 2 || NST > 4 || bneck_tc_mw(TH, TW, NT) > kBtMaxMw ||
+      Cin < 0 || Cin % CK)
     return false;
-  return smem >= bneck_tc_smem(TH, TW, C, Cm, pooling, CK, NT, NST);
+  return smem >= bneck_tc_smem(TH, TW, C, Cm, pooling, CK, NT, NST, Cin);
 }
 
 // This warp's share of one product with MT m16 tiles and NT columns: m16
@@ -224,17 +240,21 @@ __device__ __forceinline__ void tile_depthwise(const bf16* t1s, bf16* as,
 // pixel is (ty0, tx0), in bf16 on the tensor cores; a warp takes at most MW
 // m16 tiles (bneck_tc_mw). MOB runs the mobile body's phase 2 (the
 // depthwise step with the taps d2, then pw2) in place of the 3x3 product.
-// Ends without a barrier: a caller that reuses smem for another tile syncs
-// first.
+// kConvSkip takes x with Cin channels and the skip's weight ws (Cin, C);
+// vec then ends with bs (C). Ends without a barrier: a caller that reuses
+// smem for another tile syncs first.
 template <int MODE, int MW, bool MOB = false>
 __device__ __forceinline__ void bneck_tile_tc(
     unsigned char* smem, const bf16* x, const bf16* __restrict__ w1,
     const bf16* __restrict__ w2, const bf16* __restrict__ w3,
     const float* __restrict__ vec, bf16* out, bf16* pooled, const bf16* ulo,
     int b, int ty0, int tx0, int H, int W, int C, int Cm, int TH, int TW,
-    int CK, int NT, int NST, const float* __restrict__ d2 = nullptr) {
+    int CK, int NT, int NST, const float* __restrict__ d2 = nullptr,
+    const bf16* __restrict__ ws = nullptr, int Cin = 0) {
+  constexpr bool CS = MODE == kConvSkip;
+  const int CX = CS ? Cin : C;  // channels of x
   const int LW = TW + 2, HW2 = (TH + 2) * LW, P = TH * TW;
-  const int SX = C + 8, S1 = Cm + 8, SR = NT + 8;
+  const int SX = CX + 8, S1 = Cm + 8, SR = NT + 8;
   const size_t regA0 = (size_t)HW2 * SX,
                regA1 = (size_t)P * S1 + (pools<MODE>() ? (size_t)P * SX : 0);
   const size_t regA = regA0 > regA1 ? regA0 : regA1;
@@ -245,28 +265,30 @@ __device__ __forceinline__ void bneck_tile_tc(
   bf16* outs = xs + (size_t)P * S1;           // pooling: the out tile
   bf16* ring = t1s + (size_t)HW2 * S1;
   const int tid = threadIdx.x, lane = tid & 31;
-  const bf16* xb = x + (size_t)b * H * W * C;
+  const bf16* xb = x + (size_t)b * H * W * CX;
 
   // Phase 0: the x halo, zeros outside the image, as one commit group.
   {
-    const int c8 = C / 8;
+    const int c8 = CX / 8;
     for (int v = tid; v < HW2 * c8; v += kThreads) {
       const int q = v / c8, c = (v % c8) * 8;
       const int iy = ty0 - 1 + q / LW, ix = tx0 - 1 + q % LW;
       const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
-      const bf16* src = xb + ((size_t)(in ? iy : 0) * W + (in ? ix : 0)) * C + c;
+      const bf16* src = xb + ((size_t)(in ? iy : 0) * W + (in ? ix : 0)) * CX + c;
       mma::cp_async16_zfill(mma::smem_u32(xs + (size_t)q * SX + c), src, in);
     }
     mma::cp_async_commit();
   }
 
-  // The stage sequence: phase 1 runs Cm/NT column groups of C/CK stages
-  // (W1 rows kc*CK.., columns nc*NT..), phase 2 Cm/NT groups of 9 taps x
-  // Cm/CK stages (MOB: of Cm/CK stages of pw2), phase 3 C/NT groups of
-  // Cm/CK stages.
-  const int K1 = C / CK, K2 = Cm / CK, T2 = MOB ? 1 : 9;
+  // The stage sequence: phase 1 runs Cm/NT column groups of CX/CK stages
+  // (W1 rows kc*CK.., columns nc*NT..), the conv skip's phase 4 C/NT
+  // groups of Cin/CK stages of Ws, phase 2 Cm/NT groups of 9 taps x Cm/CK
+  // stages (MOB: of Cm/CK stages of pw2), phase 3 C/NT groups of Cm/CK
+  // stages.
+  const int K1 = CX / CK, K2 = Cm / CK, T2 = MOB ? 1 : 9;
   const int S1n = (Cm / NT) * K1, S2n = (Cm / NT) * T2 * K2;
-  const int S = S1n + S2n + (C / NT) * K2;
+  const int S2b = S1n + (CS ? (C / NT) * K1 : 0);  // phase 2's first stage
+  const int S = S2b + S2n + (C / NT) * K2;
   const int per_row = NT / 8;
   auto issue = [&](int s) {
     if (s < S) {
@@ -275,13 +297,17 @@ __device__ __forceinline__ void bneck_tile_tc(
       if (s < S1n) {
         src = w1 + (size_t)(s % K1) * CK * Cm + (s / K1) * NT;
         ld = Cm;
-      } else if (s < S1n + S2n) {
-        const int s2 = s - S1n, j = s2 % (T2 * K2);
+      } else if (s < S2b) {
+        const int s4 = s - S1n;
+        src = ws + (size_t)(s4 % K1) * CK * C + (s4 / K1) * NT;
+        ld = C;
+      } else if (s < S2b + S2n) {
+        const int s2 = s - S2b, j = s2 % (T2 * K2);
         src = w2 + ((size_t)(j / K2) * Cm + (j % K2) * CK) * Cm +
               (s2 / (T2 * K2)) * NT;
         ld = Cm;
       } else {
-        const int s3 = s - S1n - S2n;
+        const int s3 = s - S2b - S2n;
         src = w3 + (size_t)(s3 % K2) * CK * C + (s3 / K2) * NT;
         ld = C;
       }
@@ -299,7 +325,7 @@ __device__ __forceinline__ void bneck_tile_tc(
   const int MT1 = (HW2 + 15) / 16, MT = (P + 15) / 16;
   const WarpPart wp1 = warp_part(MT1, NT), wp = warp_part(MT, NT);
   const int lrow = lane & 15, lcol = (lane >> 4) * 8;
-  uint32_t a1[MW], a2[MW], a3[MW];
+  uint32_t a1[MW], a2[MW], a3[MW], a4[MW];  // a4: the skip's (CS)
 #pragma unroll
   for (int mt = 0; mt < MW; ++mt) {
     const int q = min((wp1.m0 + mt) * 16 + lrow, HW2 - 1);
@@ -308,6 +334,9 @@ __device__ __forceinline__ void bneck_tile_tc(
     a2[mt] = MOB ? mma::smem_u32(xs + (size_t)p * S1 + lcol)
                  : mma::smem_u32(t1s + (size_t)((p / TW) * LW + p % TW) * S1 + lcol);
     a3[mt] = mma::smem_u32(t2s + (size_t)p * S1 + lcol);
+    if (CS)  // the halo's interior pixel p
+      a4[mt] = mma::smem_u32(
+          xs + (size_t)((p / TW + 1) * LW + p % TW + 1) * SX + lcol);
   }
   const int SRB = SR * 2;
   const uint32_t ring0 = mma::smem_u32(ring);
@@ -320,7 +349,7 @@ __device__ __forceinline__ void bneck_tile_tc(
     // slot stage s + NST - 1 takes, and with the last epilogue's writes.
     __syncthreads();
     issue(s + NST - 1);
-    if (MOB && s == S1n) {
+    if (MOB && s == S2b) {
       // t1 is whole: the depthwise sums take the x halo's place. acc is
       // zeroed here (phase 2 starts a column group), so that its registers
       // are free during the depthwise step.
@@ -337,15 +366,18 @@ __device__ __forceinline__ void bneck_tile_tc(
     int phase, nc, j, jn, off;  // off: bytes added to the A rows
     if (s < S1n) {
       phase = 1, nc = s / K1, j = s % K1, jn = K1, off = j * CK * 2;
-    } else if (MOB && s < S1n + S2n) {
-      const int s2 = s - S1n;
+    } else if (CS && s < S2b) {
+      const int s4 = s - S1n;
+      phase = 4, nc = s4 / K1, j = s4 % K1, jn = K1, off = j * CK * 2;
+    } else if (MOB && s < S2b + S2n) {
+      const int s2 = s - S2b;
       phase = 2, nc = s2 / K2, j = s2 % K2, jn = K2, off = j * CK * 2;
-    } else if (s < S1n + S2n) {
-      const int s2 = s - S1n, tap = (s2 % (9 * K2)) / K2;
+    } else if (s < S2b + S2n) {
+      const int s2 = s - S2b, tap = (s2 % (9 * K2)) / K2;
       phase = 2, nc = s2 / (9 * K2), j = s2 % (9 * K2), jn = 9 * K2;
       off = (((tap / 3) * LW + tap % 3) * S1 + (j % K2) * CK) * 2;
     } else {
-      const int s3 = s - S1n - S2n;
+      const int s3 = s - S2b - S2n;
       phase = 3, nc = s3 / K2, j = s3 % K2, jn = K2, off = j * CK * 2;
     }
     const WarpPart w = phase == 1 ? wp1 : wp;  // a copy: no local memory
@@ -361,7 +393,8 @@ __device__ __forceinline__ void bneck_tile_tc(
       uint32_t a[MW];
 #pragma unroll
       for (int mt = 0; mt < MW; ++mt)
-        a[mt] = (phase == 1 ? a1[mt] : phase == 2 ? a2[mt] : a3[mt]) + off;
+        a[mt] = (phase == 1 ? a1[mt] : phase == 2 ? a2[mt]
+                 : CS && phase == 4 ? a4[mt] : a3[mt]) + off;
       const uint32_t bb = ring0 + (s % NST) * CK * SRB + lrow * SRB +
                           (w.nbase + lcol) * 2;
       tc_stage(acc, a, w, bb, CK, SRB);
@@ -413,11 +446,30 @@ __device__ __forceinline__ void bneck_tile_tc(
           if (gy >= H || gx >= W) continue;
           const size_t o = (((size_t)b * H + gy) * W + gx) * C;
           const float* v3 = vec + 6 * Cm;
+          if (CS && phase == 4) {
+            // The skip, rounded to bf16, parked in out until phase 3.
+#pragma unroll
+            for (int jj = 0; jj < kBtNw; ++jj) {
+              if (jj >= w.nw) break;
+              const int n = nc * NT + w.nbase + jj * 8 + lc;
+              float sk[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                sk[e] = fmaxf(__fadd_rn(acc[mt][jj][2 * h + e],
+                                        v3[3 * C + n + e]), 0.f);
+              *reinterpret_cast<uint32_t*>(out + o + n) =
+                  mma::pack_bf16(sk[0], sk[1]);
+            }
+            continue;
+          }
+          // The residual: x, or the conv skip's value that this lane
+          // parked in out in phase 4.
+          const bf16* res = CS ? out : x;
 #pragma unroll
           for (int jj = 0; jj < kBtNw; ++jj) {
             if (jj >= w.nw) break;
             const int n = nc * NT + w.nbase + jj * 8 + lc;
-            const uint32_t xw = *reinterpret_cast<const uint32_t*>(x + o + n);
+            const uint32_t xw = *reinterpret_cast<const uint32_t*>(res + o + n);
             float t3[2], v[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e)
@@ -435,8 +487,9 @@ __device__ __forceinline__ void bneck_tile_tc(
             } else {
 #pragma unroll
               for (int e = 0; e < 2; ++e)
-                v[e] = __fadd_rn(xv[e], MODE == kPool ? round_st<bf16>(t3[e])
-                                                      : t3[e]);
+                v[e] = __fadd_rn(xv[e], MODE == kPool || CS
+                                            ? round_st<bf16>(t3[e])
+                                            : t3[e]);
             }
             const uint32_t pk = mma::pack_bf16(v[0], v[1]);
             *reinterpret_cast<uint32_t*>(out + o + n) = pk;

@@ -12,10 +12,10 @@ maxpool of `out`), `fused_bottleneck_rows` (the same function as
 `fused_bottleneck_convskip` (a 1x1 conv + ReLU skip from Cin to C channels
 in place of the identity). The kernels are in `csrc/bottleneck.cu`; its
 source note says what bounds them on the H100 and how they are tiled. In
-bfloat16 the identity-skip bottleneck (#1, #2, #3's two launches, #5) runs
-the tensor-core body of `csrc/bottleneck_tc.cuh` with the plan of
-`bneck_tc_plan`; in float32, and for the conv skip, the FMA body of
-`csrc/bottleneck.cuh` with the tile of `fma_tile_plan`.
+bfloat16 every one of them (#1, #2, #3's two launches, #5, #6) runs the
+tensor-core body of `csrc/bottleneck_tc.cuh`, with the plan of
+`bneck_tc_plan` (#6: `convskip_tc_plan`); in float32 the FMA bodies of
+`csrc/bottleneck.cu` with the tile of `fma_tile_plan`.
 
 Layout is NHWC, as in the JAX package. Weights are (C, Cm), (3, 3, Cm, Cm)
 and (Cm, C) in the storage dtype (float32 or bfloat16); biases and the
@@ -28,6 +28,7 @@ wrapper's `launches` attribute counts kernel launches.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -44,8 +45,7 @@ BNECK_TC_TILES = ((8, 8), (4, 8), (4, 4), (2, 2))  # tried widest first
 BNECK_TC_CK = 64          # widest input-channel chunk of a ring stage
 BNECK_TC_NT = 128         # widest output-channel chunk of a ring stage
 BNECK_TC_STAGES = 4       # ring stages, at most
-# The FMA bodies (float32, and the conv skip in both types): square tiles,
-# tried widest first.
+# The FMA bodies (float32): square tiles, tried widest first.
 FMA_TILES = (8, 4, 2)
 
 
@@ -226,14 +226,16 @@ def _check_convskip(x, p: ConvSkipParams):
                          f"got {p.vec.numel()}")
 
 
-def _bneck_tc_smem(th, tw, C, Cm, pooling, ck, nt, nst):
+def _bneck_tc_smem(th, tw, C, Cm, pooling, ck, nt, nst, cin=None):
     """Bytes of shared memory of one th x tw tile (csrc/bottleneck_tc.cuh
-    bneck_tc_smem): region A, the x halo (rows of C + 8 bf16), which t2
-    (rows of Cm + 8) and, when pooling, the out tile (rows of C + 8)
-    replace after phase 1; t1 on the halo (rows of Cm + 8); nst ring
-    stages of ck x (nt + 8)."""
+    bneck_tc_smem): region A, the x halo (rows of C + 8 bf16, or of cin + 8
+    for the conv skip), which t2 (rows of Cm + 8) and, when pooling, the
+    out tile (rows of C + 8) replace after phase 1 (the conv skip: after
+    its skip product); t1 on the halo (rows of Cm + 8); nst ring stages of
+    ck x (nt + 8)."""
     hw2, p = (th + 2) * (tw + 2), th * tw
-    reg_a = max(hw2 * (C + 8), p * (Cm + 8) + (p * (C + 8) if pooling else 0))
+    reg_a = max(hw2 * ((cin or C) + 8),
+                p * (Cm + 8) + (p * (C + 8) if pooling else 0))
     return (reg_a + hw2 * (Cm + 8) + nst * ck * (nt + 8)) * 2
 
 
@@ -275,32 +277,75 @@ def bneck_tc_plan(B, H, W, C, Cm, mode, blocks=2, tile=None, ck=None):
     if C % 32 or Cm * 2 != C or not 0 < C <= 1024:
         raise ValueError(f"the bfloat16 bottleneck takes C a multiple of 32 "
                          f"(<= 1024) with Cm = C/2, got C={C}, Cm={Cm}")
-    pooling = mode in (MODE_POOL, MODE_PLAIN_POOL)
-    ck = _widest(Cm, ck or BNECK_TC_CK)
+    plan = _tc_plan(B, H, W, C, Cm, None, mode in (MODE_POOL,
+                                                   MODE_PLAIN_POOL),
+                    mode == MODE_PLAIN_POOL, blocks, tile, ck)
+    k1, k2, nt = C // plan["ck"], Cm // plan["ck"], plan["nt"]
+    plan["stages"] = (Cm // nt) * k1 + (Cm // nt) * 9 * k2 + (C // nt) * k2
+    return plan
+
+
+def convskip_tc_plan(B, H, W, cin, C, Cm, blocks=2, tile=None, ck=None,
+                     nst=None):
+    """The plan of the bf16 conv-skip bottleneck (#6) on the tensor cores
+    (csrc/bottleneck_tc.cuh, kConvSkip), `bneck_tc_plan`'s for a (B, H, W,
+    cin) input, tiles chosen without pooling: the x halo is cin + 8 wide,
+    ck the widest multiple of 16 up to BNECK_TC_CK (or `ck`) that divides
+    both cin and Cm, and the ring carries, per tile, `stage_split` = W1
+    (Cm/nt groups of cin/ck), Ws (C/nt groups of cin/ck), W2 (Cm/nt groups
+    of 9 x Cm/ck) and W3 (C/nt groups of Cm/ck), in that order: `stages`
+    in all. `nst` caps the ring stages (the measurement's override).
+
+    The contract, a ValueError outside it: cin a multiple of 16 and C a
+    multiple of 32 (each <= 1024), Cm = C/2. `_check_convskip` admits C a
+    multiple of 16, which float32 takes; a bf16 C that is an odd multiple
+    of 16 leaves Cm short of the k16 depth of phases 2 and 3."""
+    if (C % 32 or Cm * 2 != C or not 0 < C <= 1024 or cin % 16
+            or not 0 < cin <= 1024):
+        raise ValueError(f"the bfloat16 conv-skip bottleneck takes Cin a "
+                         f"multiple of 16 and C a multiple of 32 (each <= "
+                         f"1024) with Cm = C/2, got Cin={cin}, C={C}, "
+                         f"Cm={Cm}")
+    plan = _tc_plan(B, H, W, C, Cm, cin, False, False, blocks, tile, ck,
+                    nst)
+    k1, k2, nt = cin // plan["ck"], Cm // plan["ck"], plan["nt"]
+    plan["stage_split"] = dict(w1=(Cm // nt) * k1, ws=(C // nt) * k1,
+                               w2=(Cm // nt) * 9 * k2, w3=(C // nt) * k2)
+    plan["stages"] = sum(plan["stage_split"].values())
+    return plan
+
+
+def _tc_plan(B, H, W, C, Cm, cin, pooling, walk, blocks, tile, ck,
+             nst=None):
+    """What `bneck_tc_plan` and `convskip_tc_plan` share: the chunks, the
+    tile (fitted as if pooling, so that a map's tiles are the same in
+    every mode, except for the conv skip, which never pools), the m16
+    tiles of a warp, the ring stages and the bytes; `walk` (#7) sizes the
+    bytes for the unclipped tile."""
+    ck = _widest(math.gcd(cin or C, Cm), ck or BNECK_TC_CK)
     nt = next((d for d in range(BNECK_TC_NT, 0, -32) if Cm % d == 0), 16)
+    fit_pooling = pooling or cin is None
     tsh, tsw = next(
         ((a, b) for a, b in ((tile,) if tile else BNECK_TC_TILES)
          if _bneck_tc_mw(a, b, nt) <= 6
-         and _bneck_tc_smem(a, b, C, Cm, True, ck, nt, 2) <= SMEM_LIMIT),
+         and _bneck_tc_smem(a, b, C, Cm, fit_pooling, ck, nt, 2, cin)
+         <= SMEM_LIMIT),
         (None, None))
     if tsh is None:
         raise ValueError(f"no bottleneck tile of {tile or BNECK_TC_TILES} "
-                         f"fits {SMEM_LIMIT} bytes at C={C}")
-    th, tw = (tsh, tsw) if mode == MODE_PLAIN_POOL else (min(H, tsh),
-                                                         min(W, tsw))
+                         f"fits {SMEM_LIMIT} bytes at C={C}, Cin={cin}")
+    th, tw = (tsh, tsw) if walk else (min(H, tsh), min(W, tsw))
     mw = 4 if _bneck_tc_mw(th, tw, nt) <= 4 else 6
-    smem = lambda n: _bneck_tc_smem(th, tw, C, Cm, pooling, ck, nt, n)
+    smem = lambda n: _bneck_tc_smem(th, tw, C, Cm, pooling, ck, nt, n, cin)
     limits = ((SMEM_LIMIT // 2 - 1024,) if blocks == 2 and mw == 4 else ()) \
         + (SMEM_LIMIT,)
-    nst = next(n for limit in limits for n in range(BNECK_TC_STAGES, 1, -1)
+    nst = next(n for limit in limits
+               for n in range(nst or BNECK_TC_STAGES, 1, -1)
                if smem(n) <= limit)
     tiles_y, tiles_x = -(-H // th), -(-W // tw)
-    k1, k2 = C // ck, Cm // ck
     return dict(tsh=tsh, tsw=tsw, th=th, tw=tw, tiles_y=tiles_y,
                 tiles_x=tiles_x, ck=ck, nt=nt, mw=mw, nst=nst,
-                stages=(Cm // nt) * k1 + (Cm // nt) * 9 * k2 + (C // nt) * k2,
-                smem=smem(nst),
-                grid=(tiles_y * tiles_x, B))
+                smem=smem(nst), grid=(tiles_y * tiles_x, B))
 
 
 def fma_smem(kind, ts, C, Cm, itemsize=4, cin=None):
@@ -321,13 +366,13 @@ def fma_smem(kind, ts, C, Cm, itemsize=4, cin=None):
 
 
 def fma_tile_plan(kind, C, Cm, itemsize=4, cin=None):
-    """The tile of an FMA body (`fma_smem`'s kinds), which the wrappers
-    pass to the kernel: the widest ts of FMA_TILES whose ts x ts tile fits
-    one block's shared memory, clipped by the kernel to a smaller map. An
-    8 x 8 tile takes 600 bytes a channel in float32 (C=384 is the widest
-    that fits) and a 4 x 4 tile 216 (up to C=1024), so at C <= 384 every
-    float32 tile is 8 x 8, and the conv skip, whose x halo is Cin wide,
-    takes 2 x 2 at Cin = C = 1024 in float32. Returns {"ts", "smem"}; a
+    """The tile of an FMA body (`fma_smem`'s kinds), which the float32
+    wrappers pass to the kernel: the widest ts of FMA_TILES whose ts x ts
+    tile fits one block's shared memory, clipped by the kernel to a smaller
+    map. An 8 x 8 tile takes 600 bytes a channel in float32 (C=384 is the
+    widest that fits) and a 4 x 4 tile 216 (up to C=1024), so at C <= 384
+    every float32 tile is 8 x 8, and the conv skip, whose x halo is Cin
+    wide, takes 2 x 2 at Cin = C = 1024. Returns {"ts", "smem"}; a
     ValueError where no tile fits."""
     for ts in FMA_TILES:
         smem = fma_smem(kind, ts, C, Cm, itemsize, cin)
@@ -441,6 +486,31 @@ def fused_bottleneck_rows(x, p: BottleneckParams, hb: int = 32):
     return out
 
 
+def launch_convskip(x, p: ConvSkipParams, out, plan=None):
+    """Launch #6 on x's current stream (no sync): the tensor-core body
+    for bfloat16 (with `plan`, by default `convskip_tc_plan`'s, which
+    raises ValueError outside the bf16 contract), the FMA body on the tile
+    of `fma_tile_plan` for float32."""
+    _require_cuda(x)
+    B, H, W, cin = x.shape
+    cm, c = p.w3.shape
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the kernel grid's 65535 images")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), p.ws.data_ptr(), p.w1.data_ptr(), p.w2.data_ptr(),
+            p.w3.data_ptr(), p.vec.data_ptr(), out.data_ptr())
+    if x.dtype == torch.bfloat16:
+        plan = plan or convskip_tc_plan(B, H, W, cin, c, cm)
+        err = build.lib().spe_convskip_tc(
+            *ptrs, B, H, W, cin, c, cm, plan["tsh"], plan["tsw"], plan["ck"],
+            plan["nt"], plan["nst"], plan["smem"], stream)
+    else:
+        ts = fma_tile_plan("convskip", c, cm, 4, cin)["ts"]
+        err = build.lib().spe_convskip(0, *ptrs, B, H, W, cin, c, cm, ts,
+                                       stream)
+    build.check(err, "conv-skip bottleneck kernel")
+
+
 def fused_bottleneck_convskip(x, p: ConvSkipParams):
     """#6, the conv-skip bottleneck: x (B, H, W, Cin) -> (B, H, W, C),
     out = round(relu(x @ Ws + bs)) + round(t3) in the storage dtype.
@@ -448,26 +518,19 @@ def fused_bottleneck_convskip(x, p: ConvSkipParams):
     Replaces the JAX package's `ops/pallas/bottleneck_kernel.py`
     `fused_bottleneck_convskip` (`front_bottleneck_3` under `fuse_front`:
     64 px, 128 -> 256 channels). Bound by its operations (0.243 ms at
-    B=128 in bf16); the kernel runs them as FMA on the CUDA cores, one
-    tile of `fma_tile_plan` per block (8x8 at the front's widths), and
-    keeps the Cin-wide x halo in shared memory beside t1 and t2 for the
-    skip product (csrc/bottleneck.cu)."""
+    B=128 in bf16). In bfloat16 it runs the tensor-core body of
+    `csrc/bottleneck_tc.cuh` (the tile of `convskip_tc_plan`: 8x8 at the
+    front's widths), whose skip is a fourth product on the ring right
+    after phase 1, taken while the Cin-wide x halo is still in shared
+    memory; bf16 takes Cin % 16 and C % 32 (a ValueError before any
+    launch otherwise). In float32 the FMA body (`convskip_kernel`) keeps
+    the halo beside t1 and t2 for the skip product (csrc/bottleneck.cu)."""
     _check_convskip(x, p)
     if x.device.type == "cpu":
         return fused_bottleneck_convskip_plain(x, p)
-    _require_cuda(x)
-    B, H, W, cin = x.shape
-    cm, c = p.w3.shape
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernel grid's 65535 images")
-    out = torch.empty((B, H, W, c), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    ts = fma_tile_plan("convskip", c, cm, x.element_size(), cin)["ts"]
-    err = build.lib().spe_convskip(
-        int(x.dtype == torch.bfloat16), x.data_ptr(), p.ws.data_ptr(),
-        p.w1.data_ptr(), p.w2.data_ptr(), p.w3.data_ptr(), p.vec.data_ptr(),
-        out.data_ptr(), B, H, W, cin, c, cm, ts, stream)
-    build.check(err, "conv-skip bottleneck kernel")
+    out = torch.empty((*x.shape[:3], p.w3.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    launch_convskip(x, p, out)
     fused_bottleneck_convskip.launches += 1
     return out
 

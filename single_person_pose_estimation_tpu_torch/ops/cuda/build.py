@@ -44,6 +44,9 @@ _SIGNATURES = {
     "spe_bottleneck_tc": [_I] + [_P] * 8 + [_I] * 11 + [_P],
     # bf16, x, ws, w1, w2, w3, vec, out, B, H, W, Cin, C, Cm, ts, stream
     "spe_convskip": [_I] + [_P] * 7 + [_I] * 7 + [_P],
+    # x, ws, w1, w2, w3, vec, out, B, H, W, Cin, C, Cm, tsh, tsw, ck, nt,
+    # nst, smem, stream
+    "spe_convskip_tc": [_P] * 7 + [_I] * 12 + [_P],
     # bf16, x, w1s, w2s, w3s, vecs, out, ws, B, H, C, Cm, depth, ws_image,
     # ts, stream
     "spe_subtree": [_I] + [_P] * 7 + [_I] * 5 + [ctypes.c_longlong, _I, _P],
@@ -60,8 +63,8 @@ _SIGNATURES = {
     "spe_head_tc": [_I] + [_P] * 9 + [_I] * 8 + [_P],
     # kx, ky, kv, out, B, H, W, K, radius, 2 sigma^2, stream
     "spe_heatmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
-    # img, params, out, B, C, L, K, stream
-    "spe_resample": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # img, params, out, B, C, L, K, tx, gx, gy, stream
+    "spe_resample": [_P, _P, _P] + [_I] * 7 + [_P],
     # mode, bf16, x, ulo, w1, d2, w2, w3, vec, out, pooled, B, H, W, C, Cm,
     # ts, stream
     "spe_mobile": [_I, _I] + [_P] * 9 + [_I] * 6 + [_P],

@@ -9,7 +9,9 @@ tensor along its last axis:
     out[b, c, l, x'] = sum_k img[b, c, l, k] * max(0, 1 - |pos - k|)
 
 with zero fill outside [0, K). Only k = floor(pos) and floor(pos) + 1 can
-weigh, so the kernel reads two inputs per output. `affine_warp_batch`
+weigh, so the kernel reads two inputs per output; a thread writes four
+consecutive outputs of a line, on the launch geometry of
+`resample_geometry`. `affine_warp_batch`
 decomposes an inverse affine warp (flip -> scale -> rotate about the
 centre) into two such passes (Catmull-Smith), with the flip folded into
 pass 1; the transposes between passes are PyTorch permutes.
@@ -27,6 +29,9 @@ from single_person_pose_estimation_tpu_torch.ops.cuda import build
 from single_person_pose_estimation_tpu_torch.ops.cuda.bottleneck_kernel import (
     _require_cuda,
 )
+
+RESAMPLE_THREADS = 256    # threads a block (csrc/warp.cu kResampleThreads)
+RESAMPLE_VEC = 4          # consecutive outputs a thread (kResampleVec)
 
 
 def _positions(slope, line_coef, line_const, L, K, device):
@@ -51,6 +56,21 @@ def resample_last_axis_plain(img, slope, line_coef, line_const):
     return out
 
 
+def resample_geometry(B, C, L, K):
+    """The launch of csrc/warp.cu for a (B, C, L, K) tensor: tx threads
+    cover a line (the least power of two that holds its ceil(K / 4) groups
+    of RESAMPLE_VEC outputs, at most RESAMPLE_THREADS), ty = 256 / tx lines
+    share a block, and the grid is (ceil(B*C*L / ty) line blocks,
+    ceil(K / (4 * tx)) segments). Thread t of block (i, j) takes line
+    i * ty + t // tx and outputs from (j * tx + t % tx) * 4; those past the
+    line's end or the last line do nothing. At (64, 3, 256, 256): tx 64,
+    ty 4, grid (12288, 1)."""
+    groups = -(-K // RESAMPLE_VEC)
+    tx = min(RESAMPLE_THREADS, 1 << max(groups - 1, 0).bit_length())
+    ty = RESAMPLE_THREADS // tx
+    return dict(tx=tx, ty=ty, grid=(-(-B * C * L // ty), -(-groups // tx)))
+
+
 def _check(img, *params):
     if img.dim() != 4 or img.dtype != torch.float32:
         raise ValueError(f"img must be (B, C, L, K) float32, got "
@@ -73,12 +93,17 @@ def resample_last_axis(img, slope, line_coef, line_const):
         return resample_last_axis_plain(img, slope, line_coef, line_const)
     _require_cuda(img)
     B, C, L, K = img.shape
+    if B * C * L >= 2 ** 31:
+        raise ValueError(f"the kernel indexes lines in int32: {B * C * L} "
+                         f"lines")
     img = img.contiguous()
     params = torch.stack([slope, line_coef, line_const], -1).contiguous()
     out = torch.empty_like(img)
+    geo = resample_geometry(B, C, L, K)
     stream = torch.cuda.current_stream(img.device).cuda_stream
     err = build.lib().spe_resample(img.data_ptr(), params.data_ptr(),
-                                   out.data_ptr(), B, C, L, K, stream)
+                                   out.data_ptr(), B, C, L, K, geo["tx"],
+                                   *geo["grid"], stream)
     build.check(err, "resample kernel")
     resample_last_axis.launches += 1
     return out

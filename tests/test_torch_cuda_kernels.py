@@ -8,7 +8,8 @@ tolerances, the decode kernel at batch 12, legacy and corrected,
 exactly, and the six train-unit kernels (#14a-f) at every level at batch
 2, float32 and bfloat16, with the same bits on a rerun, and the dial
 kernels #5-#7 (the row-blocked bottleneck at 128 px, the conv-skip
-bottleneck at 64 px, the subtree at depths 1-3) at batch 2, float32 and
+bottleneck at 64 px and at its contract's edges, the subtree at depths
+1-3) at batch 2, float32 and
 bfloat16, also with the same bits on a rerun, and the 3x3 units (#14b,
 #14e) and the 1x1 backward units (#14d, #14f) at the edges of their
 contract (bfloat16 on the tensor cores). Skips on a host without a card."""
@@ -69,9 +70,10 @@ def test_kernels_match_plain_versions_on_card(card, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dial_kernels_match_plain_versions_on_card(card, dtype):
-    """#6 at 64 px (128 -> 256) and at 512 and 1024 channels, #7 at depths
-    1, 2 and 3 (and at batch 11, at 64 channels, and at 512 and 1024), #5
-    at 128 px; a rerun gives the same bits."""
+    """#6 at 64 px (128 -> 256) and at chip_smoke.CONVSKIP_EDGES (batch 11,
+    4 and 12 px, Cin/C from 32/64 to 1024/1024), #7 at depths 1, 2 and 3
+    (and at batch 11, at 64 channels, and at 512 and 1024), #5 at 128 px;
+    a rerun gives the same bits."""
     dt = getattr(torch, dtype)
     cases = chip_smoke.dial_kernel_cases(np.random.default_rng(3), dt,
                                          "cuda", 2)
@@ -96,8 +98,8 @@ def test_mobile_kernels_match_plain_versions_on_card(card, dtype):
 
 
 def test_training_kernels_match_plain_versions_on_card(card):
-    """#11 (both warp passes) and #12 at the train step's shapes, within
-    chip_smoke's 1e-6."""
+    """#11 (both warp passes) bit for bit and #12 within chip_smoke's 1e-6,
+    at the train step's shapes."""
     from single_person_pose_estimation_tpu_torch.ops.cuda import (
         heatmap_kernel as hk,
         warp_kernel as wk,
@@ -109,7 +111,7 @@ def test_training_kernels_match_plain_versions_on_card(card):
         got = wk.resample_last_axis(x, *p)
         want = wk.resample_last_axis_plain(x, *p)
         torch.cuda.synchronize()
-        assert (got - want).abs().max().item() <= chip_smoke.TOL_TRAIN_KERNELS
+        assert (got - want).abs().max().item() <= chip_smoke.TOL_RESAMPLE
     kx, ky, kv = chip_smoke.keypoint_inputs(rng, "cuda")
     got = hk.render_heatmaps_batch(kx, ky, kv)
     want = hk.render_heatmaps_batch_plain(kx, ky, kv)
