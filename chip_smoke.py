@@ -25,7 +25,11 @@ failure:
    each run twice for the same bits; then decode_kernel:
    the decode kernel against its plain version at batch 128, 64x64x17
    float32, legacy and corrected, on random, peaked, tied and border maps
-   and on S4/256 bf16 heatmaps (kernel path and plain model), exactly;
+   and on S4/256 bf16 heatmaps (kernel path and plain model), and at
+   DECODE_EDGES (batch 1, 3, 16 and 128; K = 1, 16, 17, 33, 543 and 544;
+   non-square maps, H*W*K not a multiple of 4, a base off 16 bytes,
+   blocks of 543 threads and 86,880 bytes of shared memory, alone and in
+   clusters of 4), exactly, each run twice for the same bits;
 4. golden: the fused path with kernels at float32 against the TF reference
    outputs in `tests/fixtures/golden_ref_s2c32.npz`;
 5. slice: S4/256 from `init_variables(seed=0)`, served by
@@ -93,7 +97,9 @@ failure:
    exact, 10 finite OKS stats and one PCK per label;
 9. eval_times: records-to-predictions img/s (median of 3), its split
    (host parse, forward, decode), the device idle share of one pass, and
-   the decode kernel beside its plain version;
+   the decode kernel beside its plain version at batch 128 (maps in L2
+   and after an L2 scrub), and at batch 1 and 16 (in L2, as a served
+   step finds them);
 9a. mobile_eval: one `predict_ds` pass of mobile S4/256 over the same
    records, with exact launch counts and predictions equal to those of
    the plain decode;
@@ -101,7 +107,11 @@ failure:
    heatmap kernel against their plain versions at batch 64, 256x256x3 and
    64x64x17, f32,
    with flips, scales that push samples off the edge, and keypoints on the
-   border, negative and invisible;
+   border, negative and invisible; the heatmap kernel also at
+   HEATMAP_EDGES (batch 1, K = 1, 16, 17 at 32 px and sigma 2, W*K not a
+   multiple of 4, non-square, rows of 9,100 floats, 4,099 keypoints, a
+   window of 96 px),
+   each run twice for the same bits;
 11. train: S4/256, bf16 compute and f32 params from `init_variables(seed=0)`,
    trained by `Trainer` for 2 epochs of 3 steps at batch 64 on synthetic
    crops with augmentation, then resumed by a new `Trainer` for 1 epoch;
@@ -112,7 +122,8 @@ failure:
    targets, fwd+bwd+Adam), a torch.profiler trace of two train steps
    (busy, span, idle share, top kernels), the warp on each backend, and
    each training kernel beside its plain version (per call, and on the
-   device alone, as it comes and after an L2 scrub);
+   device alone, as it comes and after an L2 scrub that writes and one
+   that reads), and `zero_()` of the heatmap kernel's output;
 13. fused_train_kernels: the six train-unit kernels (#14a-f) against their
    plain versions at batch 8 and 64, C=256, Cm=128, at every level (64,
    32, 16, 8, 4 px), float32 and bfloat16, each run twice for the same
@@ -900,18 +911,23 @@ def kernel_device_ms(fn, name, calls=9, before=None):
     return ms
 
 
-def l2_scrub():
+def l2_scrub(clean=False):
     """A `before` for kernel_device_ms that evicts the 50 MB L2 by writing
-    128 MB. The buffer is written 16 times here first: on the H100 the
-    first writes of a freshly allocated buffer left the kernel timed right
-    after them up to 9x slower for several calls (PERF.md, #11)."""
+    128 MB (or, `clean`, by reading them). The buffer is written 16 times
+    here first: on the H100 the first writes of a freshly allocated buffer
+    left the kernel timed right after them up to 9x slower for several
+    calls (PERF.md, #11). Writing leaves the L2 full of dirty lines, whose
+    write-back the kernel timed next pays for as its own traffic evicts
+    them (up to 50 MB more through HBM); reading leaves it clean."""
     import torch
 
     buf = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(16):
         buf.zero_()
+    if clean:
+        buf.sum()
     torch.cuda.synchronize()
-    return buf.zero_
+    return buf.sum if clean else buf.zero_
 
 
 def device_trace(fn, calls=3, attempts=3):
@@ -1452,6 +1468,7 @@ N_EVAL, N_EVAL_TRAIN = 1024, 256
 EVAL_SIDE = 300           # source images; each holds one 256 px crop
 BBOX = 205.0              # int(205 * 1.25) = 256: the crop needs no resize
 DECODE_OPS = 1            # one compare per heatmap element for the bound
+SERVED_DECODE_BATCHES = (1, 16)   # PoseServer buckets timed beside B=128
 EVAL_ROOT = os.path.join(ROOT, "temp", "chip_smoke_eval")
 
 
@@ -1510,6 +1527,71 @@ def s4_heatmaps(model, n=B_TIME, seed=10):
             "S4/256 plain model": plain.float()}
 
 
+# (B, H, W, K) of the decode's edge cases: the served buckets 1 and 16,
+# an odd batch, B=128 at one keypoint, K = 16 (one pixel a 16-byte row),
+# 33 on a non-square map, a wide map (y = idx // H passes H), and
+# H*W*K = 3825, not a multiple of 4 (4-byte loads); K = 543, odd, so a
+# row is 4 * 543 floats read by blocks of 543 lanes with 86,880 bytes of
+# shared memory (past the 48 KB a launch gets without asking), one
+# image in a cluster of 4 at B=1 and at B=16 on an 8x8 map, and with
+# 4-byte loads at 15x15 (one 543-float row, 21,720 bytes); K = 544, the
+# wrapper's K_MAX. decode_edge_cases adds a 64x64x17 batch whose base
+# lies 4 bytes off 16 (4-byte loads too).
+DECODE_EDGES = ((1, 64, 64, K), (3, 64, 64, K), (16, 64, 64, K),
+                (128, 64, 64, 1), (16, 64, 64, 16), (3, 32, 48, 33),
+                (16, 16, 40, K), (3, 15, 15, K), (1, 64, 64, 543),
+                (16, 8, 8, 543), (3, 15, 15, 543), (3, 16, 16, 544))
+
+
+def decode_edge_maps(rng, b, h, w, k):
+    """(b, h, w, k) float32 maps, one kind an image: random, a peak on a
+    border or corner with runner-up neighbours, tied maxima, flat,
+    quantized, the maximum in the last pixel, all negative, all -inf."""
+    hm = rng.uniform(0, 1, (b, h, w, k)).astype(np.float32)
+    spots = [(0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1), (h // 2, 0),
+             (0, w // 2), (h // 2, w // 2)]
+    for i in range(b):
+        kind = i % 8
+        if kind == 1:
+            hm[i] *= 0.2
+            for c in range(k):
+                py, px = spots[(i + c) % len(spots)]
+                hm[i, py, px, c] = 0.9
+                hm[i, min(py + 1, h - 1), max(px - 1, 0), c] = 0.6
+                hm[i, py, min(px + 1, w - 1), c] = 0.6
+        elif kind == 2:
+            hm[i] = 0.1
+            hm[i, h // 3, w // 3] = hm[i, h - 1, w // 2] = 0.8
+        elif kind == 3:
+            hm[i] = 0.3
+        elif kind == 4:
+            hm[i] = np.round(hm[i] * 4) / 4
+        elif kind == 5:
+            hm[i, h - 1, w - 1] = 2.0
+        elif kind == 6:
+            hm[i] = -hm[i]
+        elif kind == 7:
+            hm[i] = -np.inf
+    return hm
+
+
+def decode_edge_cases(rng):
+    """{label: (B, H, W, K) CUDA maps} of DECODE_EDGES and the batch off
+    16 bytes."""
+    import torch
+
+    cases = {}
+    for b, h, w, k in DECODE_EDGES:
+        cases[f"edge B={b} {h}x{w}x{k}"] = torch.from_numpy(
+            decode_edge_maps(rng, b, h, w, k)).cuda()
+    maps = torch.from_numpy(decode_edge_maps(rng, 3, HM, HM, K)).cuda()
+    buf = torch.empty(maps.numel() + 1, device="cuda")
+    off = buf[1:].view(maps.shape)
+    off.copy_(maps)
+    cases[f"edge B=3 {HM}x{HM}x{K}, base 4 bytes off 16"] = off
+    return cases
+
+
 def phase_decode_kernel(report, model):
     import torch
 
@@ -1519,19 +1601,20 @@ def phase_decode_kernel(report, model):
 
     rng = np.random.default_rng(11)
     cases = {"synthetic": torch.from_numpy(decode_inputs(rng, B_TIME)).cuda(),
-             **s4_heatmaps(model)}
+             **s4_heatmaps(model), **decode_edge_cases(rng)}
     failures = []
     for label, hm in cases.items():
-        flat = hm.reshape(hm.shape[0], -1, K)
+        flat = hm.reshape(hm.shape[0], -1, hm.shape[-1])
         ties = int((flat == flat.amax(1, keepdim=True)).sum().item()
-                   - flat.shape[0] * K)
+                   - flat.shape[0] * flat.shape[-1])
         for legacy in (True, False):
             got = dk.decode_batch(hm, legacy=legacy)
+            again = dk.decode_batch(hm, legacy=legacy)
             want = dk.decode_batch_plain(hm, legacy=legacy)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            ok = got.shape == want.shape == (B_TIME, K, 3) and \
-                torch.equal(got, want)
+            err = (got - want).abs().nan_to_num().max().item()
+            ok = got.shape == want.shape == (hm.shape[0], hm.shape[-1], 3) \
+                and torch.equal(got, want) and torch.equal(got, again)
             mode = "legacy" if legacy else "corrected"
             log(f"kernel decode_batch {label} {tuple(hm.shape)} f32 {mode}: "
                 f"max|d| = {err:.3e}, {ties} tied maxima beyond the first "
@@ -1854,20 +1937,34 @@ def phase_eval_times(report, cfg, card):
     # maps sit in the 50 MB L2; after a 128 MB write they come from HBM.
     device_ms = kernel_device_ms(kern, "decode_batch")
     cold_ms = kernel_device_ms(kern, "decode_batch", before=l2_scrub())
+    clean_ms = kernel_device_ms(kern, "decode_batch",
+                                before=l2_scrub(clean=True))
     plain_ms = cuda_ms(lambda: dk.decode_batch_plain(hm), iters=20)
     argmax_ms = cuda_ms(lambda: flat.argmax(1), iters=20)
     n = hm.numel()
     bms, by = bound(DECODE_OPS * n, 4 * n + 4 * 3 * B_TIME * K, PEAK_F32)
+    # The served buckets 1 and 16 find their maps in L2, straight from the
+    # forward.
+    served = {}
+    for b in SERVED_DECODE_BATCHES:
+        part = hm[:b]
+        served[f"device_ms_b{b}"] = kernel_device_ms(
+            lambda: dk.decode_batch(part), f"decode_batch B={b}")
     report.setdefault("decode_batch", {}).update(
         ms=ms, device_ms=device_ms, device_ms_cold_l2=cold_ms,
-        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-        argmax_ms=argmax_ms)
+        device_ms_cold_l2_clean=clean_ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None, argmax_ms=argmax_ms, **served)
     log(f"times decode_batch f32 B={B_TIME} {tuple(hm.shape)}: kernel "
         f"{ms:.4f} ms per call ({device_ms:.4f} ms on the device with the "
-        f"maps in L2, {cold_ms:.4f} ms after an L2 scrub), plain "
+        f"maps in L2, {cold_ms:.4f} ms after an L2 scrub that writes, "
+        f"{clean_ms:.4f} after one that reads; device/bound "
+        f"{device_ms / bms:.2f}, after a scrub {cold_ms / bms:.2f} and "
+        f"{clean_ms / bms:.2f}), plain "
         f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}); flat.argmax(1) "
         f"alone (the argmax part only, not the same function) "
-        f"{argmax_ms:.4f} ms [{card}]")
+        f"{argmax_ms:.4f} ms; on the device with the maps in L2 at "
+        + ", ".join(f"B={b} {served[f'device_ms_b{b}']:.4f} ms"
+                    for b in SERVED_DECODE_BATCHES) + f" [{card}]")
     del model
 
 
@@ -1995,6 +2092,39 @@ def keypoint_inputs(rng, device):
     return tuple(torch.from_numpy(a).to(device) for a in (kx, ky, kv))
 
 
+# (B, H, W, K, sigma) of the heatmap kernel's edge cases: batch 1 at K =
+# 1, 16 and 17 and sigma 2 (radius 6); W*K = 561, not a multiple of 4
+# (4-byte stores); a non-square map; rows of 9,100 floats (one row a
+# block); 4,099 keypoints; sigma 40 on 96 px (radius 96, every row of the
+# map in some window).
+HEATMAP_EDGES = ((1, 32, 32, 1, 2.0), (1, 32, 32, 16, 2.0),
+                 (1, 32, 32, K, 2.0), (3, 40, 33, K, 1.0),
+                 (2, 48, 64, K, 1.0), (2, 6, 13, 700, 2.0),
+                 (1, 16, 16, 4099, 1.0), (2, 96, 96, 3, 40.0))
+
+
+def heatmap_edge_cases(rng, device):
+    """[(label, (kx, ky, kv), H, W, sigma)] of HEATMAP_EDGES: keypoints
+    uniform over the map and 3 px beyond, the border, negative and
+    fractional cases in the first image, about a third invisible."""
+    import torch
+
+    cases = []
+    for b, h, w, k, sigma in HEATMAP_EDGES:
+        kx = rng.uniform(-3, w + 3, (b, k)).astype(np.float32)
+        ky = rng.uniform(-3, h + 3, (b, k)).astype(np.float32)
+        kx[0, :6] = [0.0, 0.5, w - 1.0, w - 0.1, float(w), -0.7][:k]
+        ky[0, :6] = [2.0, h - 1.0, 0.5, h - 0.1, -0.7, float(h)][:k]
+        kx[:, 0] = np.clip(kx[:, 0], 1.0, w - 1.0)
+        ky[:, 0] = np.clip(ky[:, 0], 1.0, h - 1.0)
+        kv = rng.integers(0, 3, (b, k)).astype(np.int32)
+        kv[:, 0] = 2
+        cases.append((f"B={b} {h}x{w}x{k} sigma {sigma}",
+                      tuple(torch.from_numpy(a).to(device)
+                            for a in (kx, ky, kv)), h, w, sigma))
+    return cases
+
+
 def warp_passes(imgs, theta, scale, flip):
     """The two resample passes of one warp at the main path's shapes:
     [(input (B, C, L, K), (slope, line_coef, line_const))] each; pass 2's
@@ -2036,18 +2166,26 @@ def phase_train_kernels(report):
         if not ok:
             failures.append(f"resample pass {i + 1}: {err}")
     kx, ky, kv = keypoint_inputs(rng, "cuda")
-    got = hk.render_heatmaps_batch(kx, ky, kv)
-    want = hk.render_heatmaps_batch_plain(kx, ky, kv)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    peaks = int((want == 1.0).sum().item())
-    ok = got.shape == want.shape == (B_TRAIN, 64, 64, K) \
-        and err <= TOL_TRAIN_KERNELS
-    log(f"kernel render_heatmaps_batch ({B_TRAIN}, 64, 64, {K}) f32: max|d| "
-        f"= {err:.3e}, {peaks} peaks rendered {'ok' if ok else 'FAIL'}")
-    report.setdefault("render_heatmaps_batch", {})["max_abs_err"] = err
-    if not ok:
-        failures.append(f"heatmap: {err}")
+    cases = [(f"B={B_TRAIN} 64x64x{K} sigma 1.0", (kx, ky, kv), 64, 64,
+              1.0)] + heatmap_edge_cases(rng, "cuda")
+    for label, kps, h, w, sigma in cases:
+        got = hk.render_heatmaps_batch(*kps, h, w, sigma)
+        again = hk.render_heatmaps_batch(*kps, h, w, sigma)
+        want = hk.render_heatmaps_batch_plain(*kps, h, w, sigma)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        peaks = int((want == 1.0).sum().item())
+        ok = got.shape == want.shape == (kps[0].shape[0], h, w,
+                                         kps[0].shape[1]) \
+            and err <= TOL_TRAIN_KERNELS and torch.equal(got, again) \
+            and torch.equal(got > 0, want > 0) and peaks > 0
+        log(f"kernel render_heatmaps_batch {label} f32: max|d| = {err:.3e}, "
+            f"{peaks} peaks rendered, same bits on a rerun "
+            f"{'ok' if ok else 'FAIL'}")
+        ent = report.setdefault("render_heatmaps_batch", {})
+        ent["max_abs_err"] = max(ent.get("max_abs_err", 0.0), err)
+        if not ok:
+            failures.append(f"heatmap {label}: {err}")
     if failures:
         raise AssertionError("training kernels disagree with their plain "
                              "versions: " + "; ".join(failures))
@@ -2307,22 +2445,32 @@ def phase_train_times(report, card):
     }
     # Back to back, part of #11's 50.3 MB input can sit in the 50 MB L2;
     # after a 128 MB write it comes from HBM.
-    scrub = l2_scrub()
+    scrub, clean = l2_scrub(), l2_scrub(clean=True)
     for name, (kern, plain, (bms, by)) in kern_cases.items():
         ms, plain_ms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=20)
         # The events above time back-to-back wrapper calls, host work
         # included; kernel_device_ms the device's time alone.
         device_ms = kernel_device_ms(kern, name)
         cold_ms = kernel_device_ms(kern, name, before=scrub)
+        clean_ms = kernel_device_ms(kern, name, before=clean)
         report.setdefault(name, {}).update(
             ms=ms, device_ms=device_ms, device_ms_cold_l2=cold_ms,
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+            device_ms_cold_l2_clean=clean_ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=None)
         log(f"times {name} f32 B={B_TRAIN}: kernel {ms:.4f} ms per call "
             f"({device_ms:.4f} ms on the device, {cold_ms:.4f} ms after an "
-            f"L2 scrub), plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"L2 scrub that writes, {clean_ms:.4f} after one that reads), "
+            f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
             f"device/bound {device_ms / bms:.2f}, after a scrub "
-            f"{cold_ms / bms:.2f}) [{card}]")
-    del scrub
+            f"{cold_ms / bms:.2f} and {clean_ms / bms:.2f}) [{card}]")
+    # The card's own fill of #12's output, for the same 17.8 MB of writes
+    # (a yardstick of the write rate, not the same function).
+    zeros = torch.empty((B_TRAIN, 64, 64, K), device="cuda")
+    log(f"times zero_() of render_heatmaps_batch's output f32 B={B_TRAIN}: "
+        f"{kernel_device_ms(zeros.zero_, 'zero_'):.4f} ms on the device, "
+        f"{kernel_device_ms(zeros.zero_, 'zero_', before=scrub):.4f} after "
+        f"an L2 scrub that writes [{card}]")
+    del scrub, clean, zeros
 
 
 def heatmap_bound(kx, ky, kv, height=64, width=64, sigma=1.0):

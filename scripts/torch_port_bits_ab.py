@@ -20,13 +20,22 @@ bfloat16, batch 8:
   lists share a prefix draw its edges alike;
 * the warp resample #11, float32: both passes of `chip_smoke.warp_passes`
   on `chip_smoke.warp_inputs` (seed 4, batch 64, 256x256x3), pass 2 on
-  pass 1's output.
+  pass 1's output;
+* the heatmap render #12 on `chip_smoke.keypoint_inputs` (seed 4, the
+  train step's (64, 64, 64, 17), sigma 1) and at HEAT_EDGES, keypoints
+  drawn here with numpy (seed 200 + the edge's index);
+* the decode #13, legacy and corrected, on `chip_smoke.decode_inputs`
+  (seed 11, batch 128, 64x64x17) and its first image and first 16, and
+  at DECODE_EDGES, maps drawn here (seed 300 + the edge's index: uniform,
+  quantized to quarters for ties, a flat image and a border peak).
 
 It prints, for every output both checkouts wrote, whether they wrote the
 same bits, and exits 1 if any differs, except the bfloat16 outputs of
-MAY_DIFFER (#6, whose bf16 kernel moved from FMA to the tensor cores),
-for which it prints how far they moved: max |d|, and the share of values
-that differ; it lists the outputs only one checkout wrote. Both checkouts must draw the same inputs, so those case functions
+the kernels named in MAY_DIFFER (set it to a kernel whose bf16 design a
+change moves on purpose; empty, every output must match), for which it
+prints how far they moved: max |d|, and the share of values that differ;
+it lists the outputs only one checkout wrote. Both checkouts must draw
+the same inputs, so those case functions
 must draw alike in both. Use it to show that a change of the kernels left
 the results it does not mean to move as they were.
 """
@@ -39,9 +48,20 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MAY_DIFFER = ("fused_bottleneck_convskip",)
+MAY_DIFFER = ()
 
-_DUMP = """
+# (B, H, W, K, sigma) and (B, H, W, K): the edge cases of chip_smoke's
+# HEATMAP_EDGES and DECODE_EDGES that the other checkout's kernels take too.
+HEAT_EDGES = ((1, 32, 32, 1, 2.0), (1, 32, 32, 17, 2.0), (3, 40, 33, 17, 1.0),
+              (2, 48, 64, 17, 1.0), (1, 16, 16, 4099, 1.0),
+              (2, 96, 96, 3, 40.0))
+DECODE_EDGES = ((3, 64, 64, 17), (128, 64, 64, 1), (16, 64, 64, 16),
+                (3, 32, 48, 33), (16, 16, 40, 17), (3, 15, 15, 17),
+                (1, 64, 64, 543), (16, 8, 8, 543), (3, 15, 15, 543),
+                (3, 16, 16, 544))
+
+_DUMP = (f"HEAT_EDGES, DECODE_EDGES = {HEAT_EDGES!r}, {DECODE_EDGES!r}\n"
+         + """
 import sys
 root, path = sys.argv[1], sys.argv[2]
 sys.path.insert(0, root)
@@ -81,9 +101,38 @@ warp = chip_smoke.warp_inputs(np.random.default_rng(4), "cuda")
 for i, (x, p) in enumerate(chip_smoke.warp_passes(*warp)):
     outs[f"resample_last_axis pass {i + 1} float32 out0"] = \
         wk.resample_last_axis(x, *p).cpu()
+from single_person_pose_estimation_tpu_torch.ops.cuda import (
+    decode_kernel as dk, heatmap_kernel as hk)
+kps = chip_smoke.keypoint_inputs(np.random.default_rng(4), "cuda")
+outs["render_heatmaps_batch (64, 64, 64, 17) float32 out0"] = \
+    hk.render_heatmaps_batch(*kps).cpu()
+for i, (b, h, w, k, sigma) in enumerate(HEAT_EDGES):
+    r = np.random.default_rng(200 + i)
+    kx = r.uniform(-3, w + 3, (b, k)).astype(np.float32)
+    ky = r.uniform(-3, h + 3, (b, k)).astype(np.float32)
+    kv = r.integers(0, 3, (b, k)).astype(np.int32)
+    got = hk.render_heatmaps_batch(
+        *(torch.from_numpy(a).cuda() for a in (kx, ky, kv)), h, w, sigma)
+    outs[f"render_heatmaps_batch {(b, h, w, k)} sigma {sigma} float32 "
+         "out0"] = got.cpu()
+maps = torch.from_numpy(chip_smoke.decode_inputs(
+    np.random.default_rng(11), 128)).cuda()
+cases = {f"B={n} 64x64x17": maps[:n] for n in (1, 16, 128)}
+for i, (b, h, w, k) in enumerate(DECODE_EDGES):
+    r = np.random.default_rng(300 + i)
+    hm = r.uniform(0, 1, (b, h, w, k)).astype(np.float32)
+    hm[b // 2:] = np.round(hm[b // 2:] * 4) / 4
+    hm[0] = 0.25
+    hm[-1, 0, w - 1] = 2.0
+    cases[f"B={b} {h}x{w}x{k}"] = torch.from_numpy(hm).cuda()
+for label, hm in cases.items():
+    for legacy in (True, False):
+        mode = "legacy" if legacy else "corrected"
+        outs[f"decode_batch {label} {mode} float32 out0"] = \
+            dk.decode_batch(hm, legacy=legacy).cpu()
 torch.cuda.synchronize()
 torch.save(outs, path)
-"""
+""")
 
 
 def dump(root: str, path: str):

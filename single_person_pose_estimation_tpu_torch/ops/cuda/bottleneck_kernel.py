@@ -403,6 +403,14 @@ def _require_cuda(x):
                            f"{x.device}")
 
 
+def _stream_ptr(device):
+    """The cudaStream_t of `device`'s current stream, as
+    `torch.cuda.current_stream(device).cuda_stream` gives it, without
+    making a Stream object, which costs 0.007-0.010 ms of host time a call
+    on an H100 host (scripts/torch_port_decode_host_ab.py)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def launch_bottleneck(mode, x, p: BottleneckParams, out, pooled=None,
                       u_lo=None, plan=None):
     """Launch csrc/bottleneck.cu on x's current stream (no sync): the

@@ -61,8 +61,9 @@ _SIGNATURES = {
     # mid, u, y, wh, wpp, w2, w3p, vec, pred, ynext, M, C, K, rows, ck, nt,
     # nst, smem, stream
     "spe_head_tc": [_I] + [_P] * 9 + [_I] * 8 + [_P],
-    # kx, ky, kv, out, B, H, W, K, radius, 2 sigma^2, stream
-    "spe_heatmap": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # kx, ky, kv, out, B, H, W, K, radius, 2 sigma^2, chunk, chunks, vec,
+    # stream
+    "spe_heatmap": [_P] * 4 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
     # img, params, out, B, C, L, K, tx, gx, gy, stream
     "spe_resample": [_P, _P, _P] + [_I] * 7 + [_P],
     # mode, bf16, x, ulo, w1, d2, w2, w3, vec, out, pooled, B, H, W, C, Cm,
@@ -71,8 +72,10 @@ _SIGNATURES = {
     # mode, x, ulo, w1, d2, w2, w3, vec, out, pooled, B, H, W, C, Cm, tsh,
     # tsw, ck, nt, nst, smem, stream
     "spe_mobile_tc": [_I] + [_P] * 9 + [_I] * 11 + [_P],
-    # heatmaps, out, B, H, W, K, threshold, legacy, stream
-    "spe_decode": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    # heatmaps, out, B, H, W, K, threshold, legacy, vec, lanes, groups,
+    # cluster, smem, stream
+    "spe_decode": [_P, _P, _I, _I, _I, _I, ctypes.c_float] + [_I] * 6
+                  + [_P],
     # bf16, ks, pro, epi, x, a, pv, w, bias, aux, out, ws, sums, B, H, W, K,
     # N, stream
     "spe_train_unit": [_I] * 4 + [_P] * 9 + [_I] * 5 + [_P],

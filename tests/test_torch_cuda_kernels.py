@@ -4,7 +4,8 @@ shape at batch 2, float32 (TF32 off) and bfloat16, and the bf16
 bottleneck body, the head and the mobile body at the edges of their
 contracts (up to 1024 channels, float32 too), the training kernels
 (warp, heatmap) at the train step's batch 64, at chip_smoke.py's
-tolerances, the decode kernel at batch 12, legacy and corrected,
+tolerances, the heatmap kernel at chip_smoke.HEATMAP_EDGES, the decode
+kernel at batch 12 and at chip_smoke.DECODE_EDGES, legacy and corrected,
 exactly, and the six train-unit kernels (#14a-f) at every level at batch
 2, float32 and bfloat16, with the same bits on a rerun, and the dial
 kernels #5-#7 (the row-blocked bottleneck at 128 px, the conv-skip
@@ -117,6 +118,54 @@ def test_training_kernels_match_plain_versions_on_card(card):
     want = hk.render_heatmaps_batch_plain(kx, ky, kv)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= chip_smoke.TOL_TRAIN_KERNELS
+
+
+def test_heatmap_kernel_at_the_edges_on_card(card):
+    """#12 at chip_smoke.HEATMAP_EDGES (batch 1 at K = 1, 16, 17 and sigma
+    2; W*K not a multiple of 4; non-square; rows of 9,100 floats; 4,099
+    keypoints; sigma 40)
+    within chip_smoke's 1e-6, with the plain version's support; a rerun
+    gives the same bits."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        heatmap_kernel as hk,
+    )
+
+    for label, kps, h, w, sigma in chip_smoke.heatmap_edge_cases(
+            np.random.default_rng(5), "cuda"):
+        got = hk.render_heatmaps_batch(*kps, h, w, sigma)
+        again = hk.render_heatmaps_batch(*kps, h, w, sigma)
+        want = hk.render_heatmaps_batch_plain(*kps, h, w, sigma)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), label
+        assert torch.equal(got > 0, want > 0), label
+        assert (got - want).abs().max().item() <= \
+            chip_smoke.TOL_TRAIN_KERNELS, label
+
+
+@pytest.mark.parametrize("legacy", [True, False], ids=["legacy", "corrected"])
+def test_decode_kernel_at_the_edges_on_card(card, legacy):
+    """#13 at chip_smoke.DECODE_EDGES (batch 1, 3, 16 and 128; K = 1, 16,
+    17, 33, 543 and 544, the wrapper's K_MAX, with blocks of 543 threads
+    past 48 KB of shared memory, alone and in clusters of 4; non-square;
+    H*W*K not a multiple of 4) and on a batch whose base lies off 16
+    bytes, exactly; a rerun gives the same bits. One keypoint past K_MAX
+    raises ValueError before any launch."""
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        decode_kernel as dk,
+    )
+
+    for label, hm in chip_smoke.decode_edge_cases(
+            np.random.default_rng(12)).items():
+        got = dk.decode_batch(hm, legacy=legacy)
+        again = dk.decode_batch(hm, legacy=legacy)
+        want = dk.decode_batch_plain(hm, legacy=legacy)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), label
+        assert torch.equal(got, again), label
+    before = dk.decode_batch.launches
+    with pytest.raises(ValueError, match="keypoints"):
+        dk.decode_batch(torch.zeros((1, 4, 4, dk.K_MAX + 1), device="cuda"))
+    assert dk.decode_batch.launches == before
 
 
 @pytest.mark.parametrize("legacy", [True, False], ids=["legacy", "corrected"])
