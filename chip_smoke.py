@@ -11,8 +11,10 @@ kernels) and the row-blocked bottleneck at 128 px, the same with the
 mobile S4/256 model (the three mobile kernels, the head kernel and the
 decode kernel), evaluation from TFRecords by `predict_ds` (standard and
 mobile), S4/256 training by `Trainer` (the warp and heatmap kernels), and
-S4/256 training with `model_backend="fused"` (the six train-unit kernels).
-It imports nothing of JAX or of the JAX package. Phases, each raising on
+S4/256 training with `model_backend="fused"` (the six train-unit kernels),
+and then the entry points a user calls: the CLI's train, resume, eval,
+serve (over a glob and over HTTP) and export, the two-stage demo and the
+profiler. It imports nothing of JAX or of the JAX package. Phases, each raising on
 failure:
 
 1. card: require CUDA; print the card's name and power limit (nvidia-smi);
@@ -145,7 +147,35 @@ failure:
    kernels and of the 1x1 forward (both forms), din, dx and dW kernels
    (and no bfloat16 FMA unit body in the trace), and #14a-f at the 64 px
    shapes of batch 64 beside their plain versions, bounds and a library
-   yardstick the port never calls.
+   yardstick the port never calls;
+16. cli_train: the entry points a user calls, through `cli.main` with
+   `--set` overrides and `--device cuda`, on S4/256 bf16 at batch 64:
+   `gen-records` over a new `eval_dataset`, `train` for one epoch (4
+   augmented steps, 16 valid steps) and `resume` to epoch 2, with exact
+   launch counts of the warp and heatmap kernels, checkpoints [1, 2] and a
+   best, and the Trainer's meta;
+17. cli_eval: `cli eval --latest --save-path` (no --report) with exact
+   launch counts of #1-#4 and #13, its predictions equal to an in-process
+   `predict_ds` on the same checkpoint;
+18. cli_serve: `cli serve --images GLOB` (8 images, one bucket of 16)
+   equal to an in-process `PoseServer`; then `python -m ...cli serve
+   --http 0` as a child process: 8 concurrent JPEG POSTs and one raw
+   float32 POST equal to the in-process `HttpPoseService`'s answers,
+   /stats counting 9 served (its p50/p99 printed), exit code 0 after
+   SIGINT;
+19. cli_export: `cli export --artifact --savedmodel`: the artifact's
+   predict equal to the plain model, the `torch.export` program at batch
+   8 and 3 (EXPORT_BATCHES) within S4_BF16_FACTOR of the plain bf16 model's distance from
+   plain f32;
+20. demo: `Demo.detect` with a stub detector (three boxes on a 480x640
+   image, one partly outside): crops within TOL_CROP of `crop_and_resize`
+   on the CPU, keypoints equal to `forward_last_stack` plus the decode on
+   its own crops, one forward's launches; `webcam.run_on_video` over a
+   short synthetic video where matplotlib, which its overlay needs, is
+   installed (the card's machine has none; the CPU tests run it);
+21. profiling: one served batch inside `utils/profiling.trace` and an
+   `annotate("serve")` span; the Chrome trace must hold the span and the
+   kernels of #1-#4 and #13.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -154,6 +184,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import importlib.util
 import itertools
 import json
 import os
@@ -3614,6 +3645,524 @@ def phase_dial_times(report, model, card):
         f"#5) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# The entry points a user calls: the CLI (train, resume, eval, serve over a
+# glob and over HTTP, export), the two-stage demo and the profiler.
+# ---------------------------------------------------------------------------
+
+CLI_ROOT = os.path.join(ROOT, "temp", "chip_smoke_cli")
+CLI_BATCH = 64            # the CLI's train, eval and valid batch
+CLI_LR = 2.5e-4
+CLI_SERVE_IMAGES = 8
+CLI_BUCKETS = (16,)       # one bucket: every served step has one shape
+DEMO_BOXES = ((100.0, 80.0, 120.0, 260.0, 0.9),
+              (400.5, 150.25, 150.0, 200.0, 0.8),
+              (560.0, -40.0, 140.0, 160.0, 0.7))   # partly outside
+TOL_CROP = 1e-5
+EXPORT_BATCHES = (8, 3)   # the exported program's two batch sizes
+CLI_DEVICE = "cuda"       # "cpu" only to rehearse these phases off the card
+
+
+def cli_args(root):
+    """The CLI's --set overrides for S4/256 bf16 on `eval_dataset(root)`'s
+    records, and --device cuda."""
+    fields = dict(dataset_dir=root, temporary_dir=os.path.join(root, "run"),
+                  hg_num_stacks=4, hg_num_channels=C, batch_size=CLI_BATCH,
+                  min_num_keypoints=1, num_examples_per_record=128,
+                  compute_dtype="bfloat16", seed=0)
+    args = []
+    for k, v in fields.items():
+        args += ["--set", f"{k}={v}"]
+    return args + ["--device", CLI_DEVICE]
+
+
+def cli_config(args):
+    from single_person_pose_estimation_tpu_torch import Config, cli
+
+    return cli._apply_overrides(Config(), args[1:-2:2])
+
+
+def cli_state(cfg):
+    """The CLI's latest checkpoint restored the way `cli eval` does."""
+    from single_person_pose_estimation_tpu_torch import cli
+    from single_person_pose_estimation_tpu_torch.utils.model_utils import (
+        load_model_from_checkpoint,
+    )
+
+    state, _ = load_model_from_checkpoint(cli._build_model(cfg),
+                                          cfg.checkpoints_path,
+                                          device=CLI_DEVICE)
+    return state
+
+
+def reset_counts():
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+
+    kernels.reset_launch_counts()
+    fi.plain_routes.update(forward=0, level=0)
+
+
+def read_counts(label, want):
+    """The launch counts since reset_counts, which must equal `want` (0 for
+    every kernel it leaves out; a function of the counts gives it), with no
+    request sent to the plain layers. Returns the counts."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+
+    if CLI_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if callable(want):
+        want = want(counts)
+    want = {k: want.get(k, 0) for k in counts}
+    routes = dict(fi.plain_routes)
+    log(f"{label}: launches {counts}; plain routes {routes}")
+    if counts != want or any(routes.values()):
+        raise AssertionError(f"{label}: launches {counts} != {want} or "
+                             f"plain routes {routes}")
+    return counts
+
+
+def add_launches(report, counts):
+    for name, n in counts.items():
+        if n:
+            ent = report.setdefault(name, {})
+            ent["launches"] = ent.get("launches", 0) + n
+
+
+def served_want(forwards):
+    return {**{k: v * forwards for k, v in PER_FORWARD.items()},
+            "decode_batch": forwards}
+
+
+def phase_cli_train(report):
+    """`cli gen-records`, then `cli train` for one epoch and `cli resume` to
+    epoch 2 of S4/256 bf16 at batch 64 from the records, through
+    `cli.main` as a user's command line gives it."""
+    from single_person_pose_estimation_tpu_torch import cli
+    from single_person_pose_estimation_tpu_torch.training import (
+        metrics as metrics_lib,
+    )
+    from single_person_pose_estimation_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+    from single_person_pose_estimation_tpu_torch.utils.model_utils import (
+        list_checkpoints,
+    )
+
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    _, val = eval_dataset(CLI_ROOT)
+    args = cli_args(CLI_ROOT)
+    cfg = cli_config(args)
+    t0 = time.perf_counter()
+    cli.main(args + ["gen-records"])
+    t1 = time.perf_counter()
+    train = ["--epochs", "1", "--lr", str(CLI_LR), "--loss", "weighted_mse"]
+    reset_counts()
+    cli.main(args + ["train", *train])
+    t2 = time.perf_counter()
+    cli.main(args + ["resume", *train])
+    t3 = time.perf_counter()
+    steps = 2 * (N_EVAL_TRAIN // CLI_BATCH)
+    evals = 2 * (N_EVAL // CLI_BATCH)
+    counts = read_counts(
+        f"cli_train: {steps} train steps and {evals} valid steps",
+        {"resample_last_axis": 2 * steps,
+         "render_heatmaps_batch": steps + evals})
+    add_launches(report, counts)
+    epochs, best = list_checkpoints(cfg.checkpoints_path)
+    meta = CheckpointManager(cfg.checkpoints_path).read_meta()
+    rows = metrics_lib.read_all_session_logs(cfg.logs_path)
+    log(f"cli_train: gen-records {t1 - t0:.1f} s, train {t2 - t1:.1f} s, "
+        f"resume {t3 - t2:.1f} s; checkpoints {epochs} best {best}; meta "
+        f"{meta}; epoch rows {rows}")
+    want_meta = {"epoch": 2, "loss_str": "weighted_mse",
+                 "learning_rate": CLI_LR, "lr_schedule": None,
+                 "warmup_steps": 0}
+    if epochs != [1, 2] or not best or meta != want_meta:
+        raise AssertionError(f"cli_train: checkpoints {epochs}, best {best}, "
+                             f"meta {meta} != {want_meta}")
+    if len(rows) < 2 or not all(np.isfinite([r["loss"], r["val_loss"]]).all()
+                                for r in rows):
+        raise AssertionError(f"cli_train: epoch rows {rows}")
+    return args, cfg, val
+
+
+def phase_cli_eval(report, args, cfg, val):
+    """`cli eval --latest --save-path` (no --report: matplotlib is not
+    known to be on the card's machine) against an in-process `predict_ds`
+    on the same checkpoint: the predictions must be equal."""
+    from single_person_pose_estimation_tpu_torch import cli
+    from single_person_pose_estimation_tpu_torch.data import pipeline
+    from single_person_pose_estimation_tpu_torch.evaluation import predict
+
+    path = os.path.join(CLI_ROOT, "preds.json")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(args + ["eval", "--latest", "--save-path", path])
+    elapsed = time.perf_counter() - t0
+    counts = read_counts("cli_eval", served_want(N_EVAL // CLI_BATCH))
+    add_launches(report, counts)
+    with open(path) as f:
+        got = json.load(f)
+    state = cli_state(cfg)
+    with pipeline.DatasetBuilder(cfg) as b:
+        want = predict.predict_ds(state.model, state, b.get_ds_prediction(),
+                                  conf_threshold=0.1, save_path=None,
+                                  device=CLI_DEVICE)
+    log(f"cli_eval: {len(got)} predictions in {elapsed:.1f} s (checkpoint "
+        f"restore included); in-process predict_ds equal: {got == want}")
+    if got != want:
+        bad = sum(p != q for p, q in zip(got, want))
+        raise AssertionError(f"cli_eval: {bad} of {len(want)} predictions "
+                             f"differ from predict_ds's")
+    check_predictions(got, val, "cli_eval")
+
+
+def http_call(port, path, body=None, headers=None):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body, headers=headers or {},
+                                 method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def start_http_server(args, timeout=300):
+    """`python -m ...cli serve --http 0` as a child process; returns it,
+    its port and the list its output lines go to."""
+    import queue
+    import re
+    import threading
+
+    cmd = [sys.executable, "-m", "single_person_pose_estimation_tpu_torch.cli",
+           *args, "serve", "--http", "0", "--latest", "--buckets",
+           *map(str, CLI_BUCKETS)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONPATH": ROOT})
+    lines, q = [], queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            q.put(line)
+        q.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            line = q.get(timeout=max(0.1, deadline - time.perf_counter()))
+        except queue.Empty:
+            line = None
+        if line is None:
+            proc.kill()
+            proc.wait()
+            raise AssertionError("cli serve --http did not come up: "
+                                 + "\n".join(lines[-40:]))
+        m = re.search(r"Serving on http://[\d.]+:(\d+)", line)
+        if m:
+            return proc, int(m.group(1)), lines
+
+
+def phase_cli_serve(report, args, cfg, card):
+    """`cli serve --images GLOB` against an in-process `PoseServer` on the
+    same checkpoint and images; then `cli serve --http 0` in a child
+    process: eight JPEG POSTs from concurrent threads and one raw float32
+    POST, each equal to the in-process `HttpPoseService` answer; /stats
+    must count 9 served; SIGINT must end it with exit code 0."""
+    import glob as globlib
+    import signal
+    import threading
+
+    from single_person_pose_estimation_tpu_torch import cli
+    from single_person_pose_estimation_tpu_torch.data.images import (
+        read_image,
+        resize_bilinear,
+    )
+    from single_person_pose_estimation_tpu_torch.serving import PoseServer
+    from single_person_pose_estimation_tpu_torch.serving_http import (
+        HttpPoseService,
+    )
+
+    src = sorted(globlib.glob(os.path.join(cfg.valid_images_dir,
+                                           "*.jpg")))[:CLI_SERVE_IMAGES]
+    serve_dir = os.path.join(CLI_ROOT, "serve")
+    os.makedirs(serve_dir)
+    paths = []
+    for p in src:
+        paths.append(os.path.join(serve_dir, os.path.basename(p)))
+        shutil.copy(p, paths[-1])
+    out = os.path.join(CLI_ROOT, "keypoints.json")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(args + ["serve", "--images", os.path.join(serve_dir, "*.jpg"),
+                     "--latest", "--save-path", out, "--buckets",
+                     *map(str, CLI_BUCKETS)])
+    elapsed = time.perf_counter() - t0
+    # Every step, the warm-up's included, is one forward and one decode.
+    counts = read_counts("cli_serve --images",
+                         lambda c: served_want(c["decode_batch"]))
+    if counts["decode_batch"] < 2:          # the warm-up and >= 1 step
+        raise AssertionError(f"cli_serve: {counts['decode_batch']} steps")
+    add_launches(report, counts)
+    with open(out) as f:
+        got = json.load(f)
+    state = cli_state(cfg)
+    size = (cfg.image_height, cfg.image_width)
+    with PoseServer(state.model, device=CLI_DEVICE,
+                    buckets=CLI_BUCKETS) as server:
+        futs = [server.submit(resize_bilinear(
+            read_image(p).astype(np.float32) / 255.0, size)) for p in paths]
+        want = [f.result().tolist() for f in futs]
+        log(f"cli_serve --images: {len(got)} images in {elapsed:.1f} s "
+            f"(checkpoint restore and warm-up included); equal to the "
+            f"in-process PoseServer: {[got.get(p) for p in paths] == want}")
+        if sorted(got) != paths or [got[p] for p in paths] != want:
+            raise AssertionError("cli_serve --images: keypoints differ from "
+                                 "the in-process PoseServer's")
+
+        svc = HttpPoseService(server, input_size=size)
+        bodies = []
+        for p in paths:
+            with open(p, "rb") as f:
+                bodies.append((f.read(), {"Content-Type": "image/jpeg"}))
+        raw = resize_bilinear(read_image(paths[0]).astype(np.float32) / 255.0,
+                              size)
+        bodies.append((raw.tobytes(), {
+            "Content-Type": "application/octet-stream",
+            "X-Shape": f"{size[0]},{size[1]},3"}))
+        want = [svc._predict_one(b, h["Content-Type"], h.get("X-Shape"))
+                for b, h in bodies]
+
+    t0 = time.perf_counter()
+    proc, port, lines = start_http_server(args)
+    try:
+        t_up = time.perf_counter() - t0
+        if http_call(port, "/healthz") != (200, {"status": "ok"}):
+            raise AssertionError("cli_serve --http: /healthz is not ok")
+        answers = [None] * len(bodies)
+
+        def post(i):
+            answers[i] = http_call(port, "/predict", *bodies[i])
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(CLI_SERVE_IMAGES)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        post(CLI_SERVE_IMAGES)
+        t_req = time.perf_counter() - t0
+        _, stats = http_call(port, "/stats")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    codes = [a[0] if a else None for a in answers]
+    same = [a is not None and a[1] == w for a, w in zip(answers, want)]
+    log(f"cli_serve --http: up in {t_up:.1f} s; {len(bodies)} requests "
+        f"(8 concurrent JPEG, 1 raw float32) in {t_req:.3f} s, status "
+        f"{codes}, equal to in-process {same}; stats {stats}; served p50 "
+        f"{stats['latency_p50_ms']} ms p99 {stats['latency_p99_ms']} ms "
+        f"[{card}]; exit code after SIGINT {rc}")
+    if codes != [200] * len(bodies) or not all(same):
+        raise AssertionError("cli_serve --http: answers differ from the "
+                             "in-process service's:\n" + "\n".join(lines[-20:]))
+    if stats["served"] != len(bodies) or rc != 0:
+        raise AssertionError(f"cli_serve --http: served {stats['served']}, "
+                             f"exit code {rc}:\n" + "\n".join(lines[-20:]))
+    report["_http_p50_ms"] = stats["latency_p50_ms"]
+    report["_http_p99_ms"] = stats["latency_p99_ms"]
+
+
+def phase_cli_export(report, args, cfg):
+    """`cli export --artifact --savedmodel`: the artifact's predict equal to
+    the checkpoint's plain model; the torch.export program (dynamic batch)
+    at two batch sizes within the plain bf16 model's band around plain
+    f32 (S4_BF16_FACTOR)."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch import cli
+    from single_person_pose_estimation_tpu_torch.utils.export import (
+        load_exported,
+        load_inference_artifact,
+    )
+
+    art = os.path.join(CLI_ROOT, "artifact")
+    prog_dir = os.path.join(CLI_ROOT, "program")
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(args + ["export", "--latest", "--artifact", art, "--savedmodel",
+                     prog_dir])
+    t1 = time.perf_counter()
+    add_launches(report, read_counts("cli_export", {}))
+    model = cli_state(cfg).model
+    _, _, predict = load_inference_artifact(art, device=CLI_DEVICE)
+    t2 = time.perf_counter()
+    program = load_exported(prog_dir)
+    t3 = time.perf_counter()
+    f32 = cli._build_model(cfg.replace(compute_dtype="float32"))
+    f32.load_state_dict(model.state_dict())
+    f32 = f32.to(CLI_DEVICE).eval()
+    x = torch.from_numpy(np.random.default_rng(40).uniform(
+        0, 1, (max(EXPORT_BATCHES), 256, 256, 3)).astype(np.float32)).to(
+            CLI_DEVICE)
+    with torch.inference_mode():
+        plain = model(x)[-1]
+        same = torch.equal(predict(x), plain)
+        bands = []
+        for b in EXPORT_BATCHES:
+            ref = f32(x[:b])[-1]
+            e_plain = (model(x[:b])[-1] - ref).abs().max().item()
+            got = program(x[:b])
+            e_prog = (got - ref).abs().max().item()
+            bands.append((b, tuple(got.shape), e_prog, e_plain))
+    log(f"cli_export: export {t1 - t0:.1f} s, program load {t3 - t2:.1f} s; "
+        f"artifact predict equal to the plain model: {same}; program vs "
+        f"plain f32 (batch, shape, max |d|, plain bf16's max |d|): {bands}")
+    if not same:
+        raise AssertionError("cli_export: the artifact's predict differs "
+                             "from the plain model")
+    for b, shape, e_prog, e_plain in bands:
+        if shape != (b, 64, 64, K) or not e_prog <= S4_BF16_FACTOR * max(
+                e_plain, 1e-6):
+            raise AssertionError(f"cli_export: the program at batch {b} is "
+                                 f"off: {bands}")
+
+
+def phase_demo(report, cfg):
+    """`Demo.detect` on the card with a stub detector (three boxes on a
+    480x640 image, one partly outside): crops within TOL_CROP of the port's
+    crop_and_resize on the CPU, keypoints equal to forward_last_stack plus
+    the decode on the demo's own crops, one forward through the kernels;
+    then `webcam.run_on_video` over a short synthetic video, where
+    matplotlib is installed."""
+    import cv2
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.demo import webcam
+    from single_person_pose_estimation_tpu_torch.demo.demo import Demo
+    from single_person_pose_estimation_tpu_torch.models.fused_inference import (
+        forward_last_stack,
+        prepare_fused,
+    )
+    from single_person_pose_estimation_tpu_torch.ops.cuda.decode_kernel import (
+        decode_batch,
+    )
+    from single_person_pose_estimation_tpu_torch.ops.geometry import (
+        crop_and_resize,
+    )
+
+    rng = np.random.default_rng(41)
+    base = rng.uniform(0, 255, (6, 8, 3))
+    image = np.clip(np.kron(base, np.ones((80, 80, 1)))
+                    + rng.normal(0, 12, (480, 640, 3)), 0, 255).astype(
+                        np.uint8)
+    model = cli_state(cfg).model
+    demo = Demo(lambda im: list(DEMO_BOXES), model, None, cfg,
+                device=CLI_DEVICE)
+    if not demo.use_fused:
+        raise AssertionError("demo: the kernel path is not in use")
+    reset_counts()
+    demo.detect(image)
+    add_launches(report, read_counts("demo detect", served_want(1)))
+    crops = np.stack(demo.cropped_images)
+    want_crops = crop_and_resize(
+        torch.from_numpy(image.astype(np.float32) / 255.0),
+        torch.tensor(demo.square_bboxes), cfg.image_height,
+        cfg.image_width).numpy()
+    crop_err = float(np.abs(crops - want_crops).max())
+    with torch.inference_mode():
+        hms = forward_last_stack(model, torch.from_numpy(crops).to(CLI_DEVICE),
+                                 use_fused=True, auto=True,
+                                 prepared=prepare_fused(model))
+        kps = (decode_batch(hms, demo.keypoints_conf_thres, cfg.legacy_decode)
+               / torch.tensor([cfg.label_width, cfg.label_height, 1.0],
+                              device=CLI_DEVICE)).cpu().numpy()
+    same = np.array_equal(np.stack(demo.keypoints_list), kps)
+    log(f"demo: {len(demo.square_bboxes)} boxes {demo.square_bboxes}; crops "
+        f"vs CPU crop_and_resize max |d| {crop_err:.3g}; keypoints equal to "
+        f"forward_last_stack + decode: {same}")
+    if crops.shape != (3, 256, 256, 3) or not crop_err <= TOL_CROP or not same:
+        raise AssertionError(f"demo: crops {crops.shape} off by {crop_err} "
+                             f"or keypoints differ ({same})")
+    if importlib.util.find_spec("matplotlib") is None:
+        # create_overlay renders with matplotlib, as the JAX demo's does;
+        # tests/test_torch_demo.py runs the loop on the CPU.
+        log("demo run_on_video: not run, matplotlib is not installed here")
+        return
+    src = os.path.join(CLI_ROOT, "in.mp4")
+    out = os.path.join(CLI_ROOT, "out.mp4")
+    w = cv2.VideoWriter(src, cv2.VideoWriter_fourcc(*"mp4v"), 10, (320, 240))
+    for _ in range(4):
+        w.write(rng.integers(0, 255, (240, 320, 3)).astype(np.uint8))
+    w.release()
+    reset_counts()
+    t0 = time.perf_counter()
+    n = webcam.run_on_video(demo, src, out, max_frames=3)
+    elapsed = time.perf_counter() - t0
+    add_launches(report, read_counts("demo run_on_video", served_want(n)))
+    cap = cv2.VideoCapture(out)
+    ok, frame = cap.read()
+    cap.release()
+    log(f"demo run_on_video: {n} frames in {elapsed:.1f} s, output frame "
+        f"{frame.shape if ok else None}")
+    if n != 3 or not ok or frame.shape != (240, 320, 3):
+        raise AssertionError(f"demo run_on_video: {n} frames, read {ok}")
+
+
+def phase_profiling(report, cfg, card):
+    """One served batch inside `utils/profiling.trace` and an `annotate`
+    span: the written Chrome trace must hold the span and the kernels of
+    #1-#4 and #13."""
+    from single_person_pose_estimation_tpu_torch.serving import PoseServer
+    from single_person_pose_estimation_tpu_torch.utils import profiling
+
+    model = cli_state(cfg).model
+    imgs = np.random.default_rng(42).uniform(
+        0, 1, (CLI_BUCKETS[-1], 256, 256, 3)).astype(np.float32)
+    # The batcher waits up to max_wait_s for the bucket to fill, so the
+    # 16 requests go to the device as one step.
+    with PoseServer(model, device=CLI_DEVICE, buckets=CLI_BUCKETS,
+                    max_wait_s=1.0) as server:
+        server.warmup()
+        reset_counts()
+        with profiling.trace(os.path.join(CLI_ROOT, "trace")) as prof:
+            with profiling.annotate("serve"):
+                kps = server.predict(imgs)
+        add_launches(report, read_counts("profiling", served_want(1)))
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    spans = [e for e in events if e.get("name") == "serve"]
+    want = {"#1/#3 (<0>)": TC_BNECK + "0", "#2 (<1>)": TC_BNECK + "1",
+            "#3 (<2>)": TC_BNECK + "2", "#4": TC_HEAD, "#13": "decode_kernel"}
+    found = {k: sum(v in n for n in kernels) for k, v in want.items()}
+    busy = sum(e.get("dur", 0) for e in events
+               if e.get("cat") == "kernel") / 1e3
+    log(f"profiling: trace {os.path.basename(prof.trace_path)} "
+        f"({os.path.getsize(prof.trace_path)} bytes), {len(kernels)} kernel "
+        f"events ({busy:.2f} ms), 'serve' spans {len(spans)}, kernels "
+        f"found {found} [{card}]")
+    if kps.shape != (CLI_BUCKETS[-1], K, 3) or not spans \
+            or not all(found.values()):
+        raise AssertionError(f"profiling: span {len(spans)}, kernels "
+                             f"{found}")
+
+
 def timed(name, fn, *args, **kwargs):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -3679,6 +4228,17 @@ def main():
     timed("fused_train", phase_fused_train, report)
     torch.cuda.empty_cache()
     timed("fused_train_times", phase_fused_train_times, report, card)
+    torch.cuda.empty_cache()
+    try:
+        args, cfg, val = timed("cli_train", phase_cli_train, report)
+        torch.cuda.empty_cache()
+        timed("cli_eval", phase_cli_eval, report, args, cfg, val)
+        timed("cli_serve", phase_cli_serve, report, args, cfg, card)
+        timed("cli_export", phase_cli_export, report, args, cfg)
+        timed("demo", phase_demo, report, cfg)
+        timed("profiling", phase_profiling, report, cfg, card)
+    finally:
+        shutil.rmtree(CLI_ROOT, ignore_errors=True)
     for name, (bms, by) in inference_bounds().items():
         report[name].update(bound_ms=bms, bound_by=by)
         report[name].setdefault("library_ms", None)
@@ -3695,6 +4255,8 @@ def main():
                         report.pop("_fused_step_ms"),
                     "default_train_step_ms_b64_bf16":
                         report.pop("_default_step_ms"),
+                    "http_served_p50_ms": report.pop("_http_p50_ms"),
+                    "http_served_p99_ms": report.pop("_http_p99_ms"),
                     "card": card}))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

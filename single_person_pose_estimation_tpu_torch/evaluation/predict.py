@@ -164,7 +164,8 @@ def predict_ds(
     """
     if mesh is not None:
         raise NotImplementedError("multi-device evaluation (mesh=) is not "
-                                  "ported yet (ROADMAP Queue 1 item 14)")
+                                  "ported yet (ROADMAP Queue 1, multi-GPU "
+                                  "data parallel)")
     device = resolve_device(device)
     if state is not None:
         model = state.model

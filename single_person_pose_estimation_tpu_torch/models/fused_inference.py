@@ -21,7 +21,7 @@ kernel and `front_bottleneck_3` to the conv-skip kernel
 innermost d levels of each hourglass as one subtree launch
 (`ops/cuda/bottom_kernel.py`). Under `mobile` both are turned off, as the
 JAX package turns them off. `front_s2d` is not ported and raises (ROADMAP
-Queue 1 item 17).
+Queue 1, the dials: space-to-depth front and remat).
 """
 
 from __future__ import annotations
@@ -284,7 +284,8 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
         fuse_bottom, fuse_front = 0, False
     if front_s2d:
         raise NotImplementedError("front_s2d is not ported yet (ROADMAP "
-                                  "Queue 1 item 17)")
+                                  "Queue 1, the dials: space-to-depth "
+                                  "front and remat)")
     depth = int(fuse_bottom)
     if not 0 <= depth <= len(LEVELS):
         raise ValueError(f"fuse_bottom must be 0..{len(LEVELS)}, got "

@@ -133,8 +133,8 @@ class StackedHourglass(nn.Module):
         super().__init__()
         if front_s2d or remat:
             raise NotImplementedError(
-                "front_s2d and remat are not ported yet (ROADMAP Queue 1 "
-                "item 17)")
+                "front_s2d and remat are not ported yet (ROADMAP Queue 1, "
+                "the dials: space-to-depth front and remat)")
         if predict_activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {predict_activation}; "
                              f"expected one of {_ACTIVATIONS}")

@@ -27,7 +27,7 @@ forward takes each through its own kernels.
 
 `device` is explicit. `device="cuda"` raises when CUDA is absent; the
 tests serve on `device="cpu"`, where the kernels' plain versions run.
-`mesh=` is not ported (ROADMAP Queue 1 item 14).
+`mesh=` is not ported (ROADMAP Queue 1, multi-GPU data parallel).
 """
 
 from __future__ import annotations
@@ -86,7 +86,8 @@ class PoseServer:
                  max_in_flight: int = 2):
         if mesh is not None:
             raise NotImplementedError("multi-device serving (mesh=) is not "
-                                      "ported yet (ROADMAP Queue 1 item 14)")
+                                      "ported yet (ROADMAP Queue 1, "
+                                      "multi-GPU data parallel)")
         if sorted(set(buckets)) != list(buckets):
             raise ValueError(f"buckets must be ascending+unique: {buckets}")
         self._device = torch.device(device)

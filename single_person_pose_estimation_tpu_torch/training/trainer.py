@@ -61,7 +61,8 @@ class Trainer:
         if mesh is not None or model_axis is not None:
             raise NotImplementedError(
                 "mesh/model_axis: multi-GPU training is not ported yet "
-                "(ROADMAP Queue 1 items 14-15)")
+                "(ROADMAP Queue 1, multi-GPU data parallel and the other "
+                "parallel/ modules)")
         self.device = steps_lib.resolve_device(device)
         self.model = model
         self.config = config

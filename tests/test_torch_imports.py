@@ -51,8 +51,8 @@ def test_ban_catches_the_jax_package_but_not_the_port():
 
 
 def test_new_modules_are_scanned():
-    """Every module of the evaluation, mobile and fused-training slices is
-    among the scanned sources."""
+    """Every module of the evaluation, mobile, fused-training and
+    entry-point slices is among the scanned sources."""
     for rel in ("data/example_codec.py", "data/tfrecord.py",
                 "data/images.py", "data/pipeline.py", "data/coco.py",
                 "ops/cuda/decode_kernel.py", "evaluation/predict.py",
@@ -62,7 +62,12 @@ def test_new_modules_are_scanned():
                 "utils/weight_convert.py", "experimental/__init__.py",
                 "experimental/bottleneck_grad.py",
                 "experimental/fused_train.py",
-                "ops/cuda/bottleneck_train_kernel.py"):
+                "ops/cuda/bottleneck_train_kernel.py",
+                "utils/reporting.py", "utils/profiling.py",
+                "training/auto_resume.py", "serving_http.py",
+                "utils/export.py", "ops/geometry.py", "ops/__init__.py",
+                "utils/visualization.py", "demo/__init__.py",
+                "demo/demo.py", "demo/webcam.py", "cli.py"):
         path = os.path.join(PORT_DIR, rel)
         assert os.path.exists(path), rel
         assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
@@ -138,6 +143,35 @@ def test_lazy_public_names_resolve_with_jax_blocked():
             "    pass\n"
             "else:\n"
             "    raise AssertionError('unknown name resolved')\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_entry_points_import_with_jax_blocked():
+    """The entry-point slice's modules import with JAX, flax, orbax and the
+    JAX package blocked, and the CLI's parser builds."""
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'jaxlib', 'optax', 'orbax',\n"
+            "          'single_person_pose_estimation_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "from single_person_pose_estimation_tpu_torch import cli\n"
+            "from single_person_pose_estimation_tpu_torch.demo import (\n"
+            "    demo, webcam)\n"
+            "from single_person_pose_estimation_tpu_torch.utils import (\n"
+            "    export, profiling, reporting, visualization)\n"
+            "from single_person_pose_estimation_tpu_torch.training import (\n"
+            "    auto_resume)\n"
+            "from single_person_pose_estimation_tpu_torch import (\n"
+            "    serving_http)\n"
+            "from single_person_pose_estimation_tpu_torch.ops import geometry\n"
+            "assert cli.build_parser() and demo.Demo and webcam.run_on_video\n"
+            "assert export.export_savedmodel and profiling.trace\n"
+            "assert reporting.save_eval_report and visualization.draw_skeleton\n"
+            "assert auto_resume.train_with_auto_resume and geometry.crop_and_pad\n"
+            "assert serving_http.HttpPoseService\n"
             "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,

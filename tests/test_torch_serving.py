@@ -86,7 +86,7 @@ def test_step_failure_reaches_the_caller(model):
 
 def test_constructor_checks():
     m = torch_model(random_variables(1, 16, seed=15), 1, 16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="multi-GPU data parallel"):
         PoseServer(m, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="ascending"):
         PoseServer(m, device="cpu", buckets=(4, 1))
