@@ -14,7 +14,9 @@ mobile), S4/256 training by `Trainer` (the warp and heatmap kernels), and
 S4/256 training with `model_backend="fused"` (the six train-unit kernels),
 and then the entry points a user calls: the CLI's train, resume, eval,
 serve (over a glob and over HTTP) and export, the two-stage demo and the
-profiler. It imports nothing of JAX or of the JAX package. Phases, each raising on
+profiler, and data parallel over a mesh (evaluation, serving, training in
+two processes over gloo, and the CLI's training over NCCL). It imports
+nothing of JAX or of the JAX package. Phases, each raising on
 failure:
 
 1. card: require CUDA; print the card's name and power limit (nvidia-smi);
@@ -175,7 +177,28 @@ failure:
    installed (the card's machine has none; the CPU tests run it);
 21. profiling: one served batch inside `utils/profiling.trace` and an
    `annotate("serve")` span; the Chrome trace must hold the span and the
-   kernels of #1-#4 and #13.
+   kernels of #1-#4 and #13;
+22. dp_eval (after mobile_eval, on its records): `predict_ds` over a mesh
+   of two replicas on cuda:0 (`parallel.mesh.create_mesh`), 64 rows a
+   replica, with exact launch counts and predictions equal to the pass
+   without a mesh;
+23. dp_serve: `PoseServer` over the same mesh (buckets rounded up to
+   multiples of 2) against `PoseServer(device="cuda")` on 128 crops, one
+   step of 128 each: the same keypoints, exact launch counts;
+24. dp_train (after fused_train_times): two child processes (`python3
+   chip_smoke.py --dp-child train DIR`, torchrun's environment) on cuda:0
+   over gloo, S4/256 through `make_train_step(mesh=)`: at f32 one step of
+   each backend at a global batch of 16 against one process on the
+   concatenated batch (loss; grads and running statistics within
+   ULP_FACTOR of the larger of a one-ulp and a batch-order control); at
+   bf16 on a global batch of 64, 3 steps of each backend on the batch as
+   it is (a falling loss) and 3 augmented, the same bits on both ranks
+   after every step; exact launches per rank;
+25. dp_nccl (after cli_train, on its records): `cli train --data-parallel`
+   for 2 steps in a child process that joined a process group of one over
+   NCCL, with exact launch counts and a checkpoint.
+Every child process has DP_CHILD_TIMEOUT; one that fails or hangs fails
+its phase.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -792,7 +815,7 @@ def phase_slice(report, model):
     # bf16 and (TF32 off) in float32.
     x = torch.from_numpy(imgs[:8]).cuda()
     with torch.inference_mode():
-        fused = fused_apply(server._prepared, x, **MAIN_FLAGS)[-1]
+        fused = fused_apply(server._replicas[0][1], x, **MAIN_FLAGS)[-1]
         plain = model(x)[-1]
         model.compute_dtype = torch.float32
         try:
@@ -4163,6 +4186,449 @@ def phase_profiling(report, cfg, card):
                              f"{found}")
 
 
+# ---------------------------------------------------------------------------
+# Data parallel (parallel/): dp_train, dp_nccl, dp_eval, dp_serve.
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+B_DP_F32 = 16            # global batch of the f32 hold (8 a rank)
+B_DP_BF16 = 64           # global batch of the bf16 steps (32 a rank)
+DP_STEPS = 3
+DP_SEED = 12
+DP_BACKENDS = ("flax", "fused")
+# One process on the concatenated batch, then on it with every pixel one
+# ulp away and with its two halves swapped (its sums in another order, as
+# two ranks make them). At S4/256 f32 with random weights either control
+# moves the grads 9-42% (relative L2) and the running statistics up to
+# 1.9e-4 of their largest value (seeds 12-14 on an NVIDIA H100 80GB HBM3
+# at 700.00 W; PERF.md), so two ranks are held within ULP_FACTOR times the
+# larger control, grads and statistics alike.
+DP_CONTROLS = ("one", "ulp", "perm")
+DP_CHILD_TIMEOUT = 300   # s from the launch, for every child process
+DP_ROOT = os.path.join(ROOT, "temp", "chip_smoke_dp")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_children(task, world, payload=None):
+    """`python3 chip_smoke.py --dp-child TASK DIR` as `world` ranks with
+    torchrun's environment; returns (deadline, dir, [(process, log)])."""
+    out = os.path.join(DP_ROOT, task)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    with open(os.path.join(out, "payload.json"), "w") as f:
+        json.dump(payload, f)
+    port = free_port()
+    deadline = time.perf_counter() + DP_CHILD_TIMEOUT
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, "PYTHONPATH": ROOT, "RANK": str(rank),
+               "LOCAL_RANK": str(rank), "WORLD_SIZE": str(world),
+               "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port)}
+        log_f = open(os.path.join(out, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--dp-child", task, out], cwd=ROOT, env=env, stdout=log_f,
+            stderr=subprocess.STDOUT), log_f))
+    return deadline, out, procs
+
+
+def wait_children(children):
+    """Every rank's result; a child that fails or outlives
+    DP_CHILD_TIMEOUT fails the phase (and every child is stopped)."""
+    import torch
+
+    deadline, out, procs = children
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(0.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log_f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log_f.close()
+    for rank, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out, f"rank{rank}.log")) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"{os.path.basename(out)} rank {rank} "
+                                 f"exited {p.returncode}:\n{tail}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(len(procs))]
+
+
+def dp_batch(n, seed, rows=slice(None)):
+    """`rows` of n synthetic 256 px crops on the card."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.data.in_memory import (
+        synthetic_crops,
+    )
+
+    return {k: torch.from_numpy(v[rows]).cuda()
+            for k, v in synthetic_crops(n, IMG, seed=seed).items()}
+
+
+def dp_state(dtype, mesh, seed, lr=2.5e-4):
+    """S4/256 from init_variables(seed) at `dtype` compute and its train
+    state on the card (this rank's device of `mesh`)."""
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+
+    model = build_s4_train(seed)
+    model.compute_dtype = dtype
+    return steps_lib.TrainState.create(
+        model, lambda m: steps_lib.make_optimizer(m, lr), seed=0,
+        device="cuda" if mesh is None else mesh.device)
+
+
+def dp_step(backend, mesh, augment):
+    """The train step over `mesh` (None: one process)."""
+    from single_person_pose_estimation_tpu_torch import losses
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+
+    return steps_lib.make_train_step(losses.weighted_mse,
+                                     train_config(DP_ROOT), augment=augment,
+                                     model_backend=backend, mesh=mesh)
+
+
+def flat_grads(state):
+    import torch
+
+    return torch.cat([p.grad.flatten() for _, p in
+                      sorted(state.model.named_parameters())]).cpu()
+
+
+def running_stats(state):
+    return {n: t.detach().cpu().clone()
+            for n, t in state.model.state_dict().items() if "running" in n}
+
+
+def state_digest(state) -> str:
+    """SHA-256 of every parameter and running statistic, in name order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in sorted(state.model.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_want(backend, steps, augmented):
+    """Exact launches of `steps` train steps on one rank, `augmented` of
+    them with augmentation."""
+    want = {"render_heatmaps_batch": steps,
+            "resample_last_axis": 2 * augmented}
+    if backend == "fused":
+        want.update({n: v for n, v in fused_want(steps).items()
+                     if n in FUSED_KERNELS})
+    return want
+
+
+def dp_train_child(mesh, seed):
+    """One rank of dp_train: (a) one f32 step of each backend on the
+    rank's rows of B_DP_F32, without augmentation; (b) on the rank's rows
+    of one B_DP_BF16 batch, DP_STEPS bf16 steps of each backend without
+    augmentation and then DP_STEPS with it."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+
+    per = lambda n: slice(mesh.rank * n // mesh.data_size,
+                          (mesh.rank + 1) * n // mesh.data_size)
+    res = {"f32": {}, "bf16": {}, "counts": {}}
+    for backend in DP_BACKENDS:
+        state = dp_state(torch.float32, mesh, seed)
+        step = dp_step(backend, mesh, augment=False)
+        b = dp_batch(B_DP_F32, seed, per(B_DP_F32))
+        kernels.reset_launch_counts()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        res["counts"]["f32", backend] = kernels.launch_counts()
+        res["f32"][backend] = {
+            "loss": m["loss"].item(), "digest": state_digest(state),
+            **({"grads": flat_grads(state), "stats": running_stats(state)}
+               if mesh.rank == 0 else {})}
+        del state
+    for backend in DP_BACKENDS:
+        state = dp_state(torch.bfloat16, mesh, seed, lr=1e-3)
+        b = dp_batch(B_DP_BF16, 7, per(B_DP_BF16))
+        kernels.reset_launch_counts()
+        losses, digests = [], []
+        for augment in (False, True):
+            step = dp_step(backend, mesh, augment)
+            for _ in range(DP_STEPS):
+                state, m = step(state, b)
+                losses.append(m["loss"].item())
+                digests.append(state_digest(state))
+        torch.cuda.synchronize()
+        res["counts"]["bf16", backend] = kernels.launch_counts()
+        res["bf16"][backend] = {"losses": losses, "digests": digests}
+        del state
+    return res
+
+
+def dp_nccl_child(payload):
+    """`cli train --data-parallel` in a process group of one over NCCL,
+    joined before the CLI runs so that it trains in it."""
+    import torch
+    import torch.distributed as dist
+
+    from single_person_pose_estimation_tpu_torch import cli
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+
+    kernels.reset_launch_counts()
+    cli.main(payload["args"] + ["train", *payload["train"]])
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "counts": kernels.launch_counts()}
+
+
+def dp_child(task, out):
+    """The body of `chip_smoke.py --dp-child TASK DIR`: join the process
+    group from torchrun's environment (gloo for "train", two ranks on
+    cuda:0, since NCCL refuses two ranks on one device; NCCL for "nccl"),
+    run the task, write DIR/rank{R}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from single_person_pose_estimation_tpu_torch.parallel import (
+        distributed,
+        mesh as mesh_lib,
+    )
+
+    with open(os.path.join(out, "payload.json")) as f:
+        payload = json.load(f)
+    if not distributed.initialize(
+            backend="gloo" if task == "train" else "nccl",
+            timeout_s=DP_CHILD_TIMEOUT):
+        raise RuntimeError("no cluster environment")
+    if task == "train":
+        res = dp_train_child(mesh_lib.create_mesh(
+            devices=["cuda:0"] * dist.get_world_size()), payload["seed"])
+    else:
+        res = dp_nccl_child(payload)
+    torch.save(res, os.path.join(out, f"rank{dist.get_rank()}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dp_train(report, seed=DP_SEED):
+    """Two ranks on cuda:0 over gloo (`Trainer`'s step with `mesh=`), S4/256
+    at 256x256: (a) at f32, one step of each backend at a global batch of
+    16, without augmentation, against one process on the concatenated
+    batch: the loss within TOL_FUSED_LOSS; the grads (relative L2) and the
+    running statistics within ULP_FACTOR times the larger of two controls
+    of that process, one ulp on the input pixels and the batch's halves
+    swapped (DP_CONTROLS); (b) at
+    bf16, on a global batch of 64, DP_STEPS steps of each backend on the
+    batch as it is, whose loss falls, then DP_STEPS augmented steps; after
+    every step both ranks hold the same bits. Exact launches on each
+    rank."""
+    import torch
+
+    children = start_children("train", DP_WORLD, {"seed": seed})
+    half = B_DP_F32 // DP_WORLD
+    perm = torch.cat([torch.arange(half, B_DP_F32), torch.arange(half)])
+    try:
+        ref = {}
+        for backend in DP_BACKENDS:
+            for name in DP_CONTROLS:
+                state = dp_state(torch.float32, None, seed)
+                step = dp_step(backend, None, augment=False)
+                b = dp_batch(B_DP_F32, seed)
+                if name == "ulp":
+                    b["image"] = torch.nextafter(
+                        b["image"], torch.full_like(b["image"], np.inf))
+                elif name == "perm":
+                    b = {k: v[perm.to(v.device)] for k, v in b.items()}
+                state, m = step(state, b)
+                ref[backend, name] = (m["loss"].item(), flat_grads(state),
+                                      running_stats(state))
+                del state
+    finally:
+        ranks = wait_children(children)
+    rel = lambda a, b: (torch.linalg.vector_norm(a - b)
+                        / torch.linalg.vector_norm(b)).item()
+    stat_err = lambda a, b: max((a[n] - t).abs().max().item()
+                                / max(t.abs().max().item(), 1e-30)
+                                for n, t in b.items())
+    failed = []
+    for backend in DP_BACKENDS:
+        got = [r["f32"][backend] for r in ranks]
+        loss, grads, stats = ref[backend, "one"]
+        gap = rel(got[0]["grads"], grads)
+        serr = stat_err(got[0]["stats"], stats)
+        lerr = max(abs(g["loss"] - loss) / abs(loss) for g in got)
+        controls = {name: (rel(ref[backend, name][1], grads),
+                           stat_err(ref[backend, name][2], stats))
+                    for name in DP_CONTROLS[1:]}
+        log(f"dp_train f32 {backend}: 2 ranks x {half} vs one process x "
+            f"{B_DP_F32}: loss {got[0]['loss']:.7f} vs {loss:.7f} (rel "
+            f"{lerr:.2e}), grads L2 rel {gap:.3e}, running stats "
+            f"{serr:.3e}; controls (grads, stats): " + ", ".join(
+                f"{n} {g:.3e} {st:.3e}" for n, (g, st) in controls.items()))
+        noise = [max(c[i] for c in controls.values()) for i in (0, 1)]
+        if lerr > TOL_FUSED_LOSS or gap > ULP_FACTOR * noise[0] \
+                or serr > ULP_FACTOR * noise[1] \
+                or got[0]["digest"] != got[1]["digest"]:
+            failed.append(f"f32 {backend}: loss {lerr}, grads {gap} vs "
+                          f"{controls}, stats {serr}, digests equal "
+                          f"{got[0]['digest'] == got[1]['digest']}")
+        runs = [r["bf16"][backend] for r in ranks]
+        log(f"dp_train bf16 {backend}: 2 ranks x "
+            f"{B_DP_BF16 // DP_WORLD}, {DP_STEPS} steps on the batch as it "
+            f"is, then {DP_STEPS} augmented: losses {runs[0]['losses']}; "
+            f"the same bits on both ranks after each step: "
+            f"{runs[0]['digests'] == runs[1]['digests']}")
+        fixed = runs[0]["losses"][:DP_STEPS]
+        if runs[0]["digests"] != runs[1]["digests"] \
+                or runs[0]["losses"] != runs[1]["losses"] \
+                or not np.isfinite(runs[0]["losses"]).all() \
+                or fixed[-1] >= fixed[0]:
+            failed.append(f"bf16 {backend}: {runs}")
+    for rank, r in enumerate(ranks):
+        for (kind, backend), counts in r["counts"].items():
+            want = dp_want(backend, 1, 0) if kind == "f32" \
+                else dp_want(backend, 2 * DP_STEPS, DP_STEPS)
+            want = {k: want.get(k, 0) for k in counts}
+            if counts != want:
+                failed.append(f"rank {rank} {kind} {backend}: launches "
+                              f"{counts} != {want}")
+            add_launches(report, counts)
+        log(f"dp_train rank {rank}: launches {r['counts']}")
+    if failed:
+        raise AssertionError("dp_train: " + "; ".join(failed))
+
+
+def phase_dp_nccl(report, args):
+    """`cli train --data-parallel` for one epoch of 2 steps (--ratio 0.5 of
+    the CLI's records) in a process group of one over NCCL, under
+    torchrun's environment."""
+    tmp = os.path.join(DP_ROOT, "nccl_run")
+    shutil.rmtree(tmp, ignore_errors=True)
+    train = ["--epochs", "1", "--lr", str(CLI_LR), "--loss", "weighted_mse",
+             "--ratio", "0.5"]
+    (res,) = wait_children(start_children(
+        "nccl", 1, {"args": args + ["--set", f"temporary_dir={tmp}"],
+                    "train": train}))
+    steps = (N_EVAL_TRAIN // 2) // CLI_BATCH
+    evals = (N_EVAL // 2) // CLI_BATCH
+    want = {"resample_last_axis": 2 * steps,
+            "render_heatmaps_batch": steps + evals}
+    counts = {k: v for k, v in res["counts"].items() if v}
+    from single_person_pose_estimation_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+    meta = CheckpointManager(os.path.join(tmp, "checkpoints")).read_meta()
+    log(f"dp_nccl: backend {res['backend']}, world {res['world']}, "
+        f"launches {counts} ({steps} train and {evals} valid steps), meta "
+        f"{meta}")
+    if res["backend"] != "nccl" or res["world"] != 1 or counts != want \
+            or not meta or meta["epoch"] != 1:
+        raise AssertionError(f"dp_nccl: {res}, meta {meta}, want {want}")
+    add_launches(report, counts)
+
+
+def phase_dp_eval(report, cfg, val):
+    """`predict_ds` over a mesh of two replicas on cuda:0 at B=128 (64
+    rows a replica) against `predict_ds` without a mesh: the same
+    predictions; exact launches."""
+    from single_person_pose_estimation_tpu_torch.data import pipeline
+    from single_person_pose_estimation_tpu_torch.evaluation import (
+        predict,
+    )
+    from single_person_pose_estimation_tpu_torch.parallel.mesh import (
+        create_mesh,
+    )
+
+    state = eval_model(cfg, seed=1)
+    runs = {}
+    for name, mesh in (("no mesh", None),
+                       ("mesh", create_mesh(devices=["cuda:0"] * DP_WORLD))):
+        forwards = (N_EVAL // B_TIME) * (1 if mesh is None else DP_WORLD)
+        with pipeline.DatasetBuilder(cfg) as b:
+            reset_counts()
+            t0 = time.perf_counter()
+            runs[name] = predict.predict_ds(state.model, state,
+                                            b.get_ds_prediction(),
+                                            save_path=None, mesh=mesh)
+            elapsed = time.perf_counter() - t0
+            counts = read_counts(f"dp_eval {name} ({elapsed:.2f} s)",
+                                 served_want(forwards))
+    add_launches(report, counts)
+    check_predictions(runs["mesh"], val, "dp_eval")
+    bad = sum(p != q for p, q in zip(runs["mesh"], runs["no mesh"]))
+    log(f"dp_eval: {len(runs['mesh'])} predictions, {bad} differ from the "
+        f"pass without a mesh")
+    if bad or len(runs["mesh"]) != N_EVAL:
+        raise AssertionError(f"dp_eval: {bad} predictions differ")
+    return state
+
+
+def phase_dp_serve(report, cfg, state):
+    """`PoseServer` over a mesh of two replicas on cuda:0 against
+    `PoseServer(device="cuda")` on 128 crops from the records, each server
+    with one bucket of 128 that it waits up to 1 s to fill, so that each
+    serves one step: the same keypoints, exact launches. (A step's rows
+    depend on when the requests arrive, and cuDNN's front convolutions
+    round a small batch otherwise than a large one.) The buckets of a mesh
+    are rounded up to multiples of its 2 replicas."""
+    from single_person_pose_estimation_tpu_torch.data import pipeline
+    from single_person_pose_estimation_tpu_torch.parallel.mesh import (
+        create_mesh,
+    )
+    from single_person_pose_estimation_tpu_torch.serving import PoseServer
+
+    with pipeline.DatasetBuilder(cfg) as b:
+        images, _ = next(iter(b.get_ds_prediction()))
+    x = np.asarray(images, np.float32)
+    if images.dtype == np.uint8:
+        x /= 255.0
+    serve = dict(buckets=(B_TIME,), max_wait_s=1.0)
+    with PoseServer(state.model, device="cuda", **serve) as server:
+        want = server.predict(x)
+        plain_steps = server.stats()["steps"]
+    mesh = create_mesh(devices=["cuda:0"] * DP_WORLD)
+    with PoseServer(state.model, mesh=mesh, buckets=(1, 3, B_TIME)) as server:
+        rounded = server.buckets
+    reset_counts()
+    with PoseServer(state.model, mesh=mesh, **serve) as server:
+        got = server.predict(x)
+        steps = server.stats()["steps"]
+    counts = read_counts(f"dp_serve: {steps} step(s) of {B_TIME} over 2 "
+                         f"replicas", served_want(steps * DP_WORLD))
+    add_launches(report, counts)
+    log(f"dp_serve: buckets (1, 3, {B_TIME}) over the mesh: {rounded}; "
+        f"{len(got)} keypoint sets, equal to the served keypoints without "
+        f"a mesh: {np.array_equal(got, want)}")
+    if rounded != (2, 4, B_TIME) or (steps, plain_steps) != (1, 1) \
+            or not np.array_equal(got, want):
+        raise AssertionError(f"dp_serve: buckets {rounded}, steps {steps} "
+                             f"and {plain_steps}; max |d| "
+                             f"{np.abs(got - want).max()}")
+
+
 def timed(name, fn, *args, **kwargs):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -4182,6 +4648,8 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--dp-child"]:
+        return dp_child(*sys.argv[2:4])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4217,6 +4685,10 @@ def main():
         timed("eval_times", phase_eval_times, report, cfg, card)
         torch.cuda.empty_cache()
         timed("mobile_eval", phase_mobile_eval, report, cfg, val, card)
+        torch.cuda.empty_cache()
+        state = timed("dp_eval", phase_dp_eval, report, cfg, val)
+        timed("dp_serve", phase_dp_serve, report, cfg, state)
+        del state
     finally:
         shutil.rmtree(EVAL_ROOT, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4230,7 +4702,10 @@ def main():
     timed("fused_train_times", phase_fused_train_times, report, card)
     torch.cuda.empty_cache()
     try:
+        timed("dp_train", phase_dp_train, report)
+        torch.cuda.empty_cache()
         args, cfg, val = timed("cli_train", phase_cli_train, report)
+        timed("dp_nccl", phase_dp_nccl, report, args)
         torch.cuda.empty_cache()
         timed("cli_eval", phase_cli_eval, report, args, cfg, val)
         timed("cli_serve", phase_cli_serve, report, args, cfg, card)
@@ -4239,6 +4714,7 @@ def main():
         timed("profiling", phase_profiling, report, cfg, card)
     finally:
         shutil.rmtree(CLI_ROOT, ignore_errors=True)
+        shutil.rmtree(DP_ROOT, ignore_errors=True)
     for name, (bms, by) in inference_bounds().items():
         report[name].update(bound_ms=bms, bound_by=by)
         report[name].setdefault("library_ms", None)

@@ -20,10 +20,16 @@ Each subcommand calls the port module that does the work: `gen-records`
 
 One argument is the port's own: `--device` (default "cuda"). Given "cuda"
 on a host without CUDA the command raises; it never carries on on the
-CPU. The tests pass `--device cpu`. `--data-parallel` (on by default)
-does nothing with one visible card and raises with more than one, until
-multi-GPU data parallel is ported. `bench` exits non-zero: the port has
+CPU. The tests pass `--device cpu`. `bench` exits non-zero: the port has
 no bench yet.
+
+`--data-parallel` (on by default): `train` and `resume` launched by
+`torchrun` (one process per card) join the process group and train data
+parallel, each process on its own card and its own record shards,
+`config.batch_size` rows a process (parallel/). With one visible card and
+no cluster environment they train on that card; several visible cards
+without `torchrun` raise. `eval` splits its batches over every visible
+card of one process.
 """
 
 from __future__ import annotations
@@ -83,17 +89,45 @@ def _build_model(cfg: Config):
     return model_from_config(cfg, front_s2d=cfg.front_s2d == "on")
 
 
-def _check_data_parallel(args, device):
-    """--data-parallel: nothing to do on one visible card; several raise
-    as `Trainer(mesh=...)` does until data parallel is ported."""
+def _train_mesh(args, device):
+    """--data-parallel for train/resume: under torchrun's environment,
+    join the process group (NCCL between cards, gloo with --device cpu)
+    and return a mesh of one device per process; with no cluster
+    environment and one visible card, None."""
     import torch
 
-    if (args.data_parallel and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "mesh/model_axis: multi-GPU training is not ported yet "
-            "(ROADMAP Queue 1, multi-GPU data parallel and the other "
-            "parallel/ modules)")
+    from single_person_pose_estimation_tpu_torch.parallel import (
+        distributed,
+        mesh as mesh_lib,
+    )
+
+    if not args.data_parallel:
+        return None
+    cuda = device.type == "cuda"
+    if distributed.initialize(backend="nccl" if cuda else "gloo"):
+        world = torch.distributed.get_world_size()
+        return mesh_lib.create_mesh(devices=None if cuda else [device] * world)
+    if cuda and torch.cuda.device_count() > 1:
+        raise SystemExit(
+            f"--data-parallel over {torch.cuda.device_count()} visible cards "
+            "runs one process per card: launch with torchrun "
+            f"--nproc_per_node={torch.cuda.device_count()}, or make one "
+            "card visible (CUDA_VISIBLE_DEVICES)")
+    return None
+
+
+def _eval_mesh(args, device):
+    """--data-parallel for eval: a mesh over every visible card when
+    there are several, else None."""
+    import torch
+
+    if args.data_parallel and device.type == "cuda" \
+            and torch.cuda.device_count() > 1:
+        from single_person_pose_estimation_tpu_torch.parallel import (
+            mesh as mesh_lib,
+        )
+        return mesh_lib.create_mesh()
+    return None
 
 
 def cmd_gen_records(args, cfg: Config):
@@ -111,28 +145,50 @@ def _make_trainer(args, cfg: Config):
     )
 
     device = _device(args)
-    _check_data_parallel(args, device)
+    mesh = _train_mesh(args, device)
     model = _build_model(cfg)
-    builder = DatasetBuilder(cfg, ratio=args.ratio)
+    if mesh is None:
+        builder = DatasetBuilder(cfg, ratio=args.ratio)
+    else:
+        builder = DatasetBuilder(cfg, ratio=args.ratio,
+                                 process_index=mesh.rank,
+                                 process_count=mesh.data_size)
     return Trainer(model, builder, args.epochs, args.lr, args.loss, cfg,
-                   augment=not args.no_augment,
+                   mesh=mesh, augment=not args.no_augment,
                    bn_mode="frozen" if args.freeze_bn else "batch",
                    accum_steps=args.accum_steps,
                    lr_schedule=args.lr_schedule,
                    warmup_steps=args.warmup_steps,
-                   ema_decay=args.ema_decay, device=device)
+                   ema_decay=args.ema_decay,
+                   device=device if mesh is None else None)
+
+
+def _run_trainer(args, cfg: Config, resume: bool):
+    import torch.distributed as dist
+
+    from single_person_pose_estimation_tpu_torch.parallel.distributed import (
+        is_initialized,
+    )
+
+    joined_here = not is_initialized()
+    trainer = _make_trainer(args, cfg)
+    try:
+        if resume:
+            trainer.resume_training()
+        else:
+            trainer.train()
+    finally:
+        trainer.close()
+        if joined_here and is_initialized():
+            dist.destroy_process_group()
 
 
 def cmd_train(args, cfg: Config):
-    trainer = _make_trainer(args, cfg)
-    trainer.train()
-    trainer.close()
+    _run_trainer(args, cfg, resume=False)
 
 
 def cmd_resume(args, cfg: Config):
-    trainer = _make_trainer(args, cfg)
-    trainer.resume_training()
-    trainer.close()
+    _run_trainer(args, cfg, resume=True)
 
 
 def _load(args, cfg: Config, device):
@@ -194,7 +250,7 @@ def cmd_eval(args, cfg: Config):
         except ImportError:
             raise SystemExit("--report needs matplotlib")
     device = _device(args)
-    _check_data_parallel(args, device)
+    mesh = _eval_mesh(args, device)
     state = _maybe_ema_params(_load(args, cfg, device), args, "Evaluating")
     builder = DatasetBuilder(cfg, ratio=args.ratio)
     try:
@@ -216,7 +272,8 @@ def cmd_eval(args, cfg: Config):
                            legacy_decode=cfg.legacy_decode,
                            save_path=args.save_path,
                            flip_test=args.flip_test,
-                           flip_pairs=cfg.flip_pairs, device=device)
+                           flip_pairs=cfg.flip_pairs, mesh=mesh,
+                           device=device)
     finally:
         builder.close()
     print(f"{len(preds)} predictions -> {args.save_path}")
@@ -357,8 +414,10 @@ def build_parser() -> argparse.ArgumentParser:
                                 "weighted_keypoint_mse"])
         t.add_argument("--ratio", type=float, default=1.0)
         t.add_argument("--data-parallel", action="store_true", default=True,
-                       help="on by default; a no-op on one card, raises on "
-                            "several until data parallel is ported")
+                       help="on by default: under torchrun, one process "
+                            "per card, each on its own record shards; "
+                            "with one visible card and no torchrun, that "
+                            "card")
         t.add_argument("--no-augment", action="store_true",
                        help="disable on-device train augmentation")
         t.add_argument("--freeze-bn", action="store_true",
@@ -399,8 +458,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "horizontally mirrored input (left/right channels "
                         "swapped back); ~2x forward cost per image")
     e.add_argument("--data-parallel", action="store_true", default=True,
-                   help="on by default; a no-op on one card, raises on "
-                        "several until data parallel is ported")
+                   help="on by default: split eval batches over every "
+                        "visible card (a model replica per card)")
     e.add_argument("--report", default=None, metavar="PREFIX",
                    help="write PREFIX.md + PCK/OKS figures (the artifacts "
                         "the reference publishes as README screenshots)")

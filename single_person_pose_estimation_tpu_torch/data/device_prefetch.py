@@ -140,7 +140,18 @@ class DevicePrefetcher(Prefetcher):
         return batch
 
 
-def device_prefetch(it: Iterator, device, depth: int = 2) -> DevicePrefetcher:
-    """The Trainer's prefetcher: closes the source iterator when done."""
+def device_prefetch(it: Iterator, device=None, depth: int = 2,
+                    mesh=None) -> DevicePrefetcher:
+    """The Trainer's prefetcher: closes the source iterator when done.
+    With a data-parallel `mesh` (one process per device) each rank's
+    batches go to its own device, `mesh.device` (cuda:LOCAL_RANK under
+    torchrun); `device` must then be None or that device."""
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not this rank's mesh "
+                             f"device {mesh.device}")
+        device = mesh.device
+    if device is None:
+        raise ValueError("device_prefetch needs a device or a mesh")
     return DevicePrefetcher(it, device, depth=depth,
                             on_stop=getattr(it, "close", None))

@@ -43,31 +43,9 @@ from single_person_pose_estimation_tpu_torch.data.images import (
     resize_bilinear,
     resize_bilinear_u8,
 )
-
-
-def shard_files_for_process(filenames: Sequence[str], process_index: int,
-                            process_count: int,
-                            allow_replicate: bool = False) -> List[str]:
-    """Disjoint round-robin file subset for this process (the JAX
-    package's `parallel/distributed.py` function, with the process index
-    and count given explicitly).
-
-    Every shard file holds (up to) the same number of examples, so a
-    round-robin split keeps per-process example counts within one shard
-    of each other. With fewer files than processes, some processes would
-    receive no files: raise instead, unless `allow_replicate` (validation),
-    where every process reads every file.
-    """
-    if process_count == 1:
-        return list(filenames)
-    if len(filenames) < process_count:
-        if allow_replicate:
-            return list(filenames)
-        raise ValueError(
-            f"{len(filenames)} shard files cannot feed {process_count} "
-            "processes; regenerate records with more shards "
-            "(smaller num_examples_per_record)")
-    return list(filenames)[process_index::process_count]
+from single_person_pose_estimation_tpu_torch.parallel.distributed import (
+    shard_files_for_process,
+)
 
 
 def _fixed(vals, K: int, dtype) -> np.ndarray:

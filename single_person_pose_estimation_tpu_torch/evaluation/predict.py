@@ -11,8 +11,11 @@ only un-crops the (B, K, 3) keypoints into original-image coordinates
 (_undo_bbox, eval.py:153-158) and assembles the JSON records.
 
 `device` is explicit: "cuda" (the default) raises without CUDA, and the
-tests run on "cpu", where each kernel's plain version runs. Multi-device
-evaluation (`mesh=`) is not ported.
+tests run on "cpu", where each kernel's plain version runs. With `mesh=`
+(parallel/mesh.py) one process evaluates on every device of the mesh: a
+model replica per device, each batch padded to a multiple of the device
+count and split evenly over the replicas, and the padding rows dropped
+from the gathered keypoints.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from single_person_pose_estimation_tpu_torch.ops.cuda.decode_kernel import (
 from single_person_pose_estimation_tpu_torch.ops.decode import (
     decode_v1_batch,
 )
+from single_person_pose_estimation_tpu_torch.parallel import mesh as mesh_lib
 from single_person_pose_estimation_tpu_torch.training.steps import (
     resolve_device,
 )
@@ -161,33 +165,48 @@ def predict_ds(
     moves to `device` and switches to eval mode; the forward takes the
     CUDA kernels on a CUDA device at a 2-byte compute dtype (the "auto"
     policy of `auto_use_fused`), the plain model otherwise.
+
+    `mesh` (a `parallel.mesh.Mesh`) evaluates on the mesh's local devices
+    instead of `device`, with a replica of the model on each.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-device evaluation (mesh=) is not "
-                                  "ported yet (ROADMAP Queue 1, multi-GPU "
-                                  "data parallel)")
-    device = resolve_device(device)
     if state is not None:
         model = state.model
-    model = model.to(device).eval()
-    fn = make_predict_decode_fn(model, conf_threshold, legacy_decode,
+    if mesh is None:
+        devices = (resolve_device(device),)
+        models = [model.to(devices[0])]
+    else:
+        devices = mesh.local_devices
+        models = mesh_lib.replicas(model, mesh)
+    for m in models:
+        m.eval()
+    fn = make_predict_decode_fn(models[0], conf_threshold, legacy_decode,
                                 decode_version, flip_test=flip_test,
-                                flip_pairs=flip_pairs, device=device)
-    prepared = prepare_fused(model) if fn.use_fused else None
-    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+                                flip_pairs=flip_pairs, device=devices[0])
+    prepared = {id(m): prepare_fused(m) if fn.use_fused else None
+                for m in models}
+    replicas = [(m, prepared[id(m)], d,
+                 torch.cuda.Stream(d) if d.type == "cuda" else None)
+                for m, d in zip(models, devices)]
 
     def _put(pair):
-        # Runs on the prefetch thread: batch N+1 is copied to the device on
-        # a side stream while the device runs batch N.
+        # Runs on the prefetch thread: batch N+1 is padded to the replica
+        # count, split, and each piece copied to its device on a side
+        # stream while the devices run batch N.
         images, metas = pair
         host = torch.from_numpy(np.ascontiguousarray(images))
-        if stream is None:
-            return host, metas, None
-        with torch.cuda.stream(stream):
-            dev = host.pin_memory().to(device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        return dev, metas, done
+        host, n = mesh_lib.pad_batch_to_devices(host, len(replicas))
+        pieces = []
+        for (_, _, dev, stream), piece in zip(replicas,
+                                             host.chunk(len(replicas))):
+            if stream is None:
+                pieces.append((piece, None))
+                continue
+            with torch.cuda.stream(stream):
+                x = piece.pin_memory().to(dev, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            pieces.append((x, done))
+        return pieces, metas, n
 
     # Tie the source's lifetime to the prefetcher (closed on the producer
     # thread when it exits) and always close: an exception mid-eval must
@@ -195,7 +214,7 @@ def predict_ds(
     pf = Prefetcher(iter(ds_prediction), depth=2, map_fn=_put,
                     on_stop=getattr(ds_prediction, "close", None))
     try:
-        predictions = _predict_loop(pf, fn, model, prepared)
+        predictions = _predict_loop(pf, fn, replicas)
     finally:
         pf.close()
 
@@ -205,17 +224,22 @@ def predict_ds(
     return predictions
 
 
-def _predict_loop(pf, fn, model, prepared) -> List[dict]:
+def _predict_loop(pf, fn, replicas) -> List[dict]:
     predictions: List[dict] = []
-    for images, metas, done in pf:
-        if done is not None:
-            # The copy ran on the side stream: order it before this
-            # stream's use, and keep the allocator from reusing the batch
-            # too early.
-            cur = torch.cuda.current_stream(images.device)
-            cur.wait_event(done)
-            images.record_stream(cur)
-        kps = fn(model, images, prepared).cpu().numpy()
+    for pieces, metas, n in pf:
+        outs = []
+        for (model, prepared, dev, _), (images, done) in zip(replicas,
+                                                            pieces):
+            if done is not None:
+                # The copy ran on the side stream: order it before this
+                # stream's use, and keep the allocator from reusing the
+                # batch too early.
+                cur = torch.cuda.current_stream(dev)
+                cur.wait_event(done)
+                images.record_stream(cur)
+            with mesh_lib.on_device(dev):
+                outs.append(fn(model, images, prepared))
+        kps = np.concatenate([o.cpu().numpy() for o in outs])[:n]
         # decode returns heatmap-space coords; normalize by heatmap dims
         # (the model's label resolution is input/4 by construction).
         hm_h = images.shape[1] // 4

@@ -36,14 +36,20 @@ wrappers run their plain versions. Layout is NHWC; weights (C, Cm),
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from single_person_pose_estimation_tpu_torch.models.hourglass import (
+    global_moments,
+)
 from single_person_pose_estimation_tpu_torch.ops.cuda import (
     bottleneck_train_kernel as ker,
+)
+from single_person_pose_estimation_tpu_torch.parallel.distributed import (
+    all_reduce_sum,
 )
 
 _BN_EPS = 1e-3
@@ -54,9 +60,13 @@ BACKENDS = ("plain", "cuda", "cuda_fwd", "cuda_bwd")
 # Forward pieces (plain; flax semantics).
 # ---------------------------------------------------------------------------
 
-def _bn_stats(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Float32 batch mean and variance E[a^2]-E[a]^2, clamped at 0."""
+def _bn_stats(a: torch.Tensor, group=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float32 batch mean and variance E[a^2]-E[a]^2, clamped at 0 (over
+    every rank's rows with a group)."""
     a32 = a.float()
+    if group is not None:
+        return global_moments(a32, (0, 1, 2), group)
     mu = a32.mean(dim=(0, 1, 2))
     mu2 = (a32 * a32).mean(dim=(0, 1, 2))
     return mu, torch.clamp(mu2 - mu * mu, min=0.0)
@@ -78,17 +88,17 @@ def _conv3x3(x, w, b):
 
 
 def bottleneck_train_fwd(x, w1, b1, w2, b2, w3, b3,
-                         g1, be1, g2, be2, g3, be3):
+                         g1, be1, g2, be2, g3, be3, group=None):
     """Returns (out, (mu1, var1, mu2, var2, mu3, var3), (x, a1, a2, a3))."""
     dt = x.dtype
     a1 = torch.relu(_conv1x1(x, w1, b1))
-    mu1, var1 = _bn_stats(a1)
+    mu1, var1 = _bn_stats(a1, group)
     z1 = _bn_apply(a1, mu1, var1, g1, be1, dt)
     a2 = torch.relu(_conv3x3(z1, w2, b2))
-    mu2, var2 = _bn_stats(a2)
+    mu2, var2 = _bn_stats(a2, group)
     z2 = _bn_apply(a2, mu2, var2, g2, be2, dt)
     a3 = torch.relu(_conv1x1(z2, w3, b3))
-    mu3, var3 = _bn_stats(a3)
+    mu3, var3 = _bn_stats(a3, group)
     z3 = _bn_apply(a3, mu3, var3, g3, be3, dt)
     return x + z3, (mu1, var1, mu2, var2, mu3, var3), (x, a1, a2, a3)
 
@@ -99,6 +109,16 @@ def _stats_from_sums(sums, n):
     return mu, torch.clamp(sums[1] / n - mu * mu, min=0.0)
 
 
+def _global_sums(sums, n, group):
+    """(sums, n) over every rank of `group`: one all_reduce of the
+    float32 sums with the row count; as they are without a group."""
+    if group is None:
+        return sums, n
+    tot = all_reduce_sum(torch.cat([sums.reshape(-1),
+                                    sums.new_full((1,), n)]), group)
+    return tot[:-1].view_as(sums), tot[-1]
+
+
 def _fold_affine(mu, var, gamma, beta):
     """Train-mode BN as a per-channel affine: bn(a) = a*scale + shift."""
     scale = torch.rsqrt(var + _BN_EPS) * gamma
@@ -106,20 +126,21 @@ def _fold_affine(mu, var, gamma, beta):
 
 
 def bottleneck_train_fwd_cuda(x, w1, b1, w2, b2, w3, b3,
-                              g1, be1, g2, be2, g3, be3):
+                              g1, be1, g2, be2, g3, be3, group=None):
     """The contract of bottleneck_train_fwd, each conv->relu unit one
     kernel with the previous BN folded into its prologue and its batch
-    sums in its epilogue."""
+    sums in its epilogue. With a group, each unit's sums are all-reduced
+    between the kernel that makes them and the one that folds them."""
     B, H, W, _ = x.shape
     n = B * H * W
     a1, sums1 = ker.conv1x1_relu_stats(x, w1, b1)
-    mu1, var1 = _stats_from_sums(sums1, n)
+    mu1, var1 = _stats_from_sums(*_global_sums(sums1, n, group))
     sc1, sh1 = _fold_affine(mu1, var1, g1, be1)
     a2, sums2 = ker.conv3x3_relu_stats(a1, w2, b2, sc1, sh1)
-    mu2, var2 = _stats_from_sums(sums2, n)
+    mu2, var2 = _stats_from_sums(*_global_sums(sums2, n, group))
     sc2, sh2 = _fold_affine(mu2, var2, g2, be2)
     a3, sums3 = ker.conv1x1_relu_stats(a2, w3, b3, sc2, sh2)
-    mu3, var3 = _stats_from_sums(sums3, n)
+    mu3, var3 = _stats_from_sums(*_global_sums(sums3, n, group))
     sc3, sh3 = _fold_affine(mu3, var3, g3, be3)
     out = x + (a3.float() * sc3 + sh3).to(x.dtype)
     return out, (mu1, var1, mu2, var2, mu3, var3), (x, a1, a2, a3)
@@ -129,16 +150,19 @@ def bottleneck_train_fwd_cuda(x, w1, b1, w2, b2, w3, b3,
 # Backward (plain).
 # ---------------------------------------------------------------------------
 
-def _unit_bwd(dz, a, mu, var, gamma):
+def _unit_bwd(dz, a, mu, var, gamma, group=None):
     """(dy, dgamma, dbeta) of one conv->relu->BN unit from its saved
-    post-ReLU activation a; dy in a's dtype."""
+    post-ReLU activation a; dy in a's dtype. With a group, dy takes the
+    sums over every rank and dgamma/dbeta stay this rank's (see
+    _unit_consts)."""
     n = dz.shape[0] * dz.shape[1] * dz.shape[2]
     s = torch.rsqrt(var + _BN_EPS)
     xhat = (a.float() - mu) * s
     dz32 = dz.float()
     dbeta = dz32.sum(dim=(0, 1, 2))
     dgamma = (dz32 * xhat).sum(dim=(0, 1, 2))
-    da = (gamma * s) * (dz32 - dbeta / n - xhat * (dgamma / n))
+    sums, n = _global_sums(torch.stack([dbeta, dgamma]), n, group)
+    da = (gamma * s) * (dz32 - sums[0] / n - xhat * (sums[1] / n))
     return torch.where(a > 0, da, 0.0).to(a.dtype), dgamma, dbeta
 
 
@@ -164,19 +188,19 @@ def _conv3x3_grads(x, dy, w, out_dtype):
             din.permute(0, 2, 3, 1).to(out_dtype))
 
 
-def bottleneck_train_bwd(res, g):
+def bottleneck_train_bwd(res, g, group=None):
     """Grads of the 13 inputs (x, w1, b1, w2, b2, w3, b3, g1, be1, g2, be2,
     g3, be3) from the residuals and the output cotangent g."""
     (x, a1, a2, a3, mu1, var1, mu2, var2, mu3, var3,
      w1, w2, w3, g1, be1, g2, be2, g3, be3) = res
     dt = x.dtype
-    dy3, dg3, dbe3 = _unit_bwd(g, a3, mu3, var3, g3)
+    dy3, dg3, dbe3 = _unit_bwd(g, a3, mu3, var3, g3, group)
     z2 = _bn_apply(a2, mu2, var2, g2, be2, dt)
     dw3, db3, dz2 = _conv1x1_grads(z2, dy3, w3, dt)
-    dy2, dg2, dbe2 = _unit_bwd(dz2, a2, mu2, var2, g2)
+    dy2, dg2, dbe2 = _unit_bwd(dz2, a2, mu2, var2, g2, group)
     z1 = _bn_apply(a1, mu1, var1, g1, be1, dt)
     dw2, db2, dz1 = _conv3x3_grads(z1, dy2, w2, dt)
-    dy1, dg1, dbe1 = _unit_bwd(dz1, a1, mu1, var1, g1)
+    dy1, dg1, dbe1 = _unit_bwd(dz1, a1, mu1, var1, g1, group)
     dw1, db1, din = _conv1x1_grads(x, dy1, w1, dt)
     dx = (g.float() + din.float()).to(dt)
     return (dx, dw1, db1, dw2, db2, dw3, db3,
@@ -195,22 +219,37 @@ def _bwd_consts(r0, r1, mu, var, gamma, n):
     return torch.stack([k1, k2, k3]), dgamma, dbeta
 
 
-def bottleneck_train_bwd_cuda(res, g):
+def _unit_consts(sums, mu, var, gamma, n, group):
+    """_bwd_consts of one unit from this rank's (2, C) reductions. With a
+    group the input gradient's constants K take the sums over every rank,
+    but dgamma/dbeta stay this rank's share: the step's flat all-reduce
+    of the gradients sums the shares, where global sums here would give
+    each rank the whole sum and the mean over ranks W times the true
+    gradient (nn.SyncBatchNorm splits its backward the same way)."""
+    k, dgamma, dbeta = _bwd_consts(sums[0], sums[1], mu, var, gamma, n)
+    if group is not None:
+        gsums, gn = _global_sums(sums, n, group)
+        k = _bwd_consts(gsums[0], gsums[1], mu, var, gamma, gn)[0]
+    return k, dgamma, dbeta
+
+
+def bottleneck_train_bwd_cuda(res, g, group=None):
     """The contract of bottleneck_train_bwd on the kernels: one reduction
     and three unit backwards, each folding the next unit's reductions into
-    its epilogue."""
+    its epilogue; with a group, each unit's reductions are all-reduced
+    between the kernel that makes them and the one that uses them."""
     (x, a1, a2, a3, mu1, var1, mu2, var2, mu3, var3,
      w1, w2, w3, g1, be1, g2, be2, g3, be3) = res
     B, H, W, _ = x.shape
     n = B * H * W
     sums3 = ker.bn_bwd_reduce(g, a3)
-    k3c, dg3, dbe3 = _bwd_consts(sums3[0], sums3[1], mu3, var3, g3, n)
+    k3c, dg3, dbe3 = _unit_consts(sums3, mu3, var3, g3, n, group)
     aff2 = torch.stack(_fold_affine(mu2, var2, g2, be2))
     dz2, dw3, db3, sums2 = ker.unit1x1_bwd(g, a3, a2, w3, k3c, aff2)
-    k2c, dg2, dbe2 = _bwd_consts(sums2[0], sums2[1], mu2, var2, g2, n)
+    k2c, dg2, dbe2 = _unit_consts(sums2, mu2, var2, g2, n, group)
     aff1 = torch.stack(_fold_affine(mu1, var1, g1, be1))
     dz1, dw2, db2, sums1 = ker.unit3x3_bwd(dz2, a2, a1, w2, k2c, aff1)
-    k1c, dg1, dbe1 = _bwd_consts(sums1[0], sums1[1], mu1, var1, g1, n)
+    k1c, dg1, dbe1 = _unit_consts(sums1, mu1, var1, g1, n, group)
     dx, dw1, db1 = ker.unit1_bwd(dz1, a1, x, g, w1, k1c)
     return (dx, dw1, db1[0], dw2, db2[0], dw3, db3[0],
             dg1, dbe1, dg2, dbe2, dg3, dbe3)
@@ -239,13 +278,20 @@ class _BottleneckTrain(torch.autograd.Function):
         return (None, None, *grads)
 
 
-@lru_cache(maxsize=None)
-def make_bottleneck_train(backend: str = "plain"):
+def make_bottleneck_train(backend: str = "plain", group=None):
     """The train-mode bottleneck as a differentiable function:
     f(x, w1, b1, w2, b2, w3, b3, g1, be1, g2, be2, g3, be3) -> (out,
     (mu1, var1, mu2, var2, mu3, var3)), differentiable in all 13 inputs.
     backend: "plain", "cuda", "cuda_fwd" or "cuda_bwd" (module docstring);
-    unknown names raise."""
+    unknown names raise. With a process `group` (data parallel) the BN
+    statistics are those of every rank's rows together, and so are the
+    reductions of the input gradient; the BN parameters' gradients are
+    this rank's share."""
+    return _make_bottleneck_train(backend, group)
+
+
+@lru_cache(maxsize=None)
+def _make_bottleneck_train(backend: str, group):
     if backend not in BACKENDS:
         raise ValueError(f"unknown bottleneck backend: {backend!r}; use one "
                          f"of {BACKENDS}")
@@ -253,6 +299,8 @@ def make_bottleneck_train(backend: str = "plain"):
         else bottleneck_train_fwd
     bwd = bottleneck_train_bwd_cuda if backend in ("cuda", "cuda_bwd") \
         else bottleneck_train_bwd
+    if group is not None:
+        fwd, bwd = partial(fwd, group=group), partial(bwd, group=group)
 
     def f(*args):
         out, *stats = _BottleneckTrain.apply(fwd, bwd, *args)

@@ -35,7 +35,7 @@ from single_person_pose_estimation_tpu_torch.models.hourglass import (
 )
 
 
-def _select_fn(kernel_backend: str, on_cuda: bool):
+def _select_fn(kernel_backend: str, on_cuda: bool, group=None):
     """Spatial size -> the bottleneck function of that level."""
     if kernel_backend == "auto":
         kernel_backend = "cuda" if on_cuda else "plain"
@@ -47,8 +47,8 @@ def _select_fn(kernel_backend: str, on_cuda: bool):
             raise ValueError(f"kernel_backend 'mixed:LO-HI' takes two "
                              f"sizes, got {kernel_backend!r}") from None
         return lambda h: make_bottleneck_train(
-            "cuda" if lo <= h <= hi else "plain")
-    fn = make_bottleneck_train(kernel_backend)
+            "cuda" if lo <= h <= hi else "plain", group)
+    fn = make_bottleneck_train(kernel_backend, group)
     return lambda h: fn
 
 
@@ -76,7 +76,8 @@ def _bottleneck(model, x, name, select_fn):
 
 
 def fused_train_apply(model, images: torch.Tensor,
-                      kernel_backend: str = "auto") -> List[torch.Tensor]:
+                      kernel_backend: str = "auto",
+                      group=None) -> List[torch.Tensor]:
     """images (B, H, W, 3) -> per-stack (B, H/4, W/4, K) float32 heatmaps,
     as `model(images, train=True)`, updating the BN running statistics.
 
@@ -88,7 +89,11 @@ def fused_train_apply(model, images: torch.Tensor,
     differs from the JAX package, where it means plain ("jnp") everywhere
     after TPU measurements; here it takes the kernels, as
     `augment_backend="auto"` takes the warp kernel. It is not a measured
-    choice on the H100 yet (PERF.md records both step times)."""
+    choice on the H100 yet (PERF.md records both step times).
+
+    With a process `group` (data parallel) every BN, in the bottlenecks
+    and outside them, takes the statistics of every rank's rows together
+    (see `bottleneck_grad.make_bottleneck_train`)."""
     if model.mobile:
         raise ValueError("the fused train forward supports the non-mobile "
                          "hourglass only")
@@ -96,12 +101,12 @@ def fused_train_apply(model, images: torch.Tensor,
             or images.shape[2] % 64:
         raise ValueError(f"input must be (B, H, W, 3) with H and W divisible "
                          f"by 64; got {tuple(images.shape)}")
-    select_fn = _select_fn(kernel_backend, images.is_cuda)
+    select_fn = _select_fn(kernel_backend, images.is_cuda, group)
     bneck = lambda x, name: _bottleneck(model, x, name, select_fn)
     x = images.to(model.compute_dtype).permute(0, 3, 1, 2)
     if x.is_cuda:
         x = x.contiguous(memory_format=torch.channels_last)
-    y = model.front(x, train=True)
+    y = model.front(x, train=True, group=group)
     outputs = []
     for i in range(model.num_stacks):
         hg = f"hg{i}"
@@ -118,7 +123,7 @@ def fused_train_apply(model, images: torch.Tensor,
             u = d + F.interpolate(u, scale_factor=2, mode="nearest")
             u = bneck(u, f"{hg}_upsample_{lvl}_merged")
         head = model._bn(model._conv(u, hg + "_conv_1x1_1"),
-                         hg + "_conv_1x1_1_bn", True)
+                         hg + "_conv_1x1_1_bn", True, group)
         pred = model._conv(head, hg + "_conv_1x1_predict", "sigmoid")
         outputs.append(pred.float().permute(0, 2, 3, 1))
         if i != model.num_stacks - 1:

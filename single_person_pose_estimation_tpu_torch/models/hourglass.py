@@ -33,7 +33,10 @@ Reference details kept:
     running statistics as r = m*r + (1-m)*batch with the BIASED variance
     and m = `bn_momentum` (0.99; flax's convention, not torch's).
     `F.batch_norm(training=True)` would store the unbiased variance and
-    read momentum the other way round.
+    read momentum the other way round. Under data parallel
+    (`forward(..., group=)`) the statistics are over the global batch;
+    `nn.SyncBatchNorm` is not used: it refuses CPU tensors and computes
+    its own variance, not flax's.
 
 Parameters are stored in float32; `compute_dtype` casts the activations
 and weights of every conv, as flax's `dtype=` does.
@@ -46,6 +49,10 @@ from typing import List, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from single_person_pose_estimation_tpu_torch.parallel.distributed import (
+    all_reduce_sum,
+)
 
 _BN_EPS = 1e-3
 _ACTIVATIONS = ("sigmoid", "linear", "relu")
@@ -67,6 +74,20 @@ def update_running(bn: nn.BatchNorm2d, mean: torch.Tensor,
                               + (1.0 - momentum) * mean)
         bn.running_var.copy_(momentum * bn.running_var
                              + (1.0 - momentum) * var)
+
+
+def global_moments(xf: torch.Tensor, dims, group):
+    """flax's batch mean and variance E[x^2]-E[x]^2 (clamped at 0) of a
+    float32 tensor over `dims` and over every rank of `group`: one
+    differentiable all_reduce of [sum x, sum x^2, count], so the ranks may
+    hold different numbers of rows."""
+    s1, s2 = xf.sum(dims), (xf * xf).sum(dims)
+    c = s1.numel()
+    tot = all_reduce_sum(torch.cat([s1, s2, xf.new_full((1,), xf.numel()
+                                                        // c)]), group)
+    n = tot[-1]
+    mean = tot[:c] / n
+    return mean, torch.clamp(tot[c:2 * c] / n - mean * mean, min=0.0)
 
 
 def bottleneck_specs(name: str, cin: int, cout: int, mobile: bool = False):
@@ -184,49 +205,53 @@ class StackedHourglass(nn.Module):
             return torch.sigmoid(y.float())
         return y
 
-    def _bn(self, x, name, train=False):
+    def _bn(self, x, name, train=False, group=None):
         bn = getattr(self, name)
         if not train:
             return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
                                 bn.weight, bn.bias, False, 0.0,
                                 bn.eps).to(self.compute_dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
+        if group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+        else:
+            mean, var = global_moments(xf, (0, 2, 3), group)
         update_running(bn, mean, var, self.bn_momentum)
         col = lambda v: v[None, :, None, None]
         mul = torch.rsqrt(var + bn.eps) * bn.weight
         y = (xf - col(mean)) * col(mul) + col(bn.bias)
         return y.to(self.compute_dtype)
 
-    def _bottleneck(self, x, name, cout, train=False):
+    def _bottleneck(self, x, name, cout, train=False, group=None):
         skip = x if x.shape[1] == cout else self._conv(x, name + "_skip")
         y = self._bn(self._conv(x, name + "_conv_1x1_1"),
-                     name + "_conv_1x1_1_bn", train)
+                     name + "_conv_1x1_1_bn", train, group)
         y = self._bn(self._conv(y, name + "_conv_3x3_2"),
-                     name + "_conv_3x3_2_bn", train)
+                     name + "_conv_3x3_2_bn", train, group)
         y = self._bn(self._conv(y, name + "_conv_1x1_3"),
-                     name + "_conv_1x1_3_bn", train)
+                     name + "_conv_1x1_3_bn", train, group)
         return skip + y
 
-    def _hourglass(self, x, i, is_last, train=False):
+    def _hourglass(self, x, i, is_last, train=False, group=None):
         c, hg = self.num_channels, f"hg{i}"
+        bneck = lambda v, name: self._bottleneck(v, name, c, train, group)
         feats = []
         p = x
         for lvl in ("f1", "f2", "f4", "f8"):
-            f = self._bottleneck(p, f"{hg}_downsample_{lvl}", c, train)
+            f = bneck(p, f"{hg}_downsample_{lvl}")
             feats.append((f, lvl))
             p = F.max_pool2d(f, 2)
         for lvl in ("f8_1", "f8_2", "f8_3"):
-            p = self._bottleneck(p, f"{hg}_downsample_{lvl}", c, train)
+            p = bneck(p, f"{hg}_downsample_{lvl}")
         u = p
         for f, lvl in reversed(feats):
-            d = self._bottleneck(f, f"{hg}_upsample_{lvl}_short", c, train)
+            d = bneck(f, f"{hg}_upsample_{lvl}_short")
             u = d + F.interpolate(u, scale_factor=2, mode="nearest")
-            u = self._bottleneck(u, f"{hg}_upsample_{lvl}_merged", c, train)
+            u = bneck(u, f"{hg}_upsample_{lvl}_merged")
         head = self._bn(self._conv(u, hg + "_conv_1x1_1"),
-                        hg + "_conv_1x1_1_bn", train)
+                        hg + "_conv_1x1_1_bn", train, group)
         pred = self._conv(head, hg + "_conv_1x1_predict",
                           self.predict_activation)
         if is_last:
@@ -236,21 +261,24 @@ class StackedHourglass(nn.Module):
                         "linear")
         return h2 + hm + x, pred
 
-    def front(self, x, train=False):
+    def front(self, x, train=False, group=None):
         """Front module on an NCHW compute-dtype tensor (H/4 x W/4 out)."""
         c = self.num_channels
         y = self._bn(self._conv(x, "front_conv_1x1_1"), "front_conv_1x1_1_bn",
-                     train)
-        y = self._bottleneck(y, "front_bottleneck_1", c // 2, train)
+                     train, group)
+        y = self._bottleneck(y, "front_bottleneck_1", c // 2, train, group)
         y = F.max_pool2d(y, 2)
-        y = self._bottleneck(y, "front_bottleneck_2", c // 2, train)
-        return self._bottleneck(y, "front_bottleneck_3", c, train)
+        y = self._bottleneck(y, "front_bottleneck_2", c // 2, train, group)
+        return self._bottleneck(y, "front_bottleneck_3", c, train, group)
 
-    def forward(self, x: torch.Tensor,
-                train: bool = False) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                group=None) -> List[torch.Tensor]:
         """x (B, H, W, 3) -> per-stack heatmaps. `train=True` normalises
         with batch statistics and updates the running ones in place, as
-        flax's `apply(..., train=True, mutable=["batch_stats"])`."""
+        flax's `apply(..., train=True, mutable=["batch_stats"])`. With a
+        process `group` (data parallel) the batch statistics are those of
+        every rank's rows together: each train-mode BN all-reduces its
+        sums, forward and backward (`global_moments`)."""
         if x.dim() != 4 or x.shape[-1] != 3 or x.shape[1] % 64 \
                 or x.shape[2] % 64:
             raise ValueError(
@@ -259,10 +287,11 @@ class StackedHourglass(nn.Module):
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        y = self.front(x, train)
+        y = self.front(x, train, group)
         outputs = []
         for i in range(self.num_stacks):
-            y, pred = self._hourglass(y, i, i == self.num_stacks - 1, train)
+            y, pred = self._hourglass(y, i, i == self.num_stacks - 1, train,
+                                      group)
             outputs.append(pred.float().permute(0, 2, 3, 1))
         return outputs
 

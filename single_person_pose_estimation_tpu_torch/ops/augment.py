@@ -249,12 +249,23 @@ def augment_batch_with_draws(images, kps_x, kps_y, kps_v,
 def augment_batch(generator, images, kps_x, kps_y, kps_v,
                   label_size: int = 64, flip_pairs=DEFAULT_FLIP_PAIRS,
                   geometric_backend: str = "gather", scale_min: float = 0.75,
-                  scale_max: float = 1.25, rotate_deg: float = 30.0):
+                  scale_max: float = 1.25, rotate_deg: float = 30.0,
+                  shard: Tuple[int, int] = (0, 1)):
     """Full train-time augmentation of a batch with draws from `generator`
     (a torch.Generator on the images' device). Returns (images, kx, ky,
-    kv)."""
-    draws = draw_augment_params(generator, images.shape[0], scale_min,
-                                scale_max, rotate_deg, device=images.device)
+    kv).
+
+    shard=(i, n) (data parallel): the B images are rows i*B..(i+1)*B of a
+    global batch of n*B rows. The draws are made for the whole global
+    batch and this rank keeps its rows, so every rank's generator stays in
+    step with the others' and the n ranks together augment as one process
+    does the concatenated batch."""
+    index, count = shard
+    b = images.shape[0]
+    draws = draw_augment_params(generator, b * count, scale_min, scale_max,
+                                rotate_deg, device=images.device)
+    if count > 1:
+        draws = AugmentDraws(*(d[index * b:(index + 1) * b] for d in draws))
     return augment_batch_with_draws(images, kps_x, kps_y, kps_v, draws,
                                     label_size, flip_pairs,
                                     geometric_backend)

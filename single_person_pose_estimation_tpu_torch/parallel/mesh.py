@@ -1,0 +1,220 @@
+"""The data-parallel mesh: devices in order, and the rows each one takes.
+
+The counterpart of the JAX package's `parallel/mesh.py`. JAX builds a
+`jax.sharding.Mesh` and lets GSPMD split the batch and insert the
+collectives; here the mesh is a small object that says which devices take
+part and, in a multi-process run, which process group joins them, and the
+code that runs over it splits the batch and calls the collectives itself:
+
+* training, one process per device (`torchrun`): the mesh holds every
+  rank's device in rank order and the process group. Each process feeds
+  its own rows; `training/steps.py` all-reduces the BN sums and the
+  gradients over the group;
+* evaluation and serving, one process over the devices it sees: the mesh
+  holds those devices and no group. `predict_ds` and `PoseServer` keep a
+  model replica per device, split each batch evenly over them and gather
+  the results.
+
+A device list may repeat a device, as `[cpu, cpu]` or `[cuda:0, cuda:0]`:
+the replicas (or ranks) then share that device, and each still takes its
+own rows. That is how the tests and a machine with one card stand in for
+several cards, as the JAX tests spoof 8 CPU devices.
+
+Only the "data" axis is ported; a "model" axis (tensor parallelism, the
+JAX package's `parallel/sharding_rules.py`) raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import os
+from dataclasses import dataclass
+from typing import Any, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+MODEL_AXIS_MISSING = (
+    "a 'model' mesh axis (tensor parallelism) is not ported yet (ROADMAP "
+    "Queue 1, the other parallel/ modules)")
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """`devices`: one per data-parallel member, in order (rank order in a
+    multi-process run). `group`: the process group of a multi-process run,
+    one process per device, or None when one process drives every device.
+    `rank`: this process's index in `devices` (0 without a group)."""
+
+    devices: Tuple[torch.device, ...]
+    group: Optional[Any] = None
+    rank: int = 0
+
+    @property
+    def data_size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.data_size}
+
+    @property
+    def device(self) -> torch.device:
+        """This process's device (the first one without a group)."""
+        return self.devices[self.rank]
+
+    @property
+    def local_devices(self) -> Tuple[torch.device, ...]:
+        """The devices this process drives: its own with a group, all of
+        them without."""
+        return (self.device,) if self.group is not None else self.devices
+
+
+def _check_device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"mesh device {d} but CUDA is not available")
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        if d.index >= torch.cuda.device_count():
+            raise ValueError(f"mesh device {d}: only "
+                             f"{torch.cuda.device_count()} CUDA devices")
+    return d
+
+
+def local_device() -> torch.device:
+    """A process's own card under `torchrun`: cuda:LOCAL_RANK."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass the mesh's devices "
+                           "explicitly (e.g. devices=['cpu', 'cpu'])")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+
+
+def create_mesh(mesh_shape: Sequence[int] = (-1,),
+                axis_names: Sequence[str] = ("data",),
+                devices: Optional[Sequence] = None) -> Mesh:
+    """Build a data mesh.
+
+    In a process that joined a process group (`distributed.initialize`),
+    the mesh spans the group: `devices` lists one device per rank in rank
+    order (default: each rank's `local_device()`, gathered over the
+    group). Otherwise it spans `devices` (default: every visible CUDA
+    device; raises without CUDA). `mesh_shape` is (-1,) or (n,) with n the
+    device count. A CUDA device on a host without CUDA raises.
+    """
+    if tuple(axis_names) != ("data",) or len(mesh_shape) != 1:
+        raise NotImplementedError(MODEL_AXIS_MISSING)
+    group = dist.group.WORLD if dist.is_available() and dist.is_initialized() \
+        else None
+    if devices is None:
+        if group is not None:
+            gathered: List[Optional[str]] = [None] * dist.get_world_size()
+            dist.all_gather_object(gathered, str(local_device()))
+            devices = gathered
+        else:
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device; pass the mesh's devices "
+                                   "explicitly (e.g. devices=['cpu', 'cpu'])")
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+    devices = tuple(_check_device(d) for d in devices)
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    rank = 0
+    if group is not None:
+        rank = dist.get_rank()
+        if len(devices) != dist.get_world_size():
+            raise ValueError(f"{len(devices)} devices for a process group "
+                             f"of {dist.get_world_size()}: give one device "
+                             "per rank")
+    n = mesh_shape[0]
+    if n not in (-1, len(devices)):
+        raise ValueError(f"mesh shape {tuple(mesh_shape)} does not cover "
+                         f"{len(devices)} devices")
+    return Mesh(devices, group, rank)
+
+
+# ---------------------------------------------------------------------------
+# Batches over the mesh.
+# ---------------------------------------------------------------------------
+
+def _map(fn, batch):
+    if isinstance(batch, dict):
+        return {k: fn(v) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(fn(v) for v in batch)
+    return fn(batch)
+
+
+def _leading(batch) -> int:
+    if isinstance(batch, dict):
+        batch = next(iter(batch.values()))
+    elif isinstance(batch, (list, tuple)):
+        batch = batch[0]
+    return batch.shape[0]
+
+
+def batch_sharding(mesh: Mesh, n: int) -> List[slice]:
+    """The rows of an n-row global batch that each local device takes:
+    this rank's share with a group, one share per device without. n must
+    divide evenly (see pad_batch_to_devices)."""
+    if n % mesh.data_size:
+        raise ValueError(f"a batch of {n} does not split over "
+                         f"{mesh.data_size} devices; pad it first")
+    per = n // mesh.data_size
+    first = mesh.rank if mesh.group is not None else 0
+    return [slice((first + i) * per, (first + i + 1) * per)
+            for i in range(len(mesh.local_devices))]
+
+
+def shard_batch(batch, mesh: Mesh) -> list:
+    """A global batch (a tensor, an array, or a dict/list of them) ->
+    one piece per local device, each on its device: with a group, this
+    rank's rows; without, every device's rows in order."""
+    pieces = []
+    for dev, rows in zip(mesh.local_devices,
+                         batch_sharding(mesh, _leading(batch))):
+        pieces.append(_map(lambda x: torch.as_tensor(x[rows]).to(dev),
+                           batch))
+    return pieces
+
+
+def pad_batch_to_devices(batch, n_devices: int):
+    """Zero-pad the batch dim up to a multiple of the device count (the
+    last partial eval batch otherwise cannot split). Returns (batch,
+    n_valid); numpy arrays stay numpy arrays, tensors stay tensors."""
+    n = _leading(batch)
+    pad = -n % n_devices
+    if pad == 0:
+        return batch, n
+
+    def _pad(x):
+        if isinstance(x, torch.Tensor):
+            return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+        x = np.asarray(x)
+        return np.concatenate([x, np.zeros((pad, *x.shape[1:]), x.dtype)])
+
+    return _map(_pad, batch), n
+
+
+def replicas(model: torch.nn.Module, mesh: Mesh) -> List[torch.nn.Module]:
+    """One model per local device, in order: `model` itself moved to the
+    first device, a copy on each other device, and the same module again
+    where a device repeats."""
+    devices = mesh.local_devices
+    by_device = {devices[0]: model.to(devices[0])}
+    for d in devices[1:]:
+        if d not in by_device:
+            by_device[d] = copy.deepcopy(model).to(d)
+    return [by_device[d] for d in devices]
+
+
+def on_device(device: torch.device):
+    """Make `device` the current CUDA device (the kernels launch on the
+    current device); nothing on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

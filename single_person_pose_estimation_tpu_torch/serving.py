@@ -27,7 +27,9 @@ forward takes each through its own kernels.
 
 `device` is explicit. `device="cuda"` raises when CUDA is absent; the
 tests serve on `device="cpu"`, where the kernels' plain versions run.
-`mesh=` is not ported (ROADMAP Queue 1, multi-GPU data parallel).
+With `mesh=` (parallel/mesh.py) the server keeps a replica of the model
+on each device of the mesh and splits every step's bucket evenly over
+them, as the JAX package's server shards its buckets over the mesh.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from single_person_pose_estimation_tpu_torch.ops.cuda.decode_kernel import (
 from single_person_pose_estimation_tpu_torch.ops.decode import (
     decode_v1_batch,
 )
+from single_person_pose_estimation_tpu_torch.parallel import mesh as mesh_lib
 
 _WIRE = {"uint8": torch.uint8, "bfloat16": torch.bfloat16,
          "float32": torch.float32}
@@ -64,17 +67,20 @@ class PoseServer:
     Args:
       model: a port StackedHourglass (standard or mobile=True) holding its
         weights; it is moved to `device`.
-      device: "cuda", "cuda:N" or "cpu"; required.
+      device: "cuda", "cuda:N" or "cpu"; required unless `mesh` is given.
       buckets: ascending micro-batch sizes; a batch of n pads to the
         smallest bucket >= n. The largest bucket is max_batch.
       max_wait_s: how long the batcher waits to fill a larger bucket.
       use_fused: route through models.fused_inference.fused_apply (the
         CUDA kernels). "auto" = CUDA device and a 2-byte compute dtype.
       decode_version / legacy / conf_threshold: reference decode knobs.
-      mesh: not ported; must be None.
+      mesh: a `parallel.mesh.Mesh`: a replica of the model on each of its
+        local devices, each step's bucket split evenly over them. Every
+        bucket is rounded UP to a multiple of the replica count, so
+        (1, 4, 16, 64) over 8 devices becomes (8, 16, 64).
     """
 
-    def __init__(self, model, *, device,
+    def __init__(self, model, *, device=None,
                  buckets: Sequence[int] = (1, 4, 16, 64),
                  max_wait_s: float = 0.002,
                  use_fused="auto",
@@ -84,18 +90,28 @@ class PoseServer:
                  mesh=None,
                  transfer_dtype: str = "uint8",
                  max_in_flight: int = 2):
-        if mesh is not None:
-            raise NotImplementedError("multi-device serving (mesh=) is not "
-                                      "ported yet (ROADMAP Queue 1, "
-                                      "multi-GPU data parallel)")
         if sorted(set(buckets)) != list(buckets):
             raise ValueError(f"buckets must be ascending+unique: {buckets}")
-        self._device = torch.device(device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device={device!r} but CUDA is not available")
+        if mesh is None:
+            if device is None:
+                raise ValueError("PoseServer needs a device or a mesh")
+            self._devices = (torch.device(device),)
+            if self._devices[0].type == "cuda" \
+                    and not torch.cuda.is_available():
+                raise RuntimeError(f"device={device!r} but CUDA is not "
+                                   "available")
+            models = [model.to(self._devices[0])]
+        else:
+            self._devices = mesh.local_devices
+            models = mesh_lib.replicas(model, mesh)
+            n = len(self._devices)
+            buckets = tuple(sorted({-(-b // n) * n for b in buckets}))
+        self._device = self._devices[0]
         if transfer_dtype not in _WIRE:
             raise ValueError(f"transfer_dtype: {transfer_dtype!r}")
-        self._model = model.to(self._device).eval()
+        for m in models:
+            m.eval()
+        self._model = models[0]
         self._buckets = tuple(buckets)
         self._bucket_set = frozenset(self._buckets)
         self._max_wait_s = max_wait_s
@@ -103,7 +119,10 @@ class PoseServer:
         if self._fused_auto:
             use_fused = auto_use_fused(model, self._device)
         self._use_fused = bool(use_fused)
-        self._prepared = prepare_fused(model) if self._use_fused else None
+        prepared = {id(m): prepare_fused(m) if self._use_fused else None
+                    for m in models}
+        self._replicas = [(m, prepared[id(m)], d)
+                          for m, d in zip(models, self._devices)]
         self._transfer_dtype = transfer_dtype
         if decode_version == 1:
             self._decode = partial(decode_v1_batch,
@@ -132,23 +151,35 @@ class PoseServer:
     def use_fused(self) -> bool:
         return self._use_fused
 
+    @property
+    def buckets(self):
+        return self._buckets
+
     # ------------------------------------------------------------------
     # Device step.
     # ------------------------------------------------------------------
 
     def _step(self, wire: torch.Tensor) -> torch.Tensor:
-        """Host wire batch -> (B, K, 3) keypoints on the device (async)."""
+        """Host wire batch -> (B, K, 3) keypoints on the first device
+        (async): each replica takes an equal share of the rows."""
+        outs = []
         with torch.inference_mode():
-            x = wire.to(self._device, non_blocking=True)
-            if x.dtype == torch.uint8:
-                x = x.float() / 255.0
-            else:
-                x = x.float()
-            hms = forward_last_stack(self._model, x,
-                                     use_fused=self._use_fused,
-                                     auto=self._fused_auto,
-                                     prepared=self._prepared)
-            return self._decode(hms)
+            for (model, prepared, dev), piece in zip(
+                    self._replicas, wire.chunk(len(self._replicas))):
+                with mesh_lib.on_device(dev):
+                    x = piece.to(dev, non_blocking=True)
+                    if x.dtype == torch.uint8:
+                        x = x.float() / 255.0
+                    else:
+                        x = x.float()
+                    hms = forward_last_stack(model, x,
+                                             use_fused=self._use_fused,
+                                             auto=self._fused_auto,
+                                             prepared=prepared)
+                    outs.append(self._decode(hms))
+            if len(outs) == 1:
+                return outs[0]
+            return torch.cat([o.to(self._device) for o in outs])
 
     def _to_wire(self, img) -> torch.Tensor:
         img = np.asarray(img, np.float32)

@@ -12,6 +12,11 @@ Each checkpoint is written into a temporary directory and renamed into
 place, so a reader never sees half of one. Saves are synchronous, so
 `wait` has nothing to wait for (the JAX package's Orbax saves may run in
 the background).
+
+Data parallel (`group=`, one process per device): the ranks hold the same
+state, so rank 0 alone writes, and every save ends in a barrier; the
+directory must be one that every rank reads (one host, or a shared file
+system). Every rank restores from it.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import shutil
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from single_person_pose_estimation_tpu_torch.training.steps import TrainState
 
@@ -46,13 +52,19 @@ def apply_payload(state: TrainState, payload: dict) -> TrainState:
 class CheckpointManager:
     """Latest and best checkpoints of a TrainState."""
 
-    def __init__(self, ckpt_dir: str, max_to_keep: int = 3):
+    def __init__(self, ckpt_dir: str, max_to_keep: int = 3, group=None):
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1: {max_to_keep}")
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         self.max_to_keep = max_to_keep
         self._latest = os.path.join(self.ckpt_dir, "latest")
         self._best = os.path.join(self.ckpt_dir, "best")
+        self.group = group
+        self._writer = group is None or dist.get_rank(group) == 0
+
+    def _barrier(self) -> None:
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     # -- save ------------------------------------------------------------
 
@@ -79,12 +91,16 @@ class CheckpointManager:
     def save(self, epoch: int, state: TrainState, meta: dict) -> None:
         """Save state and metadata under `epoch`; keep the newest
         max_to_keep."""
-        self._write(os.path.join(self._latest, str(epoch)), state, meta)
-        for old in self._epochs()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self._latest, str(old)))
+        if self._writer:
+            self._write(os.path.join(self._latest, str(epoch)), state, meta)
+            for old in self._epochs()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self._latest, str(old)))
+        self._barrier()
 
     def save_best(self, state: TrainState, meta: dict) -> None:
-        self._write(os.path.join(self._best, "0"), state, meta)
+        if self._writer:
+            self._write(os.path.join(self._best, "0"), state, meta)
+        self._barrier()
 
     def maybe_promote_best(self, val_loss: float, state: TrainState,
                            meta: dict) -> bool:
@@ -92,6 +108,7 @@ class CheckpointManager:
         Returns True when promoted."""
         best_meta = self.best_meta()
         prev = best_meta.get("val_loss") if best_meta else None
+        self._barrier()     # every rank has read before rank 0 writes
         if prev is None or val_loss < prev:
             self.save_best(state, {**meta, "val_loss": float(val_loss)})
             return True

@@ -9,6 +9,19 @@ for the convs) and one Adam update. The JAX step is a pure function of a
 donated state; here the step updates its `TrainState` in place and returns
 it, so the call reads the same: `state, metrics = step(state, batch)`.
 
+Data parallel (`mesh=`, one process per device joined by a process
+group; see parallel/mesh.py): each rank passes its own rows, the same
+number on every rank. Every train-mode BN takes the statistics of the
+global batch (an all_reduce of its sums, forward and backward), the
+augmentation draws for the global batch and keeps the rank's rows, and
+after `backward()` one all_reduce of a flat buffer of every gradient and
+the step's metrics, divided by the world size, gives each rank the
+gradient of the mean loss over the global batch and the global metrics.
+Every rank then applies the same update to the same numbers, so the
+ranks' parameters stay bit-identical. The model is not wrapped in
+DistributedDataParallel: its reducer is armed by the wrapper's forward,
+which `fused_train_apply` never calls.
+
 A batch is a dict with
   "image": (B, H, W, 3) float32 in [0, 1], or uint8 (divided by 255 on the
            device: the uint8 wire of `config.train_transfer_dtype`);
@@ -32,6 +45,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from single_person_pose_estimation_tpu_torch import losses as losses_lib
 from single_person_pose_estimation_tpu_torch.configs.default_config import Config
@@ -42,6 +56,7 @@ from single_person_pose_estimation_tpu_torch.ops import augment as augment_lib
 from single_person_pose_estimation_tpu_torch.ops.cuda.heatmap_kernel import (
     render_heatmaps_batch,
 )
+from single_person_pose_estimation_tpu_torch.parallel import mesh as mesh_lib
 
 
 def resolve_device(device) -> torch.device:
@@ -212,19 +227,20 @@ MODEL_BACKENDS = ("flax", "fused")
 
 
 def forward_loss(model, loss_fn, images, heatmaps, bn_mode: str = "batch",
-                 model_backend: str = "flax"):
+                 model_backend: str = "flax", group=None):
     """(total, per-stack losses). bn_mode "batch" normalises with batch
     statistics and updates the running ones; "frozen" normalises with the
     running statistics and leaves them as they are, whatever the backend.
     model_backend "flax" runs the model's forward under autograd (the JAX
     package's name for `nn.Module.apply`); "fused" runs
-    `experimental.fused_train.fused_train_apply` (train-mode BN only)."""
+    `experimental.fused_train.fused_train_apply` (train-mode BN only).
+    With a process `group` the batch statistics are the global batch's."""
     if bn_mode == "frozen":
         outs = model(images, train=False)
     elif model_backend == "fused":
-        outs = fused_train_apply(model, images)
+        outs = fused_train_apply(model, images, group=group)
     else:
-        outs = model(images, train=True)
+        outs = model(images, train=True, group=group)
     per_stack = losses_lib.per_stack_losses(loss_fn, heatmaps, outs)
     return torch.stack(per_stack).sum(), per_stack
 
@@ -236,9 +252,40 @@ def _metrics(total, per_stack):
     return m
 
 
+def mesh_group(mesh):
+    """The process group a step all-reduces over: None without a mesh or
+    on a mesh of one device that no group joins."""
+    if mesh is None:
+        return None
+    if mesh.group is None:
+        if mesh.data_size > 1:
+            raise ValueError(
+                "training over several devices runs one process per device: "
+                "launch with torchrun and build the mesh after "
+                "parallel.distributed.initialize()")
+        return None
+    return mesh.group
+
+
+def _all_reduce_step(params, metrics: torch.Tensor, group,
+                     world: int) -> torch.Tensor:
+    """One all_reduce of a flat float32 buffer of every gradient and the
+    step's metrics, divided by the world size; the grads are written back
+    in place and the global metrics returned."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [metrics])
+    dist.all_reduce(flat, group=group)
+    flat.div_(world)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[offset:]
+
+
 def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
                     bn_mode: str = "batch", accum_steps: int = 1,
-                    model_backend: str = "flax"):
+                    model_backend: str = "flax", mesh=None):
     """Build the train step, (state, batch) -> (state, metrics).
 
     model_backend: "flax" (the model's forward and autograd; cuDNN convs)
@@ -257,6 +304,12 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
     config.augment_backend "auto" takes the CUDA warp kernel on the card
     (see ops/augment.py). After the step each parameter's `.grad` holds the
     gradient the update used.
+
+    mesh: a `parallel.mesh.Mesh` whose process group joins one process per
+    device (module docstring). Each rank passes its own rows, the same
+    number on each. With accum_steps > 1, microbatch m of the global batch
+    is every rank's m-th chunk. A mesh of several devices without a group
+    raises ValueError.
     """
     if bn_mode not in ("batch", "frozen"):
         raise ValueError(f"bn_mode must be 'batch' or 'frozen': {bn_mode!r}")
@@ -267,6 +320,9 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
                          f"{model_backend!r}")
     label_h, label_w = config.label_height, config.label_width
     sigma = config.hm_sigma
+    group = mesh_group(mesh)
+    world = mesh.data_size if group is not None else 1
+    shard = (mesh.rank, world) if group is not None else (0, 1)
 
     def step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
@@ -281,7 +337,7 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
                 geometric_backend=config.augment_backend,
                 scale_min=config.aug_scale_min,
                 scale_max=config.aug_scale_max,
-                rotate_deg=config.aug_rotate_deg)
+                rotate_deg=config.aug_rotate_deg, shard=shard)
         heatmaps = render_heatmaps_batch(kx, ky, kv, height=label_h,
                                          width=label_w, sigma=sigma)
         opt.zero_grad()
@@ -294,7 +350,7 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
             for imgs_m, hms_m in zip(images.chunk(accum_steps),
                                      heatmaps.chunk(accum_steps)):
                 tot_m, ps_m = forward_loss(model, loss_fn, imgs_m, hms_m,
-                                           bn_mode, model_backend)
+                                           bn_mode, model_backend, group)
                 tot_m.backward()
                 totals.append(tot_m.detach())
                 stacks.append(torch.stack(ps_m).detach())
@@ -305,8 +361,13 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
             per_stack = list(torch.stack(stacks).mean(0))
         else:
             total, per_stack = forward_loss(model, loss_fn, images, heatmaps,
-                                            bn_mode, model_backend)
+                                            bn_mode, model_backend, group)
             total.backward()
+        if group is not None:
+            total, *per_stack = _all_reduce_step(
+                opt.params.values(),
+                torch.stack([total.detach(), *per_stack]).detach(), group,
+                world)
         opt.step()
         state.step += 1
         return state, _metrics(total, per_stack)
@@ -314,10 +375,14 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
     return step
 
 
-def make_eval_step(loss_fn: Callable, config: Config):
+def make_eval_step(loss_fn: Callable, config: Config, mesh=None):
     """Validation step, (state, batch) -> metrics: targets without
     augmentation, forward with the running BN statistics, per-stack
-    losses."""
+    losses. On a mesh with a process group each rank evaluates its own
+    rows, with no collective; `parallel.distributed.aggregate_metrics`
+    combines the ranks' means (as `Trainer` does). A mesh of several
+    devices without a group raises ValueError."""
+    mesh_group(mesh)
     label_h, label_w = config.label_height, config.label_width
     sigma = config.hm_sigma
 
@@ -333,15 +398,33 @@ def make_eval_step(loss_fn: Callable, config: Config):
     return step
 
 
-def make_predict_fn(model):
+def make_predict_fn(model, mesh=None):
     """images -> the LAST stack's heatmaps (the reference's eval
-    convention), with the running BN statistics."""
+    convention), with the running BN statistics.
 
-    def predict(images):
+    mesh: a model replica per local device (`parallel.mesh.replicas`);
+    the rows are padded to a multiple of their count, split evenly over
+    them, and the heatmaps gathered on the first device without the
+    padding."""
+    if mesh is None:
+        def predict(images):
+            with torch.inference_mode():
+                return model(images, train=False)[-1]
+
+        return predict
+    models = mesh_lib.replicas(model, mesh)
+
+    def predict_mesh(images):
+        padded, n = mesh_lib.pad_batch_to_devices(images, len(models))
+        outs = []
         with torch.inference_mode():
-            return model(images, train=False)[-1]
+            for m, dev, piece in zip(models, mesh.local_devices,
+                                     padded.chunk(len(models))):
+                with mesh_lib.on_device(dev):
+                    outs.append(m(piece.to(dev), train=False)[-1])
+        return torch.cat([o.to(mesh.local_devices[0]) for o in outs])[:n]
 
-    return predict
+    return predict_mesh
 
 
 def recalibrate_batch_stats(state: TrainState, batches,

@@ -20,6 +20,19 @@ moves it to `device`. `ds_builder` is any object with `build_datasets()`
 (two iterators of numpy batches), `num_train_examples` and
 `num_valid_examples`: the TFRecord `data/pipeline.py::DatasetBuilder`, or
 `data/in_memory.py::ArrayDatasetBuilder` for crops held in memory.
+
+Data parallel (`mesh=`, one process per device; see parallel/mesh.py):
+every rank builds a Trainer over its own data, `DatasetBuilder(...,
+process_index, process_count)`, whose `config.batch_size` is the rank's
+share of the global batch. The model is trained on the rank's
+`mesh.device`, starts from rank 0's weights (broadcast), and takes the
+same number of steps an epoch on every rank (the fewest any rank's data
+gives); a short last batch of a pass is skipped, so every step has
+`batch_size` rows on every rank. The train step all-reduces the BN sums
+and the gradients (training/steps.py); validation means are combined by
+example count (`parallel.distributed.aggregate_metrics`), so every rank
+promotes the same best checkpoint. Rank 0 writes the checkpoints and
+every rank restores them.
 """
 
 from __future__ import annotations
@@ -29,11 +42,18 @@ from datetime import date, timedelta
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from single_person_pose_estimation_tpu_torch import losses as losses_lib
 from single_person_pose_estimation_tpu_torch.configs.default_config import Config
 from single_person_pose_estimation_tpu_torch.data.device_prefetch import (
     device_prefetch,
+)
+from single_person_pose_estimation_tpu_torch.parallel.distributed import (
+    aggregate_metrics,
+)
+from single_person_pose_estimation_tpu_torch.parallel.mesh import (
+    MODEL_AXIS_MISSING,
 )
 from single_person_pose_estimation_tpu_torch.training import metrics as metrics_lib
 from single_person_pose_estimation_tpu_torch.training import steps as steps_lib
@@ -58,11 +78,12 @@ class Trainer:
                  bn_mode: str = "batch", accum_steps: int = 1,
                  lr_schedule: Optional[str] = None, warmup_steps: int = 0,
                  ema_decay: Optional[float] = None, device="cuda"):
-        if mesh is not None or model_axis is not None:
-            raise NotImplementedError(
-                "mesh/model_axis: multi-GPU training is not ported yet "
-                "(ROADMAP Queue 1, multi-GPU data parallel and the other "
-                "parallel/ modules)")
+        if model_axis is not None:
+            raise NotImplementedError(MODEL_AXIS_MISSING)
+        self.mesh = mesh
+        self.group = steps_lib.mesh_group(mesh)
+        if mesh is not None:
+            device = mesh.device
         self.device = steps_lib.resolve_device(device)
         self.model = model
         self.config = config
@@ -83,6 +104,18 @@ class Trainer:
         self.valid_steps = max(1, ds_builder.num_valid_examples
                                // config.batch_size)
         self.batch_size = config.batch_size
+        if self.group is not None:
+            if ds_builder.num_train_examples < config.batch_size:
+                raise ValueError(
+                    f"{ds_builder.num_train_examples} train examples on "
+                    f"rank {mesh.rank} fill no batch of {config.batch_size}")
+            agreed = torch.tensor([self.steps_per_epoch], device=self.device)
+            dist.all_reduce(agreed, op=dist.ReduceOp.MIN, group=self.group)
+            self.steps_per_epoch = int(agreed.item())
+            model.to(self.device)
+            with torch.no_grad():
+                for t in [*model.parameters(), *model.buffers()]:
+                    dist.broadcast(t, src=0, group=self.group)
 
         self.ema_decay = ema_decay
         self.lr_schedule = lr_schedule
@@ -95,10 +128,12 @@ class Trainer:
             seed=config.seed, device=self.device)
         self.train_step = steps_lib.make_train_step(
             self.loss_fn, config, augment=augment, bn_mode=bn_mode,
-            accum_steps=accum_steps)
-        self.eval_step = steps_lib.make_eval_step(self.loss_fn, config)
+            accum_steps=accum_steps, mesh=mesh)
+        self.eval_step = steps_lib.make_eval_step(self.loss_fn, config,
+                                                  mesh=mesh)
 
-        self.ckpt = CheckpointManager(config.checkpoints_path)
+        self.ckpt = CheckpointManager(config.checkpoints_path,
+                                      group=self.group)
         self.logger = metrics_lib.HistoryLogger(config.logs_path)
         self.num_stacks = model.num_stacks
         # Called with the 1-based epoch number after each epoch, once its
@@ -119,6 +154,9 @@ class Trainer:
         n_images = 0
         for _ in range(self.steps_per_epoch):
             batch = next(self.ds_train)
+            while (self.group is not None
+                   and batch["image"].shape[0] != self.batch_size):
+                batch = next(self.ds_train)     # a pass's short last batch
             n_images += batch["image"].shape[0]
             self.state, m = self.train_step(self.state, batch)
             collected.append(m)
@@ -129,8 +167,17 @@ class Trainer:
         return train_metrics
 
     def _run_validation(self) -> Dict[str, float]:
-        return _mean_metrics([self.eval_step(self.state, next(self.ds_valid))
-                              for _ in range(self.valid_steps)])
+        collected, n = [], 0
+        for _ in range(self.valid_steps):
+            batch = next(self.ds_valid)
+            n += batch["image"].shape[0]
+            collected.append(self.eval_step(self.state, batch))
+        metrics = _mean_metrics(collected)
+        if self.group is None:
+            return metrics
+        # Every rank must see the same val metrics: the best-checkpoint
+        # promotion below must not diverge across the ranks.
+        return aggregate_metrics(metrics, weight=n, group=self.group)
 
     def _fit(self, initial_epoch: int, final_epoch: int) -> None:
         for epoch in range(initial_epoch, final_epoch):

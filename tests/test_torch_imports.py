@@ -51,8 +51,8 @@ def test_ban_catches_the_jax_package_but_not_the_port():
 
 
 def test_new_modules_are_scanned():
-    """Every module of the evaluation, mobile, fused-training and
-    entry-point slices is among the scanned sources."""
+    """Every module of the evaluation, mobile, fused-training, entry-point
+    and data-parallel slices is among the scanned sources."""
     for rel in ("data/example_codec.py", "data/tfrecord.py",
                 "data/images.py", "data/pipeline.py", "data/coco.py",
                 "ops/cuda/decode_kernel.py", "evaluation/predict.py",
@@ -67,7 +67,9 @@ def test_new_modules_are_scanned():
                 "training/auto_resume.py", "serving_http.py",
                 "utils/export.py", "ops/geometry.py", "ops/__init__.py",
                 "utils/visualization.py", "demo/__init__.py",
-                "demo/demo.py", "demo/webcam.py", "cli.py"):
+                "demo/demo.py", "demo/webcam.py", "cli.py",
+                "parallel/__init__.py", "parallel/mesh.py",
+                "parallel/distributed.py"):
         path = os.path.join(PORT_DIR, rel)
         assert os.path.exists(path), rel
         assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
@@ -172,6 +174,28 @@ def test_entry_points_import_with_jax_blocked():
             "assert reporting.save_eval_report and visualization.draw_skeleton\n"
             "assert auto_resume.train_with_auto_resume and geometry.crop_and_pad\n"
             "assert serving_http.HttpPoseService\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_parallel_modules_import_with_jax_blocked():
+    """The data-parallel slice's modules, and the worker of its two-process
+    test, import with JAX, flax and the JAX package blocked."""
+    code = ("import sys\n"
+            "for m in ('jax', 'flax', 'jaxlib', 'optax', 'orbax',\n"
+            "          'single_person_pose_estimation_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.path.insert(0, 'tests')\n"
+            "from single_person_pose_estimation_tpu_torch.parallel import (\n"
+            "    distributed, mesh)\n"
+            "import torch_port_dp_worker\n"
+            "assert mesh.create_mesh and mesh.shard_batch\n"
+            "assert distributed.initialize and distributed.aggregate_metrics\n"
+            "assert distributed.shard_files_for_process\n"
+            "assert torch_port_dp_worker.main\n"
             "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,

@@ -38,6 +38,7 @@ from single_person_pose_estimation_tpu_torch.ops.augment import (
     DEFAULT_FLIP_PAIRS,
     _flip_permutation,
 )
+from single_person_pose_estimation_tpu_torch.parallel.mesh import create_mesh
 from torch_port_fixtures import (
     make_spot_coco,
     peaked_variables,
@@ -159,11 +160,12 @@ def test_unflip_heatmaps_matches_jax():
 
 def test_predict_ds_device_and_mesh_are_explicit(data, variables):
     model = torch_model(variables, 1, 16)
-    with pytest.raises(NotImplementedError):
-        predict.predict_ds(model, None, [], mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             predict.predict_ds(model, None, [])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            predict.predict_ds(model, None, [],
+                               mesh=create_mesh(devices=["cuda:0"] * 2))
     fn = predict.make_predict_decode_fn(model, device="cpu")
     assert fn is predict.make_predict_decode_fn(model, device="cpu")
     assert not fn.use_fused

@@ -11,6 +11,7 @@ from single_person_pose_estimation_tpu_torch.models.fused_inference import (
     prepare_fused,
 )
 from single_person_pose_estimation_tpu_torch.ops.decode import decode_batch
+from single_person_pose_estimation_tpu_torch.parallel.mesh import create_mesh
 from single_person_pose_estimation_tpu_torch.serving import PoseServer
 from torch_port_fixtures import images, random_variables, torch_model
 
@@ -86,8 +87,10 @@ def test_step_failure_reaches_the_caller(model):
 
 def test_constructor_checks():
     m = torch_model(random_variables(1, 16, seed=15), 1, 16)
-    with pytest.raises(NotImplementedError, match="multi-GPU data parallel"):
-        PoseServer(m, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_mesh((-1, 2), ("data", "model"), devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="a device or a mesh"):
+        PoseServer(m)
     with pytest.raises(ValueError, match="ascending"):
         PoseServer(m, device="cpu", buckets=(4, 1))
     if not torch.cuda.is_available():

@@ -5,8 +5,9 @@ and in heatmap units. The fixture is peaked (a bright spot on dark noise,
 `peaked_variables`): every channel's maximum leads its runner-up by more
 than 1e-4, which the test asserts, so x and y must be equal and the
 confidences (heatmap values) agree within 1e-4. `units` and `image_size`
-are equal. Also the 400/404 paths, health, stats and concurrent clients,
-as JAX's tests/test_serving_http.py checks them."""
+are equal. The mobile model (separable convs) is held the same way on
+its own peaked fixture. Also the 400/404 paths, health, stats and
+concurrent clients, as JAX's tests/test_serving_http.py checks them."""
 
 import json
 import threading
@@ -194,3 +195,48 @@ def test_closed_service_is_idempotent():
     svc.start(port=0)
     svc.close()
     svc.close()
+
+
+@pytest.fixture(scope="module")
+def mobile_services():
+    """Port and JAX services in pixel units over the mobile model, with
+    tests/test_torch_mobile.py's peaked mobile variables."""
+    variables = peaked_variables(seed=10, mobile=True)
+    port_server = PoseServer(torch_model(variables, 1, 16, mobile=True),
+                             device="cpu", buckets=(1,), use_fused=False,
+                             transfer_dtype="float32")
+    jax_server = JServer(JHourglass(num_stacks=1, num_channels=16,
+                                    mobile=True),
+                         variables["params"], variables["batch_stats"],
+                         buckets=(1,), use_fused=False,
+                         transfer_dtype="float32")
+    svcs = {name: cls(server, input_size=(H, W))
+            for name, cls, server in (("port", HttpPoseService, port_server),
+                                      ("jax", JHttp, jax_server))}
+    ports = {name: svc.start(port=0) for name, svc in svcs.items()}
+    yield ports, variables
+    for svc in svcs.values():
+        svc.close()
+    port_server.close()
+    jax_server.close()
+
+
+@pytest.mark.parametrize("upload", sorted(UPLOADS))
+def test_mobile_responses_match_jax(mobile_services, upload):
+    """The mobile model's fixture is peaked too (checked on the port's
+    heatmaps, which tests/test_torch_mobile.py holds against JAX), so the
+    keypoints must be equal and the confidences within TOL_CONF."""
+    ports, variables = mobile_services
+    body, headers, img = UPLOADS[upload]
+    with torch.no_grad():
+        hm = torch_model(variables, 1, 16, mobile=True)(
+            torch.from_numpy(img[None]))[-1].numpy()
+    top2 = np.sort(hm.reshape(-1, 17), axis=0)[-2:]
+    assert (top2[1] - top2[0]).min() > MARGIN
+    got = _post(ports["port"], body, headers)
+    want = _post(ports["jax"], body, headers)
+    assert got["units"] == want["units"] == "pixels"
+    g, w = np.asarray(got["keypoints"]), np.asarray(want["keypoints"])
+    assert g.shape == w.shape == (17, 3)
+    np.testing.assert_array_equal(g[:, :2], w[:, :2])
+    assert np.abs(g[:, 2] - w[:, 2]).max() <= TOL_CONF

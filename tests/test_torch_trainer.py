@@ -22,6 +22,7 @@ from single_person_pose_estimation_tpu_torch.data.in_memory import (
     ArrayDatasetBuilder,
     synthetic_crops,
 )
+from single_person_pose_estimation_tpu_torch.parallel.mesh import create_mesh
 from single_person_pose_estimation_tpu_torch.training.checkpoint import (
     CheckpointManager,
 )
@@ -159,8 +160,10 @@ def test_resume_errors(tmp_path):
     with pytest.raises(ValueError, match="EMA"):
         ema.resume_training()
     ema.close()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        _trainer(tmp_path, 1, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _trainer(tmp_path, 1, model_axis="model")
+    with pytest.raises(ValueError, match="one process per device"):
+        _trainer(tmp_path, 1, mesh=create_mesh(devices=["cpu"] * 2))
 
 
 def test_checkpoint_manager_keeps_max_to_keep(tmp_path):
