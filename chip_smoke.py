@@ -14,8 +14,10 @@ mobile), S4/256 training by `Trainer` (the warp and heatmap kernels), and
 S4/256 training with `model_backend="fused"` (the six train-unit kernels),
 and then the entry points a user calls: the CLI's train, resume, eval,
 serve (over a glob and over HTTP) and export, the two-stage demo and the
-profiler, and data parallel over a mesh (evaluation, serving, training in
-two processes over gloo, and the CLI's training over NCCL). It imports
+profiler, data parallel over a mesh (evaluation, serving, training in
+two processes over gloo, and the CLI's training over NCCL), tensor
+parallelism over channels in two processes, and H-sharded inference at
+1024x1024 over two devices. It imports
 nothing of JAX or of the JAX package. Phases, each raising on
 failure:
 
@@ -72,6 +74,13 @@ failure:
    plain versions, bounds and the plain bf16 model's own blocks (#6
    front_bottleneck_3, #7 its walk; #5 at 128 px against the plain bf16
    bottleneck, cuDNN convs, in turns);
+7''. spatial: `parallel/spatial_model.spatial_apply` of S4/256 at
+   1024x1024 with its large maps split by rows over [cuda:0, cuda:0]
+   against the plain forward, on a copy whose last predict conv is scaled
+   so that no heatmap saturates: f32 within 1e-4 on every stack, bf16
+   within SP_BF16_FACTOR of the plain bf16 control; its ms beside the
+   plain forward's; no kernel launch (it runs cuDNN's convs, as JAX's
+   runs no Pallas kernel);
 7a. mobile_kernels: the mobile kernels (#8-#10) against their plain
    versions at batch 8, C=256, at every level the mobile path runs them:
    #8 at 64 and 4 px, #9 at 32, 16 and 8 px, #10 at 64, 32, 16 and 8 px,
@@ -194,6 +203,17 @@ failure:
    bf16 on a global batch of 64, 3 steps of each backend on the batch as
    it is (a falling loss) and 3 augmented, the same bits on both ranks
    after every step; exact launches per rank;
+24'. tp_train (after dp_train): two child processes (`--dp-child tp`) on
+   cuda:0 over gloo, a ("data", "model") mesh of 1 x 2, S4/256 sharded by
+   `parallel/sharding_rules.shard_state`: at f32 one step of each backend
+   at dp_train's batch of 16 against dp_train's one process (loss; the
+   reassembled grads and running statistics within ULP_FACTOR of the
+   larger control); at bf16 TP_FIXED_STEPS steps of each backend at
+   batch 8 on the batch as it is (a falling loss), then
+   TP_AUGMENTED_STEPS augmented, the
+   replicated leaves the same bits on both ranks after every step; the
+   ranks' checkpoint restored unsharded bit for bit; exact launches per
+   rank (`tp_fused_want`);
 25. dp_nccl (after cli_train, on its records): `cli train --data-parallel`
    for 2 steps in a child process that joined a process group of one over
    NCCL, with exact launch counts and a checkpoint.
@@ -1332,10 +1352,10 @@ def predict_logits(model, x):
     name = f"hg{model.num_stacks - 1}_conv_1x1_predict"
     conv, seen = model._conv, []
 
-    def spy(y, layer, activation="relu"):
+    def spy(y, layer, activation="relu", **bn):
         if layer == name:
             seen.append(conv(y, layer, "linear").float())
-        return conv(y, layer, activation)
+        return conv(y, layer, activation, **bn)
 
     model._conv = spy
     try:
@@ -2649,6 +2669,63 @@ def train_unit_cases(rng, dtype, device, b, levels=LEVELS):
     return cases
 
 
+def tp_unit_cases(rng, dtype, device, b, m, levels=LEVELS):
+    """(label, name, kernel call, plain call, output kinds) of #14a-d and
+    #14f at every level at the shapes that a model axis of m ranks gives
+    them (experimental/bottleneck_grad.py under tensor parallelism; #14e
+    runs on its gathered weight there, so train_unit_cases' shapes hold
+    it): unit 1's forward C -> Cm/m; the 3x3 forward Cm -> Cm/m; unit
+    3's forward Cm -> C/m with the affine; bn_bwd_reduce on C/m and on
+    Cm/m channels; unit1x1_bwd without the next sums on w3 (Cm, C/m);
+    unit1_bwd on w1 (C, Cm/m). Operands as train_unit_inputs draws them."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottleneck_train_kernel as tk,
+    )
+
+    def u(lo, hi, *shape, dt=torch.float32):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)) \
+            .to(device=device, dtype=dt)
+
+    cl, cml = C // m, CM // m
+    lim1, lim2 = np.sqrt(6 / (C + CM)), np.sqrt(6 / (18 * CM))
+    kk = lambda c: torch.stack([u(.5, 1.5, c), u(-.1, .1, c), u(-.1, .1, c)])
+    aff = lambda c: torch.stack([u(.5, 1.5, c), u(-.3, .3, c)])
+    cases = []
+    for h in levels:
+        act = lambda c: u(-1, 1, b, h, h, c, dt=dtype)
+        relu = lambda c: torch.relu(act(c))
+        x, g, gl, dz2l, dz1l = act(C), act(C), act(cl), act(cml), act(cml)
+        a1, a2, a1l, a2l, a3l = relu(CM), relu(CM), relu(cml), relu(cml), \
+            relu(cl)
+        w1, w2 = u(-lim1, lim1, C, cml), u(-lim2, lim2, 3, 3, CM, cml)
+        w3 = u(-lim1, lim1, CM, cl)
+        b1, b2, b3 = u(-.1, .1, cml), u(-.1, .1, cml), u(-.1, .1, cl)
+        aff1, aff2, k1, k3 = aff(CM), aff(CM), kk(cml), kk(cl)
+        red3 = ("act", "red", "red", "red")
+        for label, name, args, kw, kinds in (
+                ("conv1x1_relu_stats@unit1", "conv1x1_relu_stats",
+                 (x, w1, b1), {}, ("act", "red")),
+                ("conv3x3_relu_stats", "conv3x3_relu_stats",
+                 (a1, w2, b2, *aff1), {}, ("act", "red")),
+                ("conv1x1_relu_stats@unit3", "conv1x1_relu_stats",
+                 (a2, w3, b3, *aff2), {}, ("act", "red")),
+                ("bn_bwd_reduce@unit3", "bn_bwd_reduce", (gl, a3l), {},
+                 ("red",)),
+                ("bn_bwd_reduce@unit2", "bn_bwd_reduce", (dz2l, a2l), {},
+                 ("red",)),
+                ("unit1x1_bwd@no_next", "unit1x1_bwd",
+                 (gl, a3l, a2, w3, k3, aff2), dict(reduce_next=False), red3),
+                ("unit1_bwd", "unit1_bwd", (dz1l, a1l, x, g, w1, k1), {},
+                 ("act", "red", "red"))):
+            kern, plain = getattr(tk, name), getattr(tk, name + "_plain")
+            cases.append((f"{label}@{h} model axis {m}", name,
+                          lambda f=kern, a=args, kw=kw: f(*a, **kw),
+                          lambda f=plain, a=args, kw=kw: f(*a, **kw), kinds))
+    return cases
+
+
 # The 3x3 units (#14b, #14e) at the edges of the kernels' contract, as
 # (batch, side, channels): 16 and 48 channels (one input chunk, narrow and
 # odd warp widths), 1024 (sixteen input chunks, eight output chunks), and
@@ -2815,7 +2892,9 @@ def phase_fused_train_kernels(report):
     images); a rerun of each kernel gives the same bits; at 64 px the cuda
     bottleneck backend against the plain one (check_bottleneck_backends);
     then #14b and #14e at the contract's edges (UNIT3_EDGES), and #14a,
-    #14d and #14f at theirs (UNIT1_EDGES)."""
+    #14d and #14f at theirs (UNIT1_EDGES); then #14a-d and #14f at the
+    channel slices of tp_train's model axis (tp_unit_cases) at its two
+    batches."""
     import torch
 
     rng = np.random.default_rng(30)
@@ -2831,6 +2910,11 @@ def phase_fused_train_kernels(report):
             report, unit3_edge_cases(rng, dtype, "cuda"), dtype, "")
         failures += hold_unit_cases(
             report, unit1_edge_cases(rng, dtype, "cuda"), dtype, "")
+    for b, dtype in itertools.product((B_TP_BF16, B_DP_F32),
+                                      (torch.float32, torch.bfloat16)):
+        failures += hold_unit_cases(
+            report, tp_unit_cases(rng, dtype, "cuda", b, TP_WORLD), dtype,
+            f" B={b}")
     if failures:
         raise AssertionError("train-unit kernels disagree: "
                              + "; ".join(failures))
@@ -4293,7 +4377,7 @@ def dp_state(dtype, mesh, seed, lr=2.5e-4):
         device="cuda" if mesh is None else mesh.device)
 
 
-def dp_step(backend, mesh, augment):
+def dp_step(backend, mesh, augment, bn_mode="batch"):
     """The train step over `mesh` (None: one process)."""
     from single_person_pose_estimation_tpu_torch import losses
     from single_person_pose_estimation_tpu_torch.training import (
@@ -4302,7 +4386,24 @@ def dp_step(backend, mesh, augment):
 
     return steps_lib.make_train_step(losses.weighted_mse,
                                      train_config(DP_ROOT), augment=augment,
-                                     model_backend=backend, mesh=mesh)
+                                     bn_mode=bn_mode, model_backend=backend,
+                                     mesh=mesh)
+
+
+def control_batch(name, n, seed):
+    """dp_batch(n, seed) as DP_CONTROLS name it: as it is ("one"), every
+    pixel one ulp up ("ulp"), its two halves swapped ("perm")."""
+    import torch
+
+    b = dp_batch(n, seed)
+    if name == "ulp":
+        b["image"] = torch.nextafter(b["image"],
+                                     torch.full_like(b["image"], np.inf))
+    elif name == "perm":
+        half = n // 2
+        perm = torch.cat([torch.arange(half, n), torch.arange(half)])
+        b = {k: v[perm.to(v.device)] for k, v in b.items()}
+    return b
 
 
 def flat_grads(state):
@@ -4312,19 +4413,29 @@ def flat_grads(state):
                       sorted(state.model.named_parameters())]).cpu()
 
 
+def flatten_sorted(tensors):
+    """flat_grads of a {name: tensor} dict."""
+    import torch
+
+    return torch.cat([t.flatten() for _, t in sorted(tensors.items())]).cpu()
+
+
 def running_stats(state):
     return {n: t.detach().cpu().clone()
             for n, t in state.model.state_dict().items() if "running" in n}
 
 
-def state_digest(state) -> str:
-    """SHA-256 of every parameter and running statistic, in name order."""
+def state_digest(state, skip=frozenset()) -> str:
+    """SHA-256 of every parameter and running statistic, in name order,
+    but those named in `skip`."""
     import hashlib
 
     import torch
 
     h = hashlib.sha256()
     for name, t in sorted(state.model.state_dict().items()):
+        if name in skip:
+            continue
         h.update(name.encode())
         h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8)
                  .numpy().tobytes())
@@ -4403,9 +4514,9 @@ def dp_nccl_child(payload):
 
 def dp_child(task, out):
     """The body of `chip_smoke.py --dp-child TASK DIR`: join the process
-    group from torchrun's environment (gloo for "train", two ranks on
-    cuda:0, since NCCL refuses two ranks on one device; NCCL for "nccl"),
-    run the task, write DIR/rank{R}.pt."""
+    group from torchrun's environment (gloo for "train" and "tp", two
+    ranks on cuda:0, since NCCL refuses two ranks on one device; NCCL for
+    "nccl"), run the task, write DIR/rank{R}.pt."""
     import torch
     import torch.distributed as dist
 
@@ -4420,12 +4531,16 @@ def dp_child(task, out):
     with open(os.path.join(out, "payload.json")) as f:
         payload = json.load(f)
     if not distributed.initialize(
-            backend="gloo" if task == "train" else "nccl",
+            backend="nccl" if task == "nccl" else "gloo",
             timeout_s=DP_CHILD_TIMEOUT):
         raise RuntimeError("no cluster environment")
     if task == "train":
         res = dp_train_child(mesh_lib.create_mesh(
             devices=["cuda:0"] * dist.get_world_size()), payload["seed"])
+    elif task == "tp":
+        res = tp_train_child(mesh_lib.create_mesh(
+            (1, TP_WORLD), ("data", "model"),
+            devices=["cuda:0"] * dist.get_world_size()), payload["seed"], out)
     else:
         res = dp_nccl_child(payload)
     torch.save(res, os.path.join(out, f"rank{dist.get_rank()}.pt"))
@@ -4449,20 +4564,13 @@ def phase_dp_train(report, seed=DP_SEED):
 
     children = start_children("train", DP_WORLD, {"seed": seed})
     half = B_DP_F32 // DP_WORLD
-    perm = torch.cat([torch.arange(half, B_DP_F32), torch.arange(half)])
     try:
         ref = {}
         for backend in DP_BACKENDS:
             for name in DP_CONTROLS:
                 state = dp_state(torch.float32, None, seed)
                 step = dp_step(backend, None, augment=False)
-                b = dp_batch(B_DP_F32, seed)
-                if name == "ulp":
-                    b["image"] = torch.nextafter(
-                        b["image"], torch.full_like(b["image"], np.inf))
-                elif name == "perm":
-                    b = {k: v[perm.to(v.device)] for k, v in b.items()}
-                state, m = step(state, b)
+                state, m = step(state, control_batch(name, B_DP_F32, seed))
                 ref[backend, name] = (m["loss"].item(), flat_grads(state),
                                       running_stats(state))
                 del state
@@ -4519,6 +4627,459 @@ def phase_dp_train(report, seed=DP_SEED):
         log(f"dp_train rank {rank}: launches {r['counts']}")
     if failed:
         raise AssertionError("dp_train: " + "; ".join(failed))
+    return ref
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallel (parallel/sharding_rules.py): tp_train. H-sharded
+# inference (parallel/spatial.py, parallel/spatial_model.py): spatial.
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 2             # model axis 2 x data axis 1, two ranks on cuda:0
+B_TP_BF16 = 8            # the bf16 steps' batch; every rank takes it whole
+# An f32 step of the flax backend with frozen BN: no batch statistics
+# amplify a reordered sum there (train-mode BN at random weights moves
+# the grads 9-42% for one ulp, DP_CONTROLS), so the model group's
+# collectives are held within ULP_FACTOR times the larger of the one-ulp
+# and batch-halves controls, which a lost share would pass by far.
+B_TP_FROZEN = 8
+B_TP_BNECK = 8           # tp_bottleneck_readings' batch
+# bf16 steps on the batch as it is, then augmented (the augmentation is
+# the backends' common code: the flax backend takes it). gloo carries each
+# gathered activation through the host at ~0.5 GB/s: a fused bf16 step at
+# B=8 takes 5 s, a flax one 4 s, an f32 one at 16 12 s, so the phase
+# keeps its batch and its steps few.
+TP_FIXED_STEPS = 2
+TP_AUGMENTED_STEPS = {"flax": 1, "fused": 0}
+BNECKS_PER_LEVEL = 12    # 3 identity-skip bottlenecks a level x 4 stacks
+SP_SIZE = 1024           # spatial: one 1024x1024 crop
+SP_SHARDS = 2            # ... on [cuda:0, cuda:0]
+SP_GATHER_H = 64
+TOL_SP_F32 = 1e-4
+SP_BF16_FACTOR = 2.0
+
+
+def tp_fused_want(b, dtype, steps, m=TP_WORLD):
+    """Exact launches of #14a-f in `steps` fused train steps at batch b on
+    one rank of a model axis of m: per bottleneck unit 3's backward skips
+    its next-unit sums and bn_bwd_reduce takes them (a second call), and
+    the 3x3 backward runs on its gathered weight
+    (experimental/bottleneck_grad.py). A bf16 weight gradient skips its
+    finalize when its plan takes one row slice."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops.cuda import (
+        bottleneck_train_kernel as tk,
+    )
+
+    dw = (lambda plan: 1 + (plan["slices"] > 1)) \
+        if dtype == torch.bfloat16 else (lambda plan: 2)
+    want = dict.fromkeys(FUSED_KERNELS, 0)
+    for h in LEVELS:
+        per = {"conv1x1_relu_stats": 4, "conv3x3_relu_stats": 2,
+               "bn_bwd_reduce": 4,
+               "unit1x1_bwd": 1 + dw(tk.dw1_plan(b, h, h, CM, C // m)),
+               "unit3x3_bwd": 2 + dw(tk.dw3_plan(b, h, h, CM, CM)),
+               "unit1_bwd": 1 + dw(tk.dw1_plan(b, h, h, C, CM // m))}
+        for name, n in per.items():
+            want[name] += steps * BNECKS_PER_LEVEL * n
+    return want
+
+
+def tp_want(backend, b, dtype, steps, augmented):
+    want = {"render_heatmaps_batch": steps,
+            "resample_last_axis": 2 * augmented}
+    if backend == "fused":
+        want.update(tp_fused_want(b, dtype, steps))
+    return want
+
+
+def tp_state(dtype, mesh, seed, lr=2.5e-4):
+    """dp_state, sharded over the mesh's model axis."""
+    from single_person_pose_estimation_tpu_torch.parallel.sharding_rules import (
+        shard_state,
+    )
+
+    return shard_state(dp_state(dtype, mesh, seed, lr), mesh)
+
+
+def tp_step(backend, mesh, augment, bn_mode="batch"):
+    from single_person_pose_estimation_tpu_torch import losses
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+
+    return steps_lib.make_train_step(losses.weighted_mse,
+                                     train_config(DP_ROOT), augment=augment,
+                                     bn_mode=bn_mode, model_backend=backend,
+                                     mesh=mesh, model_axis="model")
+
+
+def tp_bottleneck_readings(tp, device, b=B_TP_BNECK, levels=LEVELS,
+                           seed=31):
+    """One train-mode bottleneck at f32 at each level through the kernels
+    (`make_bottleneck_train("cuda")`: on a CPU tensor their plain
+    versions), under `tp` on this rank's channels against one process on
+    every channel, from the same inputs on every rank: the output and x's
+    grad (every channel), this rank's slices of the statistics and of the
+    12 weight and BN grads. Returns (label, relative L2, limit) triples:
+    the forward within TOL_UNIT_ACT_F32, the grads within TOL_FUSED_GRAD
+    (check_bottleneck_backends (3): float32 sum order flips the ReLU
+    mask of activations within ~1e-6 of 0). A model-group share that a
+    backward leaves out moves a grad by a share of its size."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.experimental import (
+        bottleneck_grad as bg,
+    )
+
+    rng = np.random.default_rng(seed)
+    u = lambda lo, hi, n: torch.from_numpy(
+        rng.uniform(lo, hi, n).astype(np.float32)).to(device)
+    mine = lambda t: tp.local(t, -1)
+    out = []
+    for h in levels:
+        p = train_unit_inputs(rng, torch.float32, device, b, h)
+        args = [p["x"], p["w1"], p["b1"], p["w2"], p["b2"], p["w3"], p["b3"],
+                u(.5, 1.5, CM), u(-.3, .3, CM), u(.5, 1.5, CM),
+                u(-.3, .3, CM), u(.5, 1.5, C), u(-.3, .3, C)]
+        runs = []
+        # Every operand but x holds its output channels last.
+        for fn, ops in ((bg.make_bottleneck_train("cuda", tp=tp),
+                         [args[0]] + [mine(a).contiguous() for a in args[1:]]),
+                        (bg.make_bottleneck_train("cuda"), args)):
+            leaves = [a.clone().requires_grad_() for a in ops]
+            y, stats = fn(*leaves)
+            (y.float() * p["g"]).sum().backward()
+            runs.append((y.detach(), stats, [t.grad for t in leaves]))
+        (y, stats, grads), (y1, stats1, grads1) = runs
+        out.append((f"out@{h}", rel_l2(y, y1), TOL_UNIT_ACT_F32))
+        out += [(f"stats {i}@{h}", rel_l2(a, mine(w)), TOL_UNIT_ACT_F32)
+                for i, (a, w) in enumerate(zip(stats, stats1))]
+        out.append((f"grad x@{h}", rel_l2(grads[0], grads1[0]),
+                    TOL_FUSED_GRAD))
+        out += [(f"grad {i}@{h}", rel_l2(grads[i], mine(grads1[i])),
+                 TOL_FUSED_GRAD) for i in range(1, 13)]
+    return out
+
+
+def tp_train_child(mesh, seed, out):
+    """One rank of tp_train: tp_bottleneck_readings; one f32 step of the
+    flax backend with frozen BN on a batch of B_TP_FROZEN: loss, grads
+    of this rank's channels, the digest of the replicated leaves; (a) one
+    f32 step of each backend on the whole B_DP_F32 batch of dp_train,
+    without augmentation: loss, grads and running statistics of this
+    rank's channels, the digest of the replicated leaves; (b)
+    TP_FIXED_STEPS bf16 steps of each backend on a batch of B_TP_BF16 as
+    it is, then TP_AUGMENTED_STEPS augmented, with losses and replicated
+    digests after each; the last state of the flax backend saved by
+    CheckpointManager into OUT/ckpt, beside this rank's own copy of its
+    tensors."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+    from single_person_pose_estimation_tpu_torch.parallel.sharding_rules import (
+        TensorParallel,
+    )
+    from single_person_pose_estimation_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+
+    res = {"f32": {}, "bf16": {}, "counts": {}, "seconds": {}, "traffic": {}}
+    clock = time.perf_counter
+    t0 = clock()
+    res["bottleneck"] = tp_bottleneck_readings(
+        TensorParallel(mesh.model_group, mesh.model_size, mesh.model_index),
+        "cuda")
+    res["seconds"]["bottleneck"] = clock() - t0
+    state = tp_state(torch.float32, mesh, seed)
+    t0 = clock()
+    state, m = tp_step("flax", mesh, False, "frozen")(
+        state, dp_batch(B_TP_FROZEN, seed))
+    res["seconds"]["frozen"] = clock() - t0
+    res["frozen"] = {"loss": m["loss"].item(),
+                     "digest": state_digest(state, skip=state.model
+                                            .tensor_parallel.split),
+                     "grads": {n: p.grad.cpu()
+                               for n, p in state.model.named_parameters()}}
+    del state
+    for backend in DP_BACKENDS:
+        state = tp_state(torch.float32, mesh, seed)
+        split = state.model.tensor_parallel.split
+        step = tp_step(backend, mesh, augment=False)
+        b = dp_batch(B_DP_F32, seed)
+        kernels.reset_launch_counts()
+        t0 = clock()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        res["seconds"]["f32", backend] = clock() - t0
+        res["traffic"]["f32", backend] = dict(
+            state.model.tensor_parallel.traffic)
+        res["counts"]["f32", backend] = kernels.launch_counts()
+        res["split"] = split
+        res["f32"][backend] = {
+            "loss": m["loss"].item(),
+            "digest": state_digest(state, skip=split),
+            "grads": {n: p.grad.cpu()
+                      for n, p in state.model.named_parameters()},
+            "stats": running_stats(state)}
+        del state
+    for backend in DP_BACKENDS:
+        state = tp_state(torch.bfloat16, mesh, seed, lr=1e-3)
+        b = dp_batch(B_TP_BF16, 7)
+        kernels.reset_launch_counts()
+        losses, digests = [], []
+        t0 = clock()
+        for augment, n in ((False, TP_FIXED_STEPS),
+                           (True, TP_AUGMENTED_STEPS[backend])):
+            step = tp_step(backend, mesh, augment)
+            for _ in range(n):
+                state, m = step(state, b)
+                losses.append(m["loss"].item())
+                digests.append(state_digest(state, skip=res["split"]))
+        torch.cuda.synchronize()
+        res["seconds"]["bf16", backend] = clock() - t0
+        res["traffic"]["bf16", backend] = dict(
+            state.model.tensor_parallel.traffic)
+        res["counts"]["bf16", backend] = kernels.launch_counts()
+        res["bf16"][backend] = {"losses": losses, "digests": digests}
+        if backend == "flax":
+            t0 = clock()
+            CheckpointManager(os.path.join(out, "ckpt"),
+                              group=mesh.group).save(1, state, {"epoch": 1})
+            res["seconds"]["ckpt"] = clock() - t0
+            res["saved"] = {n: t.detach().cpu().clone()
+                            for n, t in state.model.state_dict().items()}
+        del state
+    return res
+
+
+def phase_tp_train(report, ref, seed=DP_SEED):
+    """Two ranks on cuda:0 over gloo, a ("data", "model") mesh of 1 x 2,
+    S4/256 at 256x256 sharded by `shard_state` (conv weights split on
+    their output channels, C=256 and 128 to 128 and 64 a rank): one
+    bottleneck at each level through the kernels under the model axis
+    against one process (tp_bottleneck_readings); one f32 step of the
+    flax backend with frozen BN against one process on the same batch,
+    the grads (relative L2) within ULP_FACTOR times the larger of its
+    one-ulp and batch-halves controls (B_TP_FROZEN); (a) at
+    f32, one step of each backend at the batch of 16 of dp_train, without
+    augmentation, against dp_train's one process (`ref`): the loss within
+    TOL_FUSED_LOSS, the reassembled grads (relative L2) and running
+    statistics within ULP_FACTOR times the larger of its one-ulp and
+    batch-halves controls; (b) at bf16, TP_FIXED_STEPS steps of each
+    backend on a batch of B_TP_BF16 as it is, whose loss falls, then
+    TP_AUGMENTED_STEPS augmented;
+    after every step the leaves that the rule replicates hold the same
+    bits on both ranks; (c) the checkpoint the ranks saved restores into
+    an unsharded state with the reassembled tensors, bit for bit. Exact
+    launches on each rank."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+
+    children = start_children("tp", TP_WORLD, {"seed": seed})
+    try:
+        frozen = {}
+        for name in DP_CONTROLS:
+            state = dp_state(torch.float32, None, seed)
+            state, m = dp_step("flax", None, False, "frozen")(
+                state, control_batch(name, B_TP_FROZEN, seed))
+            frozen[name] = (m["loss"].item(), flat_grads(state))
+            del state
+    finally:
+        ranks = wait_children(children)
+    split = ranks[0]["split"]
+    full = lambda parts: {n: torch.cat([p[n] for p in parts])
+                          if n in split else parts[0][n] for n in parts[0]}
+    rel = lambda a, b: (torch.linalg.vector_norm(a - b)
+                        / torch.linalg.vector_norm(b)).item()
+    stat_err = lambda a, b: max((a[n] - t).abs().max().item()
+                                / max(t.abs().max().item(), 1e-30)
+                                for n, t in b.items())
+    failed = []
+    got = [r["frozen"] for r in ranks]
+    loss, grads = frozen["one"]
+    gap = rel(flatten_sorted(full([g["grads"] for g in got])), grads)
+    lerr = max(abs(g["loss"] - loss) / abs(loss) for g in got)
+    controls = {name: rel(frozen[name][1], grads)
+                for name in DP_CONTROLS[1:]}
+    log(f"tp_train f32 flax, frozen BN: model axis {TP_WORLD} vs one "
+        f"process x {B_TP_FROZEN}: loss rel {lerr:.2e}, grads L2 rel "
+        f"{gap:.3e} (|g| {torch.linalg.vector_norm(grads).item():.3e}); "
+        f"controls: " + ", ".join(f"{n} {c:.3e}" for n, c in
+                                  controls.items())
+        + f"; replicated leaves equal on both ranks: "
+        f"{got[0]['digest'] == got[1]['digest']}")
+    if lerr > TOL_FUSED_LOSS or not gap <= ULP_FACTOR * max(
+            controls.values()) or got[0]["digest"] != got[1]["digest"]:
+        failed.append(f"f32 frozen: loss {lerr}, grads {gap} vs {controls}")
+    for rank, r in enumerate(ranks):
+        worst = max(r["bottleneck"], key=lambda t: t[1] / t[2])
+        grad = max((t for t in r["bottleneck"] if t[0].startswith("grad")),
+                   key=lambda t: t[1])
+        bad = [t for t in r["bottleneck"] if not t[1] <= t[2]]
+        log(f"tp_train rank {rank}: one bottleneck f32 at each level, "
+            f"kernels under the model axis vs one process: "
+            f"{len(r['bottleneck']) - len(bad)} of {len(r['bottleneck'])} "
+            f"readings within their limits; the largest share "
+            f"{worst[0]} {worst[1]:.3e} of {worst[2]:.0e}, the largest "
+            f"grad {grad[0]} {grad[1]:.3e} of {grad[2]:.0e}; out and grad x "
+            + ", ".join(f"{n} {e:.2e}" for n, e, _ in r["bottleneck"]
+                        if n.startswith(("out", "grad x"))))
+        if bad:
+            failed.append(f"rank {rank} bottleneck: {bad}")
+    for backend in DP_BACKENDS:
+        got = [r["f32"][backend] for r in ranks]
+        loss, grads, stats = ref[backend, "one"]
+        gap = rel(flatten_sorted(full([g["grads"] for g in got])), grads)
+        serr = stat_err(full([g["stats"] for g in got]), stats)
+        lerr = max(abs(g["loss"] - loss) / abs(loss) for g in got)
+        controls = {name: (rel(ref[backend, name][1], grads),
+                           stat_err(ref[backend, name][2], stats))
+                    for name in DP_CONTROLS[1:]}
+        noise = [max(c[i] for c in controls.values()) for i in (0, 1)]
+        log(f"tp_train f32 {backend}: model axis {TP_WORLD} vs one process "
+            f"x {B_DP_F32}: loss {got[0]['loss']:.7f} vs {loss:.7f} (rel "
+            f"{lerr:.2e}), grads L2 rel {gap:.3e}, running stats "
+            f"{serr:.3e}; controls (grads, stats): " + ", ".join(
+                f"{n} {g:.3e} {st:.3e}" for n, (g, st) in controls.items())
+            + f"; replicated leaves equal on both ranks: "
+            f"{got[0]['digest'] == got[1]['digest']}, losses "
+            f"{[g['loss'] for g in got]}")
+        if lerr > TOL_FUSED_LOSS or gap > ULP_FACTOR * noise[0] \
+                or serr > ULP_FACTOR * noise[1] \
+                or got[0]["digest"] != got[1]["digest"]:
+            failed.append(f"f32 {backend}: loss {lerr}, grads {gap} vs "
+                          f"{controls}, stats {serr}")
+        runs = [r["bf16"][backend] for r in ranks]
+        fixed = runs[0]["losses"][:TP_FIXED_STEPS]
+        log(f"tp_train bf16 {backend}: batch {B_TP_BF16}, {TP_FIXED_STEPS} "
+            f"steps on the batch as it is, then "
+            f"{TP_AUGMENTED_STEPS[backend]} augmented: losses "
+            f"{runs[0]['losses']}; replicated leaves equal on both ranks "
+            f"after each step: {runs[0]['digests'] == runs[1]['digests']}")
+        if runs[0]["digests"] != runs[1]["digests"] \
+                or runs[0]["losses"] != runs[1]["losses"] \
+                or not np.isfinite(runs[0]["losses"]).all() \
+                or fixed[-1] >= fixed[0]:
+            failed.append(f"bf16 {backend}: {runs}")
+    state = dp_state(torch.bfloat16, None, seed + 1, lr=1e-3)
+    CheckpointManager(os.path.join(DP_ROOT, "tp", "ckpt")).restore(state)
+    saved = full([r["saved"] for r in ranks])
+    restored = {n: t.cpu() for n, t in state.model.state_dict().items()}
+    unequal = [n for n in saved if not torch.equal(saved[n], restored[n])]
+    log(f"tp_train: the checkpoint restored unsharded equals the ranks' "
+        f"state in {len(saved) - len(unequal)} of {len(saved)} tensors "
+        f"({len(split)} split)")
+    if unequal or saved.keys() != restored.keys():
+        failed.append(f"checkpoint: {unequal[:5]}")
+    del state
+    for rank, r in enumerate(ranks):
+        for (kind, backend), counts in r["counts"].items():
+            want = tp_want(backend, B_DP_F32, torch.float32, 1, 0) \
+                if kind == "f32" else tp_want(backend, B_TP_BF16,
+                                              torch.bfloat16,
+                                              TP_FIXED_STEPS
+                                              + TP_AUGMENTED_STEPS[backend],
+                                              TP_AUGMENTED_STEPS[backend])
+            want = {k: want.get(k, 0) for k in counts}
+            if counts != want:
+                failed.append(f"rank {rank} {kind} {backend}: launches "
+                              f"{counts} != {want}")
+            add_launches(report, counts)
+        log(f"tp_train rank {rank}: launches {r['counts']}; seconds "
+            f"{r['seconds']}; model-group all_reduce calls and bytes "
+            f"{r['traffic']}")
+    if failed:
+        raise AssertionError("tp_train: " + "; ".join(failed))
+
+
+def phase_spatial(report, model, card):
+    """`spatial_apply` of S4/256 at SP_SIZE x SP_SIZE, batch 1, over a
+    ("spatial",) mesh of [cuda:0, cuda:0] (each map taller than
+    SP_GATHER_H split into two blocks of rows, halos copied between them)
+    against the plain forward of the whole crop, on a copy whose last
+    predict conv is scaled so that its heatmaps do not saturate
+    (`scaled_readings`): f32 within TOL_SP_F32 on every stack; bf16 on
+    the last stack, in max|d| and mean|d| from plain f32, within
+    SP_BF16_FACTOR times the plain bf16 forward's own distance. Then the
+    bf16 spatial forward's ms beside the plain bf16 forward's. No kernel
+    of the port runs (JAX's spatial forward runs no Pallas kernel). The
+    f32 distance is split, for the log, by `spatial_apply` over a mesh of
+    one device (no halo, the BN folded): its distance from the split run
+    is the split's own, its distance from the plain forward that of the
+    folded BN and the ops' order."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+    from single_person_pose_estimation_tpu_torch.parallel.mesh import (
+        create_mesh,
+    )
+    from single_person_pose_estimation_tpu_torch.parallel.spatial_model import (
+        spatial_apply,
+    )
+
+    mesh = create_mesh((SP_SHARDS,), ("spatial",),
+                       devices=["cuda:0"] * SP_SHARDS)
+    one = create_mesh((1,), ("spatial",), devices=["cuda:0"])
+    rng = np.random.default_rng(40)
+    x = torch.from_numpy(rng.uniform(0, 1, (1, SP_SIZE, SP_SIZE, 3))
+                         .astype(np.float32)).cuda()
+    peaked = copy.deepcopy(model)
+    peaked.compute_dtype = torch.float32
+    with torch.inference_mode():
+        z = predict_logits(peaked, x)
+    pred = getattr(peaked, f"hg{peaked.num_stacks - 1}_conv_1x1_predict")
+    k = 4.0 / z.abs().max().item()
+    with torch.no_grad():
+        pred.weight.mul_(k)
+        pred.bias.mul_(k)
+    kernels.reset_launch_counts()
+    run = lambda dt, m=mesh: spatial_apply(
+        peaked, x, m, gather_h=SP_GATHER_H, compute_dtype=dt)
+    with torch.inference_mode():
+        plain32 = peaked(x)
+        sp32 = run(torch.float32)
+        one32 = run(torch.float32, one)
+        peaked.compute_dtype = torch.bfloat16
+        plain16 = peaked(x)
+        sp16 = run(torch.bfloat16)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        sp_ms = cuda_ms(lambda: run(torch.bfloat16), iters=5)
+        plain_ms = cuda_ms(lambda: peaked(x), iters=5)
+    open_share = ((plain32[-1] > 0) & (plain32[-1] < 1)).float().mean().item()
+    dist = lambda xs, ys: [(a - b).abs().max().item() for a, b in zip(xs, ys)]
+    stacks32 = dist(sp32, plain32)
+    err32 = max(stacks32)
+    d = lambda a: ((a[-1] - plain32[-1]).abs().max().item(),
+                   (a[-1] - plain32[-1]).abs().mean().item())
+    sp, ctrl = d(sp16), d(plain16)
+    shape_ok = all(t.shape == (1, SP_SIZE // 4, SP_SIZE // 4, K)
+                   and bool(torch.isfinite(t).all()) for t in sp32 + sp16)
+    log(f"spatial: S4/256 at {SP_SIZE}x{SP_SIZE}, rows split over "
+        f"{SP_SHARDS} devices above {SP_GATHER_H} px; {open_share:.4f} of the "
+        f"plain f32 last-stack heatmap values open; f32 spatial vs plain "
+        f"max|d| {err32:.3e} (every stack); bf16 last stack vs plain f32 max "
+        f"{sp[0]:.3e} mean {sp[1]:.3e}, plain bf16 control max {ctrl[0]:.3e} "
+        f"mean {ctrl[1]:.3e}; kernel launches {sum(counts.values())}")
+    log(f"spatial: f32 max|d| by stack: split vs plain "
+        + ", ".join(f"{e:.3e}" for e in stacks32) + "; split vs one device "
+        + ", ".join(f"{e:.3e}" for e in dist(sp32, one32))
+        + "; one device vs plain "
+        + ", ".join(f"{e:.3e}" for e in dist(one32, plain32)))
+    log(f"spatial: bf16 forward {sp_ms:.2f} ms spatial, {plain_ms:.2f} ms "
+        f"plain ({card})")
+    if not shape_ok or open_share < 0.99 or err32 > TOL_SP_F32 \
+            or any(s > SP_BF16_FACTOR * c for s, c in zip(sp, ctrl)) \
+            or any(counts.values()):
+        raise AssertionError(f"spatial: shapes/finite {shape_ok}, open "
+                             f"{open_share}, f32 {err32}, bf16 {sp} vs "
+                             f"{ctrl}, launches {counts}")
+    report["_spatial_ms"] = (round(sp_ms, 3), round(plain_ms, 3))
 
 
 def phase_dp_nccl(report, args):
@@ -4669,6 +5230,7 @@ def main():
           twice=True)
     timed("dial_slice", phase_dial_slice, report, model)
     timed("dial_times", phase_dial_times, report, model, card)
+    timed("spatial", phase_spatial, report, model, card)
     del model
     torch.cuda.empty_cache()
     timed("mobile_kernels", phase_kernels, report, mobile_main_cases,
@@ -4702,7 +5264,10 @@ def main():
     timed("fused_train_times", phase_fused_train_times, report, card)
     torch.cuda.empty_cache()
     try:
-        timed("dp_train", phase_dp_train, report)
+        ref = timed("dp_train", phase_dp_train, report)
+        torch.cuda.empty_cache()
+        timed("tp_train", phase_tp_train, report, ref)
+        del ref
         torch.cuda.empty_cache()
         args, cfg, val = timed("cli_train", phase_cli_train, report)
         timed("dp_nccl", phase_dp_nccl, report, args)
@@ -4733,6 +5298,8 @@ def main():
                         report.pop("_default_step_ms"),
                     "http_served_p50_ms": report.pop("_http_p50_ms"),
                     "http_served_p99_ms": report.pop("_http_p99_ms"),
+                    "spatial_and_plain_forward_ms_1024_bf16":
+                        report.pop("_spatial_ms"),
                     "card": card}))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -151,7 +151,7 @@ def _make_trainer(args, cfg: Config):
         builder = DatasetBuilder(cfg, ratio=args.ratio)
     else:
         builder = DatasetBuilder(cfg, ratio=args.ratio,
-                                 process_index=mesh.rank,
+                                 process_index=mesh.data_index,
                                  process_count=mesh.data_size)
     return Trainer(model, builder, args.epochs, args.lr, args.loss, cfg,
                    mesh=mesh, augment=not args.no_augment,

@@ -153,7 +153,9 @@ class DatasetBuilder:
     """Builds train/valid/prediction iterators from record shards.
 
     Several processes: pass process_index/process_count to give each a
-    disjoint round-robin subset of the shard files.
+    disjoint round-robin subset of the shard files: a mesh's data index and
+    data size (`parallel.mesh.Mesh`), so that the ranks of a model group
+    read the same files.
     """
 
     def __init__(self, config: Config, ratio: float = 1.0,

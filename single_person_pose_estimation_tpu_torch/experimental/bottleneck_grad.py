@@ -32,6 +32,20 @@ XLA's conv-grad emitters. The kernel wiring (`*_cuda`) runs the six
 kernels of `ops/cuda/bottleneck_train_kernel.py`; on CPU tensors those
 wrappers run their plain versions. Layout is NHWC; weights (C, Cm),
 (3, 3, Cm, Cm), (Cm, C).
+
+Under tensor parallelism (`tp`, parallel/sharding_rules.py) each unit's
+weight holds this rank's output channels: (C, Cm/m), (3, 3, Cm, Cm/m),
+(Cm, C/m), with the BN leaves of those channels. Each unit computes its
+channels from the whole input, its BN normalizes them, and the channels
+are gathered before the next unit; in the backward each unit's input
+gradient is this rank's share and is summed over the model group. The
+kernel wiring gathers the post-ReLU activation with the BN folded as an
+affine, which the next unit's prologue applies, and keeps the kernels'
+contracts: unit1x1_bwd runs without its next-unit sums (they would sum a
+share) and bn_bwd_reduce takes them once the share is summed; unit3x3_bwd
+takes input and output channels of one width, so it runs on the unit's
+weight gathered over the model group (every output channel, redundantly
+on each rank) and each rank keeps its channels of dW and db.
 """
 
 from __future__ import annotations
@@ -87,19 +101,35 @@ def _conv3x3(x, w, b):
     return y + b.to(x.dtype)
 
 
+def _tp_ops(tp):
+    """(gather, local, total) over the last (channel) dim of the model
+    group: every rank's channels side by side, this rank's channels (a
+    contiguous copy), the sum of every rank's share; the identity
+    without tensor parallelism."""
+    if tp is None:
+        same = lambda t: t
+        return same, same, same
+    return (lambda t: tp.gather_(t, -1),
+            lambda t: tp.local(t, -1).contiguous(),
+            lambda t: tp.sum_(t.contiguous()))
+
+
 def bottleneck_train_fwd(x, w1, b1, w2, b2, w3, b3,
-                         g1, be1, g2, be2, g3, be3, group=None):
-    """Returns (out, (mu1, var1, mu2, var2, mu3, var3), (x, a1, a2, a3))."""
+                         g1, be1, g2, be2, g3, be3, group=None, tp=None):
+    """Returns (out, (mu1, var1, mu2, var2, mu3, var3), (x, a1, a2, a3));
+    under tensor parallelism the statistics and a1..a3 are this rank's
+    channels."""
     dt = x.dtype
+    gather = _tp_ops(tp)[0]
     a1 = torch.relu(_conv1x1(x, w1, b1))
     mu1, var1 = _bn_stats(a1, group)
-    z1 = _bn_apply(a1, mu1, var1, g1, be1, dt)
+    z1 = gather(_bn_apply(a1, mu1, var1, g1, be1, dt))
     a2 = torch.relu(_conv3x3(z1, w2, b2))
     mu2, var2 = _bn_stats(a2, group)
-    z2 = _bn_apply(a2, mu2, var2, g2, be2, dt)
+    z2 = gather(_bn_apply(a2, mu2, var2, g2, be2, dt))
     a3 = torch.relu(_conv1x1(z2, w3, b3))
     mu3, var3 = _bn_stats(a3, group)
-    z3 = _bn_apply(a3, mu3, var3, g3, be3, dt)
+    z3 = gather(_bn_apply(a3, mu3, var3, g3, be3, dt))
     return x + z3, (mu1, var1, mu2, var2, mu3, var3), (x, a1, a2, a3)
 
 
@@ -126,23 +156,29 @@ def _fold_affine(mu, var, gamma, beta):
 
 
 def bottleneck_train_fwd_cuda(x, w1, b1, w2, b2, w3, b3,
-                              g1, be1, g2, be2, g3, be3, group=None):
+                              g1, be1, g2, be2, g3, be3, group=None,
+                              tp=None):
     """The contract of bottleneck_train_fwd, each conv->relu unit one
     kernel with the previous BN folded into its prologue and its batch
     sums in its epilogue. With a group, each unit's sums are all-reduced
-    between the kernel that makes them and the one that folds them."""
+    between the kernel that makes them and the one that folds them. Under
+    tensor parallelism a1 and a2, the next units' inputs, are gathered
+    with their folded BN (so the residuals hold every channel of them)."""
     B, H, W, _ = x.shape
     n = B * H * W
+    gather = _tp_ops(tp)[0]
     a1, sums1 = ker.conv1x1_relu_stats(x, w1, b1)
     mu1, var1 = _stats_from_sums(*_global_sums(sums1, n, group))
-    sc1, sh1 = _fold_affine(mu1, var1, g1, be1)
-    a2, sums2 = ker.conv3x3_relu_stats(a1, w2, b2, sc1, sh1)
+    a1, aff1 = gather(a1), gather(torch.stack(_fold_affine(mu1, var1, g1,
+                                                           be1)))
+    a2, sums2 = ker.conv3x3_relu_stats(a1, w2, b2, aff1[0], aff1[1])
     mu2, var2 = _stats_from_sums(*_global_sums(sums2, n, group))
-    sc2, sh2 = _fold_affine(mu2, var2, g2, be2)
-    a3, sums3 = ker.conv1x1_relu_stats(a2, w3, b3, sc2, sh2)
+    a2, aff2 = gather(a2), gather(torch.stack(_fold_affine(mu2, var2, g2,
+                                                           be2)))
+    a3, sums3 = ker.conv1x1_relu_stats(a2, w3, b3, aff2[0], aff2[1])
     mu3, var3 = _stats_from_sums(*_global_sums(sums3, n, group))
     sc3, sh3 = _fold_affine(mu3, var3, g3, be3)
-    out = x + (a3.float() * sc3 + sh3).to(x.dtype)
+    out = x + gather((a3.float() * sc3 + sh3).to(x.dtype))
     return out, (mu1, var1, mu2, var2, mu3, var3), (x, a1, a2, a3)
 
 
@@ -188,21 +224,22 @@ def _conv3x3_grads(x, dy, w, out_dtype):
             din.permute(0, 2, 3, 1).to(out_dtype))
 
 
-def bottleneck_train_bwd(res, g, group=None):
+def bottleneck_train_bwd(res, g, group=None, tp=None):
     """Grads of the 13 inputs (x, w1, b1, w2, b2, w3, b3, g1, be1, g2, be2,
     g3, be3) from the residuals and the output cotangent g."""
     (x, a1, a2, a3, mu1, var1, mu2, var2, mu3, var3,
      w1, w2, w3, g1, be1, g2, be2, g3, be3) = res
     dt = x.dtype
-    dy3, dg3, dbe3 = _unit_bwd(g, a3, mu3, var3, g3, group)
-    z2 = _bn_apply(a2, mu2, var2, g2, be2, dt)
+    gather, local, total = _tp_ops(tp)
+    dy3, dg3, dbe3 = _unit_bwd(local(g), a3, mu3, var3, g3, group)
+    z2 = gather(_bn_apply(a2, mu2, var2, g2, be2, dt))
     dw3, db3, dz2 = _conv1x1_grads(z2, dy3, w3, dt)
-    dy2, dg2, dbe2 = _unit_bwd(dz2, a2, mu2, var2, g2, group)
-    z1 = _bn_apply(a1, mu1, var1, g1, be1, dt)
+    dy2, dg2, dbe2 = _unit_bwd(local(total(dz2)), a2, mu2, var2, g2, group)
+    z1 = gather(_bn_apply(a1, mu1, var1, g1, be1, dt))
     dw2, db2, dz1 = _conv3x3_grads(z1, dy2, w2, dt)
-    dy1, dg1, dbe1 = _unit_bwd(dz1, a1, mu1, var1, g1, group)
+    dy1, dg1, dbe1 = _unit_bwd(local(total(dz1)), a1, mu1, var1, g1, group)
     dw1, db1, din = _conv1x1_grads(x, dy1, w1, dt)
-    dx = (g.float() + din.float()).to(dt)
+    dx = (g.float() + total(din).float()).to(dt)
     return (dx, dw1, db1, dw2, db2, dw3, db3,
             dg1, dbe1, dg2, dbe2, dg3, dbe3)
 
@@ -233,25 +270,39 @@ def _unit_consts(sums, mu, var, gamma, n, group):
     return k, dgamma, dbeta
 
 
-def bottleneck_train_bwd_cuda(res, g, group=None):
+def bottleneck_train_bwd_cuda(res, g, group=None, tp=None):
     """The contract of bottleneck_train_bwd on the kernels: one reduction
     and three unit backwards, each folding the next unit's reductions into
     its epilogue; with a group, each unit's reductions are all-reduced
-    between the kernel that makes them and the one that uses them."""
+    between the kernel that makes them and the one that uses them. Under
+    tensor parallelism (module docstring) a1 and a2 hold every channel;
+    unit 3's input gradient is summed over the model group before
+    bn_bwd_reduce takes unit 2's reductions, unit 2 runs on its gathered
+    weight, and unit 1's input gradient, with the skip's g counted on one
+    rank, is summed over the model group."""
     (x, a1, a2, a3, mu1, var1, mu2, var2, mu3, var3,
      w1, w2, w3, g1, be1, g2, be2, g3, be3) = res
     B, H, W, _ = x.shape
     n = B * H * W
-    sums3 = ker.bn_bwd_reduce(g, a3)
+    gather, local, total = _tp_ops(tp)
+    gl = local(g)
+    sums3 = ker.bn_bwd_reduce(gl, a3)
     k3c, dg3, dbe3 = _unit_consts(sums3, mu3, var3, g3, n, group)
-    aff2 = torch.stack(_fold_affine(mu2, var2, g2, be2))
-    dz2, dw3, db3, sums2 = ker.unit1x1_bwd(g, a3, a2, w3, k3c, aff2)
+    aff2 = gather(torch.stack(_fold_affine(mu2, var2, g2, be2)))
+    dz2, dw3, db3, sums2 = ker.unit1x1_bwd(gl, a3, a2, w3, k3c, aff2,
+                                           reduce_next=tp is None)
+    if tp is not None:
+        dz2 = total(dz2)
+        sums2 = ker.bn_bwd_reduce(local(dz2), local(a2))
     k2c, dg2, dbe2 = _unit_consts(sums2, mu2, var2, g2, n, group)
-    aff1 = torch.stack(_fold_affine(mu1, var1, g1, be1))
-    dz1, dw2, db2, sums1 = ker.unit3x3_bwd(dz2, a2, a1, w2, k2c, aff1)
+    aff1 = gather(torch.stack(_fold_affine(mu1, var1, g1, be1)))
+    dz1, dw2, db2, sums1 = ker.unit3x3_bwd(dz2, a2, a1, gather(w2.to(x.dtype)),
+                                           gather(k2c), aff1)
+    dw2, db2, sums1 = local(dw2), local(db2), local(sums1)
     k1c, dg1, dbe1 = _unit_consts(sums1, mu1, var1, g1, n, group)
-    dx, dw1, db1 = ker.unit1_bwd(dz1, a1, x, g, w1, k1c)
-    return (dx, dw1, db1[0], dw2, db2[0], dw3, db3[0],
+    dx, dw1, db1 = ker.unit1_bwd(local(dz1), local(a1), x,
+                                 g if tp is None else tp.on_first(g), w1, k1c)
+    return (total(dx), dw1, db1[0], dw2, db2[0], dw3, db3[0],
             dg1, dbe1, dg2, dbe2, dg3, dbe3)
 
 
@@ -278,7 +329,7 @@ class _BottleneckTrain(torch.autograd.Function):
         return (None, None, *grads)
 
 
-def make_bottleneck_train(backend: str = "plain", group=None):
+def make_bottleneck_train(backend: str = "plain", group=None, tp=None):
     """The train-mode bottleneck as a differentiable function:
     f(x, w1, b1, w2, b2, w3, b3, g1, be1, g2, be2, g3, be3) -> (out,
     (mu1, var1, mu2, var2, mu3, var3)), differentiable in all 13 inputs.
@@ -286,12 +337,22 @@ def make_bottleneck_train(backend: str = "plain", group=None):
     unknown names raise. With a process `group` (data parallel) the BN
     statistics are those of every rank's rows together, and so are the
     reductions of the input gradient; the BN parameters' gradients are
-    this rank's share."""
-    return _make_bottleneck_train(backend, group)
+    this rank's share. With `tp` (tensor parallel) the weights and BN
+    leaves are this rank's channels (module docstring), and so are the
+    statistics."""
+    # A TensorParallel compares by identity: keyed on it, the cache would
+    # keep every sharded state's group alive.
+    if tp is None:
+        return _make_bottleneck_train(backend, group)
+    return _bottleneck_fn(backend, group, tp)
 
 
 @lru_cache(maxsize=None)
 def _make_bottleneck_train(backend: str, group):
+    return _bottleneck_fn(backend, group, None)
+
+
+def _bottleneck_fn(backend: str, group, tp):
     if backend not in BACKENDS:
         raise ValueError(f"unknown bottleneck backend: {backend!r}; use one "
                          f"of {BACKENDS}")
@@ -299,8 +360,9 @@ def _make_bottleneck_train(backend: str, group):
         else bottleneck_train_fwd
     bwd = bottleneck_train_bwd_cuda if backend in ("cuda", "cuda_bwd") \
         else bottleneck_train_bwd
-    if group is not None:
-        fwd, bwd = partial(fwd, group=group), partial(bwd, group=group)
+    if group is not None or tp is not None:
+        fwd = partial(fwd, group=group, tp=tp)
+        bwd = partial(bwd, group=group, tp=tp)
 
     def f(*args):
         out, *stats = _BottleneckTrain.apply(fwd, bwd, *args)

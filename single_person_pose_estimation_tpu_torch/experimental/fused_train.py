@@ -17,6 +17,11 @@ Activations run NCHW in `channels_last` on the card as in the plain model,
 so the NHWC view of a bottleneck's input is contiguous and the kernels
 take it without a copy (their wrappers raise on a tensor that is not).
 
+Under tensor parallelism (the model's `tensor_parallel`, see
+parallel/sharding_rules.py) the bottlenecks take this rank's output
+channels of each unit (`bottleneck_grad`); the rest runs through the
+model's own tensor-parallel `_conv`.
+
 Used by `training.steps.make_train_step(..., model_backend="fused")`.
 """
 
@@ -35,7 +40,7 @@ from single_person_pose_estimation_tpu_torch.models.hourglass import (
 )
 
 
-def _select_fn(kernel_backend: str, on_cuda: bool, group=None):
+def _select_fn(kernel_backend: str, on_cuda: bool, group=None, tp=None):
     """Spatial size -> the bottleneck function of that level."""
     if kernel_backend == "auto":
         kernel_backend = "cuda" if on_cuda else "plain"
@@ -47,31 +52,41 @@ def _select_fn(kernel_backend: str, on_cuda: bool, group=None):
             raise ValueError(f"kernel_backend 'mixed:LO-HI' takes two "
                              f"sizes, got {kernel_backend!r}") from None
         return lambda h: make_bottleneck_train(
-            "cuda" if lo <= h <= hi else "plain", group)
-    fn = make_bottleneck_train(kernel_backend, group)
+            "cuda" if lo <= h <= hi else "plain", group, tp)
+    fn = make_bottleneck_train(kernel_backend, group, tp)
     return lambda h: fn
 
 
 def _bottleneck(model, x, name, select_fn):
     """One identity-skip bottleneck on an NCHW activation through the
-    autograd function; updates its three BNs' running statistics."""
-    conv = lambda s: getattr(model, name + s)
-    c1, c2, c3 = conv("_conv_1x1_1"), conv("_conv_3x3_2"), conv("_conv_1x1_3")
-    bns = [conv(s + "_bn") for s in ("_conv_1x1_1", "_conv_3x3_2",
-                                     "_conv_1x1_3")]
+    autograd function; updates its three BNs' running statistics. Under
+    tensor parallelism every unit's weight must be split (C and C/2
+    divisible by the model axis), and each vector leaf is read through the
+    model group's `view`."""
+    tp = model.tensor_parallel
+    units = [name + s for s in ("_conv_1x1_1", "_conv_3x3_2", "_conv_1x1_3")]
+    c1, c2, c3 = (getattr(model, u) for u in units)
+    bns = [getattr(model, u + "_bn") for u in units]
+    vec = model.get_parameter
+    if tp is not None:
+        if not all(tp.is_split(u + ".weight") for u in units):
+            raise ValueError(
+                f"{name}: the fused backend under tensor parallelism needs "
+                f"every unit's output channels split over the {tp.size} "
+                "ranks of the model axis")
+        vec = lambda n: tp.view(model.get_parameter(n), n)
     xh = x.permute(0, 2, 3, 1)
     if not x.is_cuda:
         xh = xh.contiguous()
     out, stats = select_fn(x.shape[2])(
         xh,
-        c1.weight[:, :, 0, 0].t(), c1.bias,
-        c2.weight.permute(2, 3, 1, 0), c2.bias,
-        c3.weight[:, :, 0, 0].t(), c3.bias,
-        bns[0].weight, bns[0].bias, bns[1].weight, bns[1].bias,
-        bns[2].weight, bns[2].bias)
+        c1.weight[:, :, 0, 0].t(), vec(units[0] + ".bias"),
+        c2.weight.permute(2, 3, 1, 0), vec(units[1] + ".bias"),
+        c3.weight[:, :, 0, 0].t(), vec(units[2] + ".bias"),
+        *[vec(f"{u}_bn.{leaf}") for u in units for leaf in ("weight", "bias")])
     for i, bn in enumerate(bns):
         update_running(bn, stats[2 * i], stats[2 * i + 1],
-                       model.bn_momentum)
+                       model.bn_momentum, tp)
     return out.permute(0, 3, 1, 2)
 
 
@@ -91,9 +106,10 @@ def fused_train_apply(model, images: torch.Tensor,
     `augment_backend="auto"` takes the warp kernel. It is not a measured
     choice on the H100 yet (PERF.md records both step times).
 
-    With a process `group` (data parallel) every BN, in the bottlenecks
-    and outside them, takes the statistics of every rank's rows together
-    (see `bottleneck_grad.make_bottleneck_train`)."""
+    With a process `group` (data parallel; the data group under tensor
+    parallelism) every BN, in the bottlenecks and outside them, takes the
+    statistics of every rank's rows together (see
+    `bottleneck_grad.make_bottleneck_train`)."""
     if model.mobile:
         raise ValueError("the fused train forward supports the non-mobile "
                          "hourglass only")
@@ -101,7 +117,8 @@ def fused_train_apply(model, images: torch.Tensor,
             or images.shape[2] % 64:
         raise ValueError(f"input must be (B, H, W, 3) with H and W divisible "
                          f"by 64; got {tuple(images.shape)}")
-    select_fn = _select_fn(kernel_backend, images.is_cuda, group)
+    select_fn = _select_fn(kernel_backend, images.is_cuda, group,
+                           model.tensor_parallel)
     bneck = lambda x, name: _bottleneck(model, x, name, select_fn)
     x = images.to(model.compute_dtype).permute(0, 3, 1, 2)
     if x.is_cuda:
@@ -122,8 +139,8 @@ def fused_train_apply(model, images: torch.Tensor,
             d = bneck(f, f"{hg}_upsample_{lvl}_short")
             u = d + F.interpolate(u, scale_factor=2, mode="nearest")
             u = bneck(u, f"{hg}_upsample_{lvl}_merged")
-        head = model._bn(model._conv(u, hg + "_conv_1x1_1"),
-                         hg + "_conv_1x1_1_bn", True, group)
+        head = model._conv(u, hg + "_conv_1x1_1", bn=hg + "_conv_1x1_1_bn",
+                           train=True, group=group)
         pred = model._conv(head, hg + "_conv_1x1_predict", "sigmoid")
         outputs.append(pred.float().permute(0, 2, 3, 1))
         if i != model.num_stacks - 1:

@@ -36,7 +36,11 @@ Reference details kept:
     read momentum the other way round. Under data parallel
     (`forward(..., group=)`) the statistics are over the global batch;
     `nn.SyncBatchNorm` is not used: it refuses CPU tensors and computes
-    its own variance, not flax's.
+    its own variance, not flax's;
+  * under tensor parallelism (`parallel/sharding_rules.shard_state` sets
+    `tensor_parallel`) each conv whose weight is split computes this
+    rank's output channels, its bias, ReLU and BN act on that slice, and
+    the channels are gathered before the next layer (`_conv`).
 
 Parameters are stored in float32; `compute_dtype` casts the activations
 and weights of every conv, as flax's `dtype=` does.
@@ -66,10 +70,14 @@ def same_pad(n: int, k: int, s: int):
 
 
 def update_running(bn: nn.BatchNorm2d, mean: torch.Tensor,
-                   var: torch.Tensor, momentum: float) -> None:
+                   var: torch.Tensor, momentum: float, tp=None) -> None:
     """A train-mode BN's running statistics: r = m*r + (1-m)*batch, with
-    flax's momentum convention."""
+    flax's momentum convention. Under tensor parallelism (`tp`) a rank's
+    statistics cover its channels; running statistics that the rule
+    replicates take them gathered over the model group."""
     with torch.no_grad():
+        if tp is not None and mean.numel() != bn.running_mean.numel():
+            mean, var = tp.gather_(mean.detach()), tp.gather_(var.detach())
         bn.running_mean.copy_(momentum * bn.running_mean
                               + (1.0 - momentum) * mean)
         bn.running_var.copy_(momentum * bn.running_var
@@ -166,6 +174,8 @@ class StackedHourglass(nn.Module):
         self.mobile = mobile
         self.compute_dtype = compute_dtype
         self.bn_momentum = bn_momentum
+        # parallel/sharding_rules.TensorParallel once the state is sharded.
+        self.tensor_parallel = None
         for name, kind, cin, cout, k in hourglass_specs(
                 num_stacks, num_channels, num_classes, mobile):
             if kind == "conv":
@@ -184,32 +194,59 @@ class StackedHourglass(nn.Module):
                        if name.endswith(("running_mean", "running_var")))
 
     # ------------------------------------------------------------------
-    def _conv(self, x, name, activation="relu"):
+    def _conv(self, x, name, activation="relu", bn=None, train=False,
+              group=None):
+        """conv `name` (a separable conv: depthwise, then pointwise) ->
+        activation -> the BN named `bn`, if any, on an NCHW tensor.
+
+        Under tensor parallelism a conv whose weight is split runs on this
+        rank's output channels (the depthwise conv, channel-local, on its
+        input channels) and the result is gathered over the model group;
+        one that is not split runs replicated."""
         conv = getattr(self, name)
         dt = self.compute_dtype
+        tp = self.tensor_parallel
         if isinstance(conv, SeparableConv):     # depthwise, then pointwise
             dw = conv.depthwise.weight.to(dt)
-            x = F.conv2d(x, dw, padding=dw.shape[-1] // 2, groups=x.shape[1])
-            conv = conv.pointwise
+            pad = dw.shape[-1] // 2
+            if tp is not None and tp.is_split(name + ".depthwise.weight"):
+                xl = tp.local(tp.enter(x), 1)
+                x = tp.gather(F.conv2d(xl, dw, padding=pad,
+                                       groups=xl.shape[1]))
+            else:
+                x = F.conv2d(x, dw, padding=pad, groups=x.shape[1])
+            name, conv = name + ".pointwise", conv.pointwise
+        if tp is not None and not tp.is_split(name + ".weight"):
+            tp = None       # every rank computes this conv whole
         w = conv.weight.to(dt)
+        bias = conv.bias if tp is None else tp.view(conv.bias, name + ".bias")
+        if tp is not None:
+            x = tp.enter(x)
         k = w.shape[-1]
         if k == 7:
             ph, pw = (same_pad(n, 7, 2) for n in x.shape[2:])
             x = F.pad(x, (*pw, *ph))
-            y = F.conv2d(x, w, conv.bias.to(dt), stride=2)
+            y = F.conv2d(x, w, bias.to(dt), stride=2)
         else:
-            y = F.conv2d(x, w, conv.bias.to(dt), padding=k // 2)
+            y = F.conv2d(x, w, bias.to(dt), padding=k // 2)
         if activation == "relu":
-            return torch.relu(y)
-        if activation == "sigmoid":
-            return torch.sigmoid(y.float())
-        return y
+            y = torch.relu(y)
+        elif activation == "sigmoid":
+            y = torch.sigmoid(y.float())
+        if bn is not None:
+            y = self._bn(y, bn, train, group, tp)
+        return y if tp is None else tp.gather(y)
 
-    def _bn(self, x, name, train=False, group=None):
+    def _bn(self, x, name, train=False, group=None, tp=None):
+        """BN `name` on an NCHW tensor; with `tp`, x holds this rank's
+        channels and the BN reads their slice of its leaves."""
         bn = getattr(self, name)
+        leaf = (lambda a: getattr(bn, a)) if tp is None else (
+            lambda a: tp.view(getattr(bn, a), f"{name}.{a}"))
         if not train:
-            return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
-                                bn.weight, bn.bias, False, 0.0,
+            return F.batch_norm(x.float(), leaf("running_mean"),
+                                leaf("running_var"), leaf("weight"),
+                                leaf("bias"), False, 0.0,
                                 bn.eps).to(self.compute_dtype)
         xf = x.float()
         if group is None:
@@ -218,21 +255,18 @@ class StackedHourglass(nn.Module):
                               min=0.0)
         else:
             mean, var = global_moments(xf, (0, 2, 3), group)
-        update_running(bn, mean, var, self.bn_momentum)
+        update_running(bn, mean, var, self.bn_momentum, tp)
         col = lambda v: v[None, :, None, None]
-        mul = torch.rsqrt(var + bn.eps) * bn.weight
-        y = (xf - col(mean)) * col(mul) + col(bn.bias)
+        mul = torch.rsqrt(var + bn.eps) * leaf("weight")
+        y = (xf - col(mean)) * col(mul) + col(leaf("bias"))
         return y.to(self.compute_dtype)
 
     def _bottleneck(self, x, name, cout, train=False, group=None):
         skip = x if x.shape[1] == cout else self._conv(x, name + "_skip")
-        y = self._bn(self._conv(x, name + "_conv_1x1_1"),
-                     name + "_conv_1x1_1_bn", train, group)
-        y = self._bn(self._conv(y, name + "_conv_3x3_2"),
-                     name + "_conv_3x3_2_bn", train, group)
-        y = self._bn(self._conv(y, name + "_conv_1x1_3"),
-                     name + "_conv_1x1_3_bn", train, group)
-        return skip + y
+        for suffix in ("_conv_1x1_1", "_conv_3x3_2", "_conv_1x1_3"):
+            x = self._conv(x, name + suffix, bn=name + suffix + "_bn",
+                           train=train, group=group)
+        return skip + x
 
     def _hourglass(self, x, i, is_last, train=False, group=None):
         c, hg = self.num_channels, f"hg{i}"
@@ -250,8 +284,8 @@ class StackedHourglass(nn.Module):
             d = bneck(f, f"{hg}_upsample_{lvl}_short")
             u = d + F.interpolate(u, scale_factor=2, mode="nearest")
             u = bneck(u, f"{hg}_upsample_{lvl}_merged")
-        head = self._bn(self._conv(u, hg + "_conv_1x1_1"),
-                        hg + "_conv_1x1_1_bn", train, group)
+        head = self._conv(u, hg + "_conv_1x1_1", bn=hg + "_conv_1x1_1_bn",
+                          train=train, group=group)
         pred = self._conv(head, hg + "_conv_1x1_predict",
                           self.predict_activation)
         if is_last:
@@ -264,8 +298,8 @@ class StackedHourglass(nn.Module):
     def front(self, x, train=False, group=None):
         """Front module on an NCHW compute-dtype tensor (H/4 x W/4 out)."""
         c = self.num_channels
-        y = self._bn(self._conv(x, "front_conv_1x1_1"), "front_conv_1x1_1_bn",
-                     train, group)
+        y = self._conv(x, "front_conv_1x1_1", bn="front_conv_1x1_1_bn",
+                       train=train, group=group)
         y = self._bottleneck(y, "front_bottleneck_1", c // 2, train, group)
         y = F.max_pool2d(y, 2)
         y = self._bottleneck(y, "front_bottleneck_2", c // 2, train, group)

@@ -1,27 +1,37 @@
-"""The data-parallel mesh: devices in order, and the rows each one takes.
+"""The mesh: devices in order, the rows each one takes, and the process
+groups of its axes.
 
 The counterpart of the JAX package's `parallel/mesh.py`. JAX builds a
 `jax.sharding.Mesh` and lets GSPMD split the batch and insert the
 collectives; here the mesh is a small object that says which devices take
-part and, in a multi-process run, which process group joins them, and the
-code that runs over it splits the batch and calls the collectives itself:
+part and, in a multi-process run, which process groups join them, and the
+code that runs over it splits the batch and calls the collectives itself.
+Three layouts:
 
-* training, one process per device (`torchrun`): the mesh holds every
-  rank's device in rank order and the process group. Each process feeds
-  its own rows; `training/steps.py` all-reduces the BN sums and the
+* ("data",), training, one process per device (`torchrun`): the mesh holds
+  every rank's device in rank order and the process group. Each process
+  feeds its own rows; `training/steps.py` all-reduces the BN sums and the
   gradients over the group;
-* evaluation and serving, one process over the devices it sees: the mesh
-  holds those devices and no group. `predict_ds` and `PoseServer` keep a
-  model replica per device, split each batch evenly over them and gather
-  the results.
+* ("data",), evaluation and serving, one process over the devices it
+  sees: the mesh holds those devices and no group. `predict_ds` and
+  `PoseServer` keep a model replica per device, split each batch evenly
+  over them and gather the results;
+* ("data", "model"), training with tensor parallelism, one process per
+  device: rank = data_index * model_size + model_index, as JAX reshapes
+  its devices row-major. The ranks of one data index form a model group,
+  which splits the channels of the model (`parallel/sharding_rules.py`);
+  the ranks of one model index form a data group, over which the step
+  reduces the BN sums and the gradients. The ranks of a model group read
+  the same rows;
+* ("spatial",), H-sharded inference, one process over a list of devices
+  and no group (`parallel/spatial.py`).
 
 A device list may repeat a device, as `[cpu, cpu]` or `[cuda:0, cuda:0]`:
-the replicas (or ranks) then share that device, and each still takes its
-own rows. That is how the tests and a machine with one card stand in for
-several cards, as the JAX tests spoof 8 CPU devices.
+the replicas (or ranks, or shards) then share that device, and each still
+takes its own rows. That is how the tests and a machine with one card
+stand in for several cards, as the JAX tests spoof 8 CPU devices.
 
-Only the "data" axis is ported; a "model" axis (tensor parallelism, the
-JAX package's `parallel/sharding_rules.py`) raises.
+Any other layout raises; a "pipe" axis (the GPipe pipeline) is not ported.
 """
 
 from __future__ import annotations
@@ -36,29 +46,54 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-MODEL_AXIS_MISSING = (
-    "a 'model' mesh axis (tensor parallelism) is not ported yet (ROADMAP "
-    "Queue 1, the other parallel/ modules)")
+AXES_MISSING = (
+    "a 'pipe' mesh axis (the GPipe pipeline) is not ported yet (ROADMAP "
+    "Queue 1, the other parallel/ modules); the mesh axes are ('data',), "
+    "('data', 'model') or ('spatial',)")
+LAYOUTS = (("data",), ("data", "model"), ("spatial",))
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """`devices`: one per data-parallel member, in order (rank order in a
-    multi-process run). `group`: the process group of a multi-process run,
-    one process per device, or None when one process drives every device.
-    `rank`: this process's index in `devices` (0 without a group)."""
+    """`devices`: one per member, in order (rank order in a multi-process
+    run). `group`: the process group of a multi-process run, one process
+    per device, or None when one process drives every device. `rank`: this
+    process's index in `devices` (0 without a group). `axis_names`: one of
+    LAYOUTS. With a "model" axis, `model_size` ranks in a row split the
+    model's channels: `model_group` joins this rank's row and `data_group`
+    its column (None when the data axis has one member); on a ("data",)
+    mesh the data group is `group`."""
 
     devices: Tuple[torch.device, ...]
     group: Optional[Any] = None
     rank: int = 0
+    axis_names: Tuple[str, ...] = ("data",)
+    model_size: int = 1
+    model_group: Optional[Any] = None
+    data_group: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.axis_names == ("data",) and self.data_group is None:
+            object.__setattr__(self, "data_group", self.group)
 
     @property
     def data_size(self) -> int:
-        return len(self.devices)
+        return len(self.devices) // self.model_size
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model_size
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_size
 
     @property
     def shape(self) -> dict:
-        return {"data": self.data_size}
+        if self.axis_names == ("spatial",):
+            return {"spatial": len(self.devices)}
+        sizes = {"data": self.data_size, "model": self.model_size}
+        return {a: sizes[a] for a in self.axis_names}
 
     @property
     def device(self) -> torch.device:
@@ -96,19 +131,36 @@ def local_device() -> torch.device:
 def create_mesh(mesh_shape: Sequence[int] = (-1,),
                 axis_names: Sequence[str] = ("data",),
                 devices: Optional[Sequence] = None) -> Mesh:
-    """Build a data mesh.
+    """Build a mesh of one of LAYOUTS.
 
-    In a process that joined a process group (`distributed.initialize`),
-    the mesh spans the group: `devices` lists one device per rank in rank
-    order (default: each rank's `local_device()`, gathered over the
-    group). Otherwise it spans `devices` (default: every visible CUDA
-    device; raises without CUDA). `mesh_shape` is (-1,) or (n,) with n the
-    device count. A CUDA device on a host without CUDA raises.
+    ("data",): in a process that joined a process group
+    (`distributed.initialize`), the mesh spans the group: `devices` lists
+    one device per rank in rank order (default: each rank's
+    `local_device()`, gathered over the group). Otherwise it spans
+    `devices` (default: every visible CUDA device; raises without CUDA).
+    `mesh_shape` is (-1,) or (n,) with n the device count.
+
+    ("data", "model"): `mesh_shape` (n, m), n may be -1; needs a process
+    group of n*m ranks, one per device, and builds the model and data
+    groups (`dist.new_group`, a collective of every rank).
+
+    ("spatial",): one process over `devices` (default: every visible CUDA
+    device), `mesh_shape` (-1,) or (n,); no group.
+
+    A CUDA device on a host without CUDA raises, and so does any other
+    layout (AXES_MISSING).
     """
-    if tuple(axis_names) != ("data",) or len(mesh_shape) != 1:
-        raise NotImplementedError(MODEL_AXIS_MISSING)
-    group = dist.group.WORLD if dist.is_available() and dist.is_initialized() \
-        else None
+    axis_names = tuple(axis_names)
+    if axis_names not in LAYOUTS or len(mesh_shape) != len(axis_names):
+        raise NotImplementedError(f"mesh axes {axis_names} of shape "
+                                  f"{tuple(mesh_shape)}: {AXES_MISSING}")
+    spatial = axis_names == ("spatial",)
+    group = dist.group.WORLD if not spatial and dist.is_available() \
+        and dist.is_initialized() else None
+    if axis_names == ("data", "model") and group is None:
+        raise ValueError("a 'model' axis runs one process per device: "
+                         "launch with torchrun and build the mesh after "
+                         "parallel.distributed.initialize()")
     if devices is None:
         if group is not None:
             gathered: List[Optional[str]] = [None] * dist.get_world_size()
@@ -130,11 +182,28 @@ def create_mesh(mesh_shape: Sequence[int] = (-1,),
             raise ValueError(f"{len(devices)} devices for a process group "
                              f"of {dist.get_world_size()}: give one device "
                              "per rank")
+    m = mesh_shape[1] if len(mesh_shape) == 2 else 1
+    if m < 1 or len(devices) % m:
+        raise ValueError(f"a model axis of {m} does not divide "
+                         f"{len(devices)} devices")
     n = mesh_shape[0]
-    if n not in (-1, len(devices)):
+    if n not in (-1, len(devices) // m):
         raise ValueError(f"mesh shape {tuple(mesh_shape)} does not cover "
                          f"{len(devices)} devices")
-    return Mesh(devices, group, rank)
+    if axis_names != ("data", "model"):
+        return Mesh(devices, group, rank, axis_names)
+    return Mesh(devices, group, rank, axis_names, m,
+                *_model_and_data_groups(len(devices), m, rank))
+
+
+def _model_and_data_groups(world: int, m: int, rank: int):
+    """(this rank's model group, its data group or None): every rank
+    creates every group, in one order, as `dist.new_group` requires."""
+    rows = [dist.new_group(list(range(i, i + m)))
+            for i in range(0, world, m)]
+    cols = [dist.new_group(list(range(j, world, m)))
+            for j in range(m)] if world > m else None
+    return rows[rank // m], None if cols is None else cols[rank % m]
 
 
 # ---------------------------------------------------------------------------
@@ -159,13 +228,14 @@ def _leading(batch) -> int:
 
 def batch_sharding(mesh: Mesh, n: int) -> List[slice]:
     """The rows of an n-row global batch that each local device takes:
-    this rank's share with a group, one share per device without. n must
-    divide evenly (see pad_batch_to_devices)."""
+    this rank's data share with a group (the ranks of a model group take
+    the same rows), one share per device without. n must divide evenly
+    (see pad_batch_to_devices)."""
     if n % mesh.data_size:
         raise ValueError(f"a batch of {n} does not split over "
                          f"{mesh.data_size} devices; pad it first")
     per = n // mesh.data_size
-    first = mesh.rank if mesh.group is not None else 0
+    first = mesh.data_index if mesh.group is not None else 0
     return [slice((first + i) * per, (first + i + 1) * per)
             for i in range(len(mesh.local_devices))]
 

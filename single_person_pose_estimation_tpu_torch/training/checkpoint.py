@@ -17,6 +17,12 @@ Data parallel (`group=`, one process per device): the ranks hold the same
 state, so rank 0 alone writes, and every save ends in a barrier; the
 directory must be one that every rank reads (one host, or a shared file
 system). Every rank restores from it.
+
+Tensor parallel (the model sharded by `parallel.sharding_rules`): every
+rank gathers each split leaf over its model group before rank 0 writes,
+so the file is the one an unsharded run writes, and a restore keeps this
+rank's slice of the full state. A checkpoint written under tensor
+parallelism restores without it, and the other way round.
 """
 
 from __future__ import annotations
@@ -29,19 +35,35 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from single_person_pose_estimation_tpu_torch.parallel.sharding_rules import (
+    map_split_leaves,
+)
 from single_person_pose_estimation_tpu_torch.training.steps import TrainState
 
 _STATE, _META = "state.pt", "meta.json"
 
 
 def state_payload(state: TrainState) -> dict:
-    return {"model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": state.step,
-            "generator": state.generator.get_state()}
+    """The full state; under tensor parallelism a collective of the model
+    group, which gathers every split leaf."""
+    payload = {"model": state.model.state_dict(),
+               "optimizer": state.optimizer.state_dict(),
+               "step": state.step,
+               "generator": state.generator.get_state()}
+    tp = state.model.tensor_parallel
+    if tp is None:
+        return payload
+    return map_split_leaves(payload, list(state.optimizer.params), tp,
+                            tp.gather_list_)
 
 
 def apply_payload(state: TrainState, payload: dict) -> TrainState:
+    """Load a full state; under tensor parallelism this rank keeps its
+    slice of every split leaf."""
+    tp = state.model.tensor_parallel
+    if tp is not None:
+        payload = map_split_leaves(payload, list(state.optimizer.params), tp,
+                                   tp.local_list)
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
@@ -69,14 +91,14 @@ class CheckpointManager:
     # -- save ------------------------------------------------------------
 
     @staticmethod
-    def _write(path: str, state: TrainState, meta: dict) -> None:
+    def _write(path: str, payload: dict, meta: dict) -> None:
         parent = os.path.dirname(path)
         os.makedirs(parent, exist_ok=True)
         tmp = os.path.join(parent, f".tmp-{os.path.basename(path)}-"
                                    f"{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(state_payload(state), os.path.join(tmp, _STATE))
+        torch.save(payload, os.path.join(tmp, _STATE))
         with open(os.path.join(tmp, _META), "w") as f:
             json.dump(meta, f)
         if os.path.exists(path):
@@ -90,16 +112,19 @@ class CheckpointManager:
 
     def save(self, epoch: int, state: TrainState, meta: dict) -> None:
         """Save state and metadata under `epoch`; keep the newest
-        max_to_keep."""
+        max_to_keep. Every rank calls it (module docstring)."""
+        payload = state_payload(state)
         if self._writer:
-            self._write(os.path.join(self._latest, str(epoch)), state, meta)
+            self._write(os.path.join(self._latest, str(epoch)), payload,
+                        meta)
             for old in self._epochs()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self._latest, str(old)))
         self._barrier()
 
     def save_best(self, state: TrainState, meta: dict) -> None:
+        payload = state_payload(state)
         if self._writer:
-            self._write(os.path.join(self._best, "0"), state, meta)
+            self._write(os.path.join(self._best, "0"), payload, meta)
         self._barrier()
 
     def maybe_promote_best(self, val_loss: float, state: TrainState,

@@ -22,6 +22,18 @@ ranks' parameters stay bit-identical. The model is not wrapped in
 DistributedDataParallel: its reducer is armed by the wrapper's forward,
 which `fused_train_apply` never calls.
 
+Tensor parallel (`mesh=` with a ("data", "model") mesh and
+`model_axis="model"`, the state sharded by
+`parallel.sharding_rules.shard_state`): the ranks of a model group pass
+the same rows and split the model's channels (its forward gathers them
+over the model group). The BN sums, the augmentation's shard and the
+gradient all_reduce run over the data group, which each rank's gradient
+of a split leaf shares with the ranks that hold the same slice. Before
+it, the gradients of the replicated leaves are made equal over the model
+group (`TensorParallel.reduce_grads`: summed where the forward reads
+them in slices, else the group's first rank's), so the replicated leaves
+stay bit-identical.
+
 A batch is a dict with
   "image": (B, H, W, 3) float32 in [0, 1], or uint8 (divided by 255 on the
            device: the uint8 wire of `config.train_transfer_dtype`);
@@ -253,8 +265,9 @@ def _metrics(total, per_stack):
 
 
 def mesh_group(mesh):
-    """The process group a step all-reduces over: None without a mesh or
-    on a mesh of one device that no group joins."""
+    """The process group a step all-reduces over, the mesh's data group:
+    None without a mesh, on a mesh of one device that no group joins, and
+    on a data axis of one rank."""
     if mesh is None:
         return None
     if mesh.group is None:
@@ -264,7 +277,32 @@ def mesh_group(mesh):
                 "launch with torchrun and build the mesh after "
                 "parallel.distributed.initialize()")
         return None
-    return mesh.group
+    return mesh.data_group
+
+
+def check_model_axis(mesh, model_axis: Optional[str]) -> None:
+    """A tensor-parallel axis needs a mesh that has it, as in the JAX
+    package's Trainer."""
+    if model_axis is None:
+        return
+    if mesh is None:
+        raise ValueError("model_axis requires a mesh")
+    if model_axis not in mesh.axis_names:
+        raise ValueError(f"model_axis {model_axis!r} not in mesh axes "
+                         f"{mesh.axis_names}")
+
+
+def _tensor_parallel(model, mesh, model_axis):
+    """The model's TensorParallel, which must match `model_axis`: a state
+    sharded for this mesh's model group with it, unsharded without."""
+    tp = model.tensor_parallel
+    if (tp is None) != (model_axis is None) or (
+            tp is not None and tp.group is not mesh.model_group):
+        raise ValueError(
+            f"model_axis={model_axis!r} needs the state "
+            f"{'sharded for this mesh' if model_axis else 'unsharded'} "
+            "(parallel.sharding_rules.shard_state)")
+    return tp
 
 
 def _all_reduce_step(params, metrics: torch.Tensor, group,
@@ -285,7 +323,8 @@ def _all_reduce_step(params, metrics: torch.Tensor, group,
 
 def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
                     bn_mode: str = "batch", accum_steps: int = 1,
-                    model_backend: str = "flax", mesh=None):
+                    model_backend: str = "flax", mesh=None,
+                    model_axis: Optional[str] = None):
     """Build the train step, (state, batch) -> (state, metrics).
 
     model_backend: "flax" (the model's forward and autograd; cuDNN convs)
@@ -310,7 +349,13 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
     number on each. With accum_steps > 1, microbatch m of the global batch
     is every rank's m-th chunk. A mesh of several devices without a group
     raises ValueError.
+
+    model_axis: "model" on a ("data", "model") mesh trains a state sharded
+    by `parallel.sharding_rules.shard_state` (module docstring); each rank
+    passes its data index's rows. A model_axis without a mesh that has it,
+    or a state that does not match it, raises ValueError.
     """
+    check_model_axis(mesh, model_axis)
     if bn_mode not in ("batch", "frozen"):
         raise ValueError(f"bn_mode must be 'batch' or 'frozen': {bn_mode!r}")
     if accum_steps < 1:
@@ -322,10 +367,11 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
     sigma = config.hm_sigma
     group = mesh_group(mesh)
     world = mesh.data_size if group is not None else 1
-    shard = (mesh.rank, world) if group is not None else (0, 1)
+    shard = (mesh.data_index, world) if group is not None else (0, 1)
 
     def step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
+        tp = _tensor_parallel(model, mesh, model_axis)
         if model_backend == "fused" and model.mobile:
             raise ValueError("model_backend='fused' supports the non-mobile "
                              "hourglass only")
@@ -363,6 +409,8 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
             total, per_stack = forward_loss(model, loss_fn, images, heatmaps,
                                             bn_mode, model_backend, group)
             total.backward()
+        if tp is not None:
+            tp.reduce_grads(opt.params.items())
         if group is not None:
             total, *per_stack = _all_reduce_step(
                 opt.params.values(),
@@ -375,18 +423,24 @@ def make_train_step(loss_fn: Callable, config: Config, augment: bool = True,
     return step
 
 
-def make_eval_step(loss_fn: Callable, config: Config, mesh=None):
+def make_eval_step(loss_fn: Callable, config: Config, mesh=None,
+                   model_axis: Optional[str] = None):
     """Validation step, (state, batch) -> metrics: targets without
     augmentation, forward with the running BN statistics, per-stack
     losses. On a mesh with a process group each rank evaluates its own
-    rows, with no collective; `parallel.distributed.aggregate_metrics`
+    rows, with no collective of its own (under tensor parallelism the
+    model's forward gathers channels over the model group, whose ranks
+    pass the same rows); `parallel.distributed.aggregate_metrics`
     combines the ranks' means (as `Trainer` does). A mesh of several
-    devices without a group raises ValueError."""
+    devices without a group, or a model_axis that the mesh or the state
+    does not match, raises ValueError."""
     mesh_group(mesh)
+    check_model_axis(mesh, model_axis)
     label_h, label_w = config.label_height, config.label_width
     sigma = config.hm_sigma
 
     def step(state: TrainState, batch):
+        _tensor_parallel(state.model, mesh, model_axis)
         images, kx, ky, kv = _to_device(batch, state.device)
         with torch.no_grad():
             heatmaps = render_heatmaps_batch(kx, ky, kv, height=label_h,

@@ -33,6 +33,14 @@ and the gradients (training/steps.py); validation means are combined by
 example count (`parallel.distributed.aggregate_metrics`), so every rank
 promotes the same best checkpoint. Rank 0 writes the checkpoints and
 every rank restores them.
+
+Tensor parallel (`model_axis="model"` on a ("data", "model") mesh, as in
+the JAX package): after the broadcast the state is sharded
+(`parallel.sharding_rules.shard_state`), so each rank holds its slice of
+every split parameter, Adam moment and EMA leaf; the ranks of a model
+group must read the same rows (`DatasetBuilder(..., mesh.data_index,
+mesh.data_size)`). Checkpoints hold the full state (training/
+checkpoint.py), so they resume with or without tensor parallelism.
 """
 
 from __future__ import annotations
@@ -52,8 +60,8 @@ from single_person_pose_estimation_tpu_torch.data.device_prefetch import (
 from single_person_pose_estimation_tpu_torch.parallel.distributed import (
     aggregate_metrics,
 )
-from single_person_pose_estimation_tpu_torch.parallel.mesh import (
-    MODEL_AXIS_MISSING,
+from single_person_pose_estimation_tpu_torch.parallel.sharding_rules import (
+    shard_state,
 )
 from single_person_pose_estimation_tpu_torch.training import metrics as metrics_lib
 from single_person_pose_estimation_tpu_torch.training import steps as steps_lib
@@ -78,10 +86,12 @@ class Trainer:
                  bn_mode: str = "batch", accum_steps: int = 1,
                  lr_schedule: Optional[str] = None, warmup_steps: int = 0,
                  ema_decay: Optional[float] = None, device="cuda"):
-        if model_axis is not None:
-            raise NotImplementedError(MODEL_AXIS_MISSING)
+        steps_lib.check_model_axis(mesh, model_axis)
+        steps_lib.mesh_group(mesh)
         self.mesh = mesh
-        self.group = steps_lib.mesh_group(mesh)
+        # The whole process group: the ranks agree on the epoch length, the
+        # weights, the validation metrics and the checkpoints over it.
+        self.group = None if mesh is None else mesh.group
         if mesh is not None:
             device = mesh.device
         self.device = steps_lib.resolve_device(device)
@@ -126,11 +136,13 @@ class Trainer:
                 m, learning_rate, schedule=lr_schedule, total_steps=total,
                 warmup_steps=warmup_steps, ema_decay=ema_decay),
             seed=config.seed, device=self.device)
+        self.state = shard_state(self.state, mesh, model_axis)
         self.train_step = steps_lib.make_train_step(
             self.loss_fn, config, augment=augment, bn_mode=bn_mode,
-            accum_steps=accum_steps, mesh=mesh)
+            accum_steps=accum_steps, mesh=mesh, model_axis=model_axis)
         self.eval_step = steps_lib.make_eval_step(self.loss_fn, config,
-                                                  mesh=mesh)
+                                                  mesh=mesh,
+                                                  model_axis=model_axis)
 
         self.ckpt = CheckpointManager(config.checkpoints_path,
                                       group=self.group)

@@ -51,8 +51,9 @@ def test_ban_catches_the_jax_package_but_not_the_port():
 
 
 def test_new_modules_are_scanned():
-    """Every module of the evaluation, mobile, fused-training, entry-point
-    and data-parallel slices is among the scanned sources."""
+    """Every module of the evaluation, mobile, fused-training, entry-point,
+    data-parallel and tensor-parallel/spatial slices is among the scanned
+    sources."""
     for rel in ("data/example_codec.py", "data/tfrecord.py",
                 "data/images.py", "data/pipeline.py", "data/coco.py",
                 "ops/cuda/decode_kernel.py", "evaluation/predict.py",
@@ -69,7 +70,8 @@ def test_new_modules_are_scanned():
                 "utils/visualization.py", "demo/__init__.py",
                 "demo/demo.py", "demo/webcam.py", "cli.py",
                 "parallel/__init__.py", "parallel/mesh.py",
-                "parallel/distributed.py"):
+                "parallel/distributed.py", "parallel/sharding_rules.py",
+                "parallel/spatial.py", "parallel/spatial_model.py"):
         path = os.path.join(PORT_DIR, rel)
         assert os.path.exists(path), rel
         assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
@@ -182,16 +184,19 @@ def test_entry_points_import_with_jax_blocked():
 
 
 def test_parallel_modules_import_with_jax_blocked():
-    """The data-parallel slice's modules, and the worker of its two-process
-    test, import with JAX, flax and the JAX package blocked."""
+    """The parallel slices' modules, and the workers of their
+    multi-process tests, import with JAX, flax and the JAX package
+    blocked."""
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'jaxlib', 'optax', 'orbax',\n"
             "          'single_person_pose_estimation_tpu'):\n"
             "    sys.modules[m] = None\n"
             "sys.path.insert(0, 'tests')\n"
             "from single_person_pose_estimation_tpu_torch.parallel import (\n"
-            "    distributed, mesh)\n"
-            "import torch_port_dp_worker\n"
+            "    distributed, mesh, sharding_rules, spatial, spatial_model)\n"
+            "import torch_port_dp_worker, torch_port_tp_worker\n"
+            "assert sharding_rules.shard_state and spatial.conv_spatial\n"
+            "assert spatial_model.spatial_apply and torch_port_tp_worker.main\n"
             "assert mesh.create_mesh and mesh.shard_batch\n"
             "assert distributed.initialize and distributed.aggregate_metrics\n"
             "assert distributed.shard_files_for_process\n"

@@ -160,7 +160,7 @@ def test_resume_errors(tmp_path):
     with pytest.raises(ValueError, match="EMA"):
         ema.resume_training()
     ema.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="model_axis requires a mesh"):
         _trainer(tmp_path, 1, model_axis="model")
     with pytest.raises(ValueError, match="one process per device"):
         _trainer(tmp_path, 1, mesh=create_mesh(devices=["cpu"] * 2))
