@@ -81,6 +81,15 @@ failure:
    within SP_BF16_FACTOR of the plain bf16 control; its ms beside the
    plain forward's; no kernel launch (it runs cuDNN's convs, as JAX's
    runs no Pallas kernel);
+7'''. s2d_remat: the model's dials on S4/256: `front_s2d` on the kernel
+   path (#1-#4, with `fuse_front` also #6; exact launches) and on the
+   plain model at B=128 bf16, within S4_BF16_FACTOR of the plain bf16
+   control, the f32 front's output within 1e-5 (relative L2); `remat`
+   True and "conv_out" in an f32 train step at B=16 against remat=False
+   (loss within 1e-6, grads within the one-ulp control, running
+   statistics bit for bit), with each mode's peak memory and step ms;
+   `mobile_depthwise` "dense"/"taps" against "conv" on the plain mobile
+   model; the weight import's TensorFlow gap is logged;
 7a. mobile_kernels: the mobile kernels (#8-#10) against their plain
    versions at batch 8, C=256, at every level the mobile path runs them:
    #8 at 64 and 4 px, #9 at 32, 16 and 8 px, #10 at 64, 32, 16 and 8 px,
@@ -214,6 +223,17 @@ failure:
    replicated leaves the same bits on both ranks after every step; the
    ranks' checkpoint restored unsharded bit for bit; exact launches per
    rank (`tp_fused_want`);
+24''. pipeline (after tp_train): the GPipe pipeline of S4/256 over a
+   ("pipe",) mesh of [cuda:0] * 4: the eval forward at B=32, M=4 against
+   the sequential plain forward (f32 within 1e-4 on the same
+   microbatches, bf16 within S4_BF16_FACTOR of the plain bf16 control); 3
+   bf16 train steps at B=16, M=4 with augmentation (#11 twice and #12
+   once a step, exact; a falling loss); one f32 step at M=1 against
+   dp_train's one process (grads and statistics within ULP_FACTOR of its
+   controls); the merged variables through CheckpointManager into a
+   StackedHourglass, every tensor equal; two child processes (`--dp-child
+   pp`) over a ("data", "pipe") mesh of 2 x 2 on cuda:0, one f32 step at
+   B=8 against one process; pipelined and sequential ms (readings);
 25. dp_nccl (after cli_train, on its records): `cli train --data-parallel`
    for 2 steps in a child process that joined a process group of one over
    NCCL, with exact launch counts and a checkpoint.
@@ -1292,15 +1312,7 @@ def scaled_readings(model, x, label, flags=MAIN_FLAGS):
         prepare_fused,
     )
 
-    peaked = copy.deepcopy(model)
-    peaked.compute_dtype = torch.float32
-    with torch.inference_mode():
-        z = predict_logits(peaked, x)
-    pred = getattr(peaked, f"hg{peaked.num_stacks - 1}_conv_1x1_predict")
-    k = 4.0 / z.abs().max().item()
-    with torch.no_grad():
-        pred.weight.mul_(k)
-        pred.bias.mul_(k)
+    peaked, z, k = unsaturated_copy(model, x)
     with torch.inference_mode():
         plain32 = peaked(x)[-1]
         fused32 = fused_apply(prepare_fused(peaked), x, **flags)[-1]
@@ -1345,6 +1357,24 @@ def scaled_readings(model, x, label, flags=MAIN_FLAGS):
         raise AssertionError(f"{label}: bf16 kernels on the scaled copy: "
                              f"{kern} against the control {ctrl}")
     return readings
+
+
+def unsaturated_copy(model, x):
+    """(an f32 deep copy of `model` whose last predict conv is scaled by
+    4 / max|z|, z: its last-stack logits on x; z; the factor), as
+    scaled_readings describes."""
+    import torch
+
+    peaked = copy.deepcopy(model)
+    peaked.compute_dtype = torch.float32
+    with torch.inference_mode():
+        z = predict_logits(peaked, x)
+    pred = getattr(peaked, f"hg{peaked.num_stacks - 1}_conv_1x1_predict")
+    k = 4.0 / z.abs().max().item()
+    with torch.no_grad():
+        pred.weight.mul_(k)
+        pred.bias.mul_(k)
+    return peaked, z, k
 
 
 def predict_logits(model, x):
@@ -4514,7 +4544,7 @@ def dp_nccl_child(payload):
 
 def dp_child(task, out):
     """The body of `chip_smoke.py --dp-child TASK DIR`: join the process
-    group from torchrun's environment (gloo for "train" and "tp", two
+    group from torchrun's environment (gloo for "train", "tp" and "pp", two
     ranks on cuda:0, since NCCL refuses two ranks on one device; NCCL for
     "nccl"), run the task, write DIR/rank{R}.pt."""
     import torch
@@ -4541,6 +4571,10 @@ def dp_child(task, out):
         res = tp_train_child(mesh_lib.create_mesh(
             (1, TP_WORLD), ("data", "model"),
             devices=["cuda:0"] * dist.get_world_size()), payload["seed"], out)
+    elif task == "pp":
+        res = pp_train_child(mesh_lib.create_mesh(
+            (DP_WORLD, PP_DP_STAGES), ("data", "pipe"),
+            devices=["cuda:0"] * (DP_WORLD * PP_DP_STAGES)), payload["seed"])
     else:
         res = dp_nccl_child(payload)
     torch.save(res, os.path.join(out, f"rank{dist.get_rank()}.pt"))
@@ -5190,6 +5224,593 @@ def phase_dp_serve(report, cfg, state):
                              f"{np.abs(got - want).max()}")
 
 
+# ---------------------------------------------------------------------------
+# The GPipe pipeline over stacks (parallel/pipeline.py): pipeline. The
+# space-to-depth front, remat and the mobile depthwise lowerings (the
+# model's dials): s2d_remat.
+# ---------------------------------------------------------------------------
+
+PP_STAGES = 4            # ("pipe",) mesh of [cuda:0] * 4, one stack a stage
+B_PP_FWD, PP_FWD_M = 32, 4
+B_PP_TRAIN, PP_TRAIN_M, PP_STEPS, PP_LR = 16, 4, 3, 1e-3
+B_PP_DP = 8              # the ("data", "pipe") step: 2 ranks x 2 stages
+PP_DP_STAGES = 2
+TOL_PP_F32 = 1e-4        # against seq_microbatched
+PP_ROOT = os.path.join(ROOT, "temp", "chip_smoke_pp")
+B_S2D = 128
+TOL_S2D_FRONT = 1e-5     # relative L2 of the f32 front's output
+TOL_REMAT_LOSS = 1e-6    # relative
+REMAT_MODES = (False, True, "conv_out")
+
+
+def pp_model(dtype, stacks=4, **kw):
+    """An S4/256 StackedHourglass (random torch weights) at `dtype`: the
+    template whose settings the pipeline's modules copy."""
+    from single_person_pose_estimation_tpu_torch.models.hourglass import (
+        StackedHourglass,
+    )
+
+    return StackedHourglass(num_stacks=stacks, num_channels=C,
+                            compute_dtype=dtype, **kw)
+
+
+def pp_mesh(stages, device="cuda:0"):
+    from single_person_pose_estimation_tpu_torch.parallel.mesh import (
+        create_mesh,
+    )
+
+    return create_mesh((stages,), ("pipe",), devices=[device] * stages)
+
+
+def pp_state(variables, dtype, mesh, lr):
+    from single_person_pose_estimation_tpu_torch.parallel import (
+        pipeline as pp,
+    )
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+
+    return pp.PipelineTrainState.create(
+        pp_model(dtype), lambda m: steps_lib.make_optimizer(m, lr), mesh,
+        seed=0, variables=variables)
+
+
+def pp_step(dtype, mesh, m, augment):
+    from single_person_pose_estimation_tpu_torch import losses
+    from single_person_pose_estimation_tpu_torch.parallel import (
+        pipeline as pp,
+    )
+
+    return pp.make_pipeline_train_step(pp_model(dtype), losses.weighted_mse,
+                                       train_config(DP_ROOT), mesh, m,
+                                       augment=augment)
+
+
+def pp_grads(state):
+    """A pipelined state's grads under the sequential model's parameter
+    names; the last stack's zero-padded interface convs get none."""
+    grads = {n: p.grad for n, p in state.front.named_parameters()}
+    for s, stage in enumerate(state.stacked):
+        grads.update({f"hg{s}" + n[len("hg0"):]: p.grad
+                      for n, p in stage.named_parameters()
+                      if p.grad is not None})
+    return grads
+
+
+def pp_stats(variables):
+    """The running statistics of full-model variables, by state_dict name."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.utils.weight_convert import (
+        to_state_dict,
+    )
+
+    return {n: t for n, t in to_state_dict(
+        {"params": variables["params"],
+         "batch_stats": variables["batch_stats"]}).items()
+        if "running" in n}
+
+
+def stats_err(a, b):
+    """The largest distance of a's running statistics from b's, each over
+    the tensor's largest |value|."""
+    return max((a[n].float().cpu() - t.float().cpu()).abs().max().item()
+               / max(t.abs().max().item(), 1e-30) for n, t in b.items())
+
+
+def pp_ghost_stats(variables, images, replicas):
+    """The ("data", "pipe") step's running statistics, computed directly
+    in one process: the front's train-mode BN over the whole batch, each
+    replica's rows through its own copies of the stages (train-mode BN
+    over those rows), the stages' statistics averaged over the replicas."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.parallel import (
+        pipeline as pp,
+    )
+
+    model = pp_model(torch.float32)
+    front, stages = pp.place_pipeline(
+        model, *pp.split_pipeline_variables(variables, 4),
+        [images.device] * PP_DP_STAGES)
+    per = []
+    with torch.no_grad():
+        x0 = front.front(front.input_nchw(images), True)
+        for rows in x0.chunk(replicas):
+            copies = copy.deepcopy(stages)
+            for stage in copies:
+                rows, _ = stage.run(rows, True)
+            per.append(pp.pipeline_variables(front, copies))
+    stacked = {"params": per[0][1]["params"],
+               "batch_stats": {n: {k: np.mean([p[1]["batch_stats"][n][k]
+                                               for p in per], axis=0)
+                                   for k in ("mean", "var")}
+                               for n in per[0][1]["batch_stats"]}}
+    return pp_stats(pp.merge_pipeline_variables(per[0][0], stacked, 4))
+
+
+def seq_microbatched(model, x):
+    """The sequential model's last-stack heatmaps computed as the pipeline
+    computes them: the front over the whole batch, then the stacks on
+    each of PP_FWD_M microbatches."""
+    x0 = model.front(model.input_nchw(x))
+    outs = []
+    for y in x0.chunk(PP_FWD_M):
+        for i in range(model.num_stacks):
+            y, pred = model._hourglass(y, i, i == model.num_stacks - 1)
+        outs.append(pred.float().permute(0, 2, 3, 1))
+    return outs
+
+
+def pp_train_child(mesh, seed):
+    """One rank of the pipeline phase's ("data", "pipe") check: one f32
+    step of S4/256 at M = 1 on this rank's B_PP_DP / 2 rows, without
+    augmentation."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.ops import cuda as kernels
+    from single_person_pose_estimation_tpu_torch.utils.weight_convert import (
+        init_variables,
+    )
+
+    state = pp_state(init_variables(4, C, seed=seed), torch.float32, mesh,
+                     2.5e-4)
+    step = pp_step(torch.float32, mesh, 1, augment=False)
+    n = B_PP_DP // mesh.data_size
+    b = dp_batch(B_PP_DP, seed, slice(mesh.rank * n, (mesh.rank + 1) * n))
+    kernels.reset_launch_counts()
+    state, m = step(state, b)
+    torch.cuda.synchronize()
+    variables = state.variables()
+    res = {"loss": m["loss"].item(), "counts": kernels.launch_counts(),
+           "digest": variables_digest(variables), "shape": mesh.shape}
+    if mesh.rank == 0:
+        res.update(grads=flatten_sorted(pp_grads(state)),
+                   stats=pp_stats(variables))
+    return res
+
+
+def variables_digest(variables) -> str:
+    """SHA-256 of every leaf of flax-layout variables, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(tree, path):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                walk(tree[k], f"{path}/{k}")
+            else:
+                h.update(f"{path}/{k}".encode())
+                h.update(np.ascontiguousarray(tree[k]).tobytes())
+    walk(variables, "")
+    return h.hexdigest()
+
+
+def phase_pipeline(report, ref, card, seed=DP_SEED):
+    """The GPipe pipeline of S4/256 (13,784,260 parameters,
+    init_variables) over a ("pipe",) mesh of [cuda:0] * 4, one stack a
+    stage: (a) the eval forward at B=32, M=4, on the weights with the last
+    predict conv scaled so that no heatmap saturates (`unsaturated_copy`),
+    f32 within TOL_PP_F32 of the sequential model's front on the batch
+    and stacks on the same microbatches (`seq_microbatched`) and of its
+    whole-batch forward (mean within TOL_S4_F32_MEAN); bf16 within
+    S4_BF16_FACTOR times the plain bf16 forward's distance from plain f32
+    in max|d| and mean|d|; (b) PP_STEPS bf16 train steps at
+    B=16, M=4, augmentation on ("auto": the warp #11 twice and the
+    heatmap #12 once a step, exact), whose loss falls; (c) one f32 step at
+    M=1 against dp_train's one-process step on its batch (`ref`): loss
+    within TOL_FUSED_LOSS, grads and running statistics within
+    ULP_FACTOR times the larger of dp_train's one-ulp and batch-halves
+    controls; (d) merged variables saved through CheckpointManager and
+    restored into a StackedHourglass, every tensor equal; (e) two gloo
+    ranks x 2 stages on cuda:0 over a ("data", "pipe") mesh, one f32 step
+    at B=8 and M=1, against one process on a pipe-only mesh at M=2 (the
+    same row groups): loss (within TOL_FUSED_LOSS, or ULP_FACTOR times
+    the larger of that process's one-ulp and halves-swapped controls) and
+    grads within ULP_FACTOR times those controls, running statistics within
+    ULP_FACTOR times the one-ulp control of `pp_ghost_stats`; both ranks
+    the same bits. Prints the pipelined and sequential ms a forward and a
+    step (smoke readings)."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch import losses as losses_lib
+    from single_person_pose_estimation_tpu_torch.models.hourglass import (
+        StackedHourglass,
+    )
+    from single_person_pose_estimation_tpu_torch.parallel import (
+        pipeline as pp,
+    )
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+    from single_person_pose_estimation_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+    from single_person_pose_estimation_tpu_torch.utils.weight_convert import (
+        init_variables,
+        load_variables,
+        to_state_dict,
+        to_variables,
+    )
+
+    children = start_children("pp", DP_WORLD, {"seed": seed})
+    failed, readings = [], {}
+    try:
+        v = init_variables(4, C, seed=0)
+        mesh = pp_mesh(PP_STAGES)
+        # (a) the eval forward, with the last predict conv scaled so that
+        # no heatmap saturates (scaled_readings).
+        x = dp_batch(B_PP_FWD, 3)["image"]
+        seq = load_variables(pp_model(torch.float32), v).cuda()
+        if seq.count_params() != S4_PARAMS:
+            raise AssertionError(f"S4/256: {seq.count_params()} params")
+        vs = to_variables(unsaturated_copy(seq, x)[0])
+        out = {}
+        for dt in (torch.float32, torch.bfloat16):
+            seq = load_variables(pp_model(dt), vs).cuda()
+            parts = pp.place_pipeline(seq, *pp.split_pipeline_variables(
+                vs, 4), mesh.pipe_devices())
+            fwd = pp.make_pipeline_forward(seq, mesh, PP_FWD_M)
+            with torch.inference_mode():
+                out["seq", dt] = seq(x)[-1]
+                out["mb", dt] = torch.cat(seq_microbatched(seq, x))
+                out["pp", dt] = fwd(*parts, x)
+                if dt == torch.bfloat16:
+                    readings["forward_ms"] = cuda_ms(
+                        lambda: fwd(*parts, x), iters=3, warmup=1)
+                    readings["seq_forward_ms"] = cuda_ms(
+                        lambda: seq(x), iters=3, warmup=1)
+            del seq, parts
+        f32, b16 = torch.float32, torch.bfloat16
+        dist = lambda a, b: ((a - b).abs().max().item(),
+                             (a - b).abs().mean().item())
+        d_mb = dist(out["pp", f32], out["mb", f32])[0]
+        d_seq = dist(out["pp", f32], out["seq", f32])
+        ctl = dist(out["seq", b16], out["seq", f32])
+        d16 = dist(out["pp", b16], out["seq", f32])
+        open_share = ((out["seq", f32] > 0) & (out["seq", f32] < 1)).float(
+            ).mean().item()
+        log(f"pipeline forward B={B_PP_FWD} M={PP_FWD_M} over "
+            f"{PP_STAGES} stages ({open_share:.4f} of the heatmap values "
+            f"strictly between 0 and 1): f32 vs the sequential model's "
+            f"stacks on the same microbatches max|d| {d_mb:.3e}, vs its "
+            f"whole-batch forward max|d| {d_seq[0]:.3e} mean|d| "
+            f"{d_seq[1]:.3e}; bf16 vs plain f32 max|d| {d16[0]:.3e} mean|d| "
+            f"{d16[1]:.3e} (plain bf16 control {ctl[0]:.3e}, {ctl[1]:.3e})")
+        if not all(torch.isfinite(t).all() for t in out.values()) \
+                or out["pp", f32].shape != (B_PP_FWD, 64, 64, K) \
+                or open_share < 0.99 or d_mb > TOL_PP_F32 \
+                or d_seq[0] > TOL_PP_F32 or d_seq[1] > TOL_S4_F32_MEAN \
+                or any(d > S4_BF16_FACTOR * c for d, c in zip(d16, ctl)):
+            failed.append(f"forward: f32 {d_mb} {d_seq}, bf16 {d16} vs "
+                          f"{ctl}, open {open_share}")
+        del out
+
+        # (b) bf16 steps with augmentation.
+        state = pp_state(v, torch.bfloat16, mesh, PP_LR)
+        step = pp_step(torch.bfloat16, mesh, PP_TRAIN_M, augment=True)
+        b = dp_batch(B_PP_TRAIN, 7)
+        reset_counts()
+        seen = []
+        for _ in range(PP_STEPS):
+            state, m = step(state, b)
+            seen.append(m["loss"].item())
+        counts = read_counts(
+            f"pipeline {PP_STEPS} bf16 steps B={B_PP_TRAIN} M={PP_TRAIN_M}",
+            {"render_heatmaps_batch": PP_STEPS,
+             "resample_last_axis": 2 * PP_STEPS})
+        add_launches(report, counts)
+        readings["step_ms"] = cuda_ms(lambda: step(state, b), iters=2,
+                                      warmup=0)
+        del state
+        seq_state = steps_lib.TrainState.create(
+            load_variables(pp_model(torch.bfloat16), v),
+            lambda mm: steps_lib.make_optimizer(mm, PP_LR), device="cuda")
+        seq_step = steps_lib.make_train_step(losses_lib.weighted_mse,
+                                             train_config(DP_ROOT),
+                                             augment=True)
+        readings["seq_step_ms"] = cuda_ms(lambda: seq_step(seq_state, b),
+                                          iters=2, warmup=1)
+        del seq_state
+        log(f"pipeline bf16 losses {seen}")
+        if not np.isfinite(seen).all() or seen[-1] >= seen[0]:
+            failed.append(f"bf16 steps: losses {seen}")
+
+        # (c) one f32 step at M=1 against the sequential step.
+        state = pp_state(init_variables(4, C, seed=seed), torch.float32,
+                         mesh, 2.5e-4)
+        step = pp_step(torch.float32, mesh, 1, augment=False)
+        reset_counts()
+        state, m = step(state, control_batch("one", B_DP_F32, seed))
+        add_launches(report, read_counts("pipeline f32 step M=1",
+                                         {"render_heatmaps_batch": 1}))
+        loss, grads, stats = ref["flax", "one"]
+        merged = state.variables()
+        lerr = abs(m["loss"].item() - loss) / abs(loss)
+        gap = rel_l2(flatten_sorted(pp_grads(state)), grads)
+        serr = stats_err(pp_stats(merged), stats)
+        controls = {n: (rel_l2(ref["flax", n][1], grads),
+                        stats_err(ref["flax", n][2], stats))
+                    for n in DP_CONTROLS[1:]}
+        noise = [max(c[i] for c in controls.values()) for i in (0, 1)]
+        log(f"pipeline f32 M=1 step vs the sequential step (B="
+            f"{B_DP_F32}): loss rel {lerr:.2e}, grads L2 rel {gap:.3e}, "
+            f"running stats {serr:.3e}; controls (grads, stats): "
+            + ", ".join(f"{n} {g:.3e} {s:.3e}"
+                        for n, (g, s) in controls.items()))
+        if lerr > TOL_FUSED_LOSS or gap > ULP_FACTOR * noise[0] \
+                or serr > ULP_FACTOR * noise[1]:
+            failed.append(f"M=1 step: loss {lerr}, grads {gap}, stats "
+                          f"{serr}, controls {controls}")
+
+        # (d) merge -> CheckpointManager -> StackedHourglass.
+        shutil.rmtree(PP_ROOT, ignore_errors=True)
+        mgr = CheckpointManager(PP_ROOT)
+        opt = lambda mm: steps_lib.make_optimizer(mm, 2.5e-4)
+        saved = steps_lib.TrainState.create(
+            load_variables(StackedHourglass(num_stacks=4, num_channels=C),
+                           merged), opt, device="cuda")
+        mgr.save(1, saved, {"epoch": 1})
+        fresh = steps_lib.TrainState.create(
+            StackedHourglass(num_stacks=4, num_channels=C), opt,
+            device="cuda")
+        mgr.restore(fresh)
+        want = to_state_dict(merged)
+        got = {k: t for k, t in fresh.model.state_dict().items()
+               if not k.endswith("num_batches_tracked")}
+        equal = got.keys() == want.keys() and all(
+            torch.equal(got[k].cpu(), want[k]) for k in want)
+        log(f"pipeline round trip: {len(want)} tensors merged, saved and "
+            f"restored into StackedHourglass, all equal: {equal}")
+        if not equal:
+            failed.append("round trip through CheckpointManager")
+        del state, saved, fresh
+
+        # (e) the one-process reference of the ("data", "pipe") ranks.
+        mesh2 = pp_mesh(PP_DP_STAGES)
+        dp_ref = {}
+        for name in DP_CONTROLS:
+            state = pp_state(init_variables(4, C, seed=seed), torch.float32,
+                             mesh2, 2.5e-4)
+            state, m = pp_step(torch.float32, mesh2, DP_WORLD, False)(
+                state, control_batch(name, B_PP_DP, seed))
+            dp_ref[name] = (m["loss"].item(),
+                            flatten_sorted(pp_grads(state)),
+                            pp_stats(state.variables()))
+            del state
+        ghost = pp_ghost_stats(init_variables(4, C, seed=seed),
+                               dp_batch(B_PP_DP, seed)["image"], DP_WORLD)
+        ghost_ulp = pp_ghost_stats(init_variables(4, C, seed=seed),
+                                   control_batch("ulp", B_PP_DP,
+                                                 seed)["image"], DP_WORLD)
+    finally:
+        ranks = wait_children(children)
+        shutil.rmtree(PP_ROOT, ignore_errors=True)
+    loss, grads, _ = dp_ref["one"]
+    got = ranks[0]
+    rel_loss = lambda v: abs(v - loss) / abs(loss)
+    lerr = max(rel_loss(r["loss"]) for r in ranks)
+    gap = rel_l2(got["grads"], grads)
+    controls = {n: (rel_loss(dp_ref[n][0]), rel_l2(dp_ref[n][1], grads))
+                for n in DP_CONTROLS[1:]}
+    noise = [max(c[i] for c in controls.values()) for i in (0, 1)]
+    serr = stats_err(got["stats"], ghost)
+    sctl = stats_err(ghost_ulp, ghost)
+    log(f"pipeline ('data', 'pipe') {ranks[0]['shape']}: 2 ranks x "
+        f"{B_PP_DP // DP_WORLD} rows vs one process at M={DP_WORLD}: loss "
+        f"rel {lerr:.2e}, grads L2 rel {gap:.3e}; controls (loss, grads): "
+        + ", ".join(f"{n} {lc:.2e} {g:.3e}"
+                    for n, (lc, g) in controls.items())
+        + f"; running stats vs the direct reference {serr:.3e} (one-ulp "
+        f"control {sctl:.3e}); same bits on both ranks: "
+        f"{ranks[0]['digest'] == ranks[1]['digest']}")
+    if lerr > max(TOL_FUSED_LOSS, ULP_FACTOR * noise[0]) \
+            or gap > ULP_FACTOR * noise[1] or serr > ULP_FACTOR * sctl \
+            or ranks[0]["digest"] != ranks[1]["digest"]:
+        failed.append(f"data x pipe: loss {lerr}, grads {gap} vs "
+                      f"{controls}, stats {serr} vs {sctl}")
+    for rank, r in enumerate(ranks):
+        want = {k: 0 for k in r["counts"]}
+        want["render_heatmaps_batch"] = 1
+        if r["counts"] != want:
+            failed.append(f"rank {rank} launches {r['counts']}")
+        add_launches(report, r["counts"])
+    log(f"pipeline smoke readings ({card}): bf16 forward B={B_PP_FWD} "
+        f"M={PP_FWD_M} over {PP_STAGES} stages on one card "
+        f"{readings['forward_ms']:.2f} ms, sequential "
+        f"{readings['seq_forward_ms']:.2f} ms; bf16 train step B="
+        f"{B_PP_TRAIN} M={PP_TRAIN_M} {readings['step_ms']:.2f} ms, "
+        f"sequential {readings['seq_step_ms']:.2f} ms")
+    if failed:
+        raise AssertionError("pipeline: " + "; ".join(failed))
+
+
+def phase_s2d_remat(report, model, card):
+    """The model's dials on S4/256: (a) `front_s2d` on the kernel path at
+    B=128 bf16 (#1-#4 with MAIN_FLAGS, with `fuse_front` also #6; exact
+    launches), then at B=8 on an unsaturated copy (`unsaturated_copy`):
+    the kernel path with front_s2d against the plain model
+    (scaled_readings' bounds), and the plain model's s2d front against its
+    7x7 front: the front's output within TOL_S2D_FRONT (f32, relative L2),
+    the heatmaps within TOL_F32 at f32 and, at bf16, within
+    S4_BF16_FACTOR times the 7x7 bf16 forward's distance from f32; (b)
+    `remat` True and
+    "conv_out": one f32 train step at B=16 against remat=False: loss
+    within TOL_REMAT_LOSS, grads within the one-ulp control of the step
+    without remat (cuDNN may pick other algorithms in the recompute), the
+    running statistics bit for bit; (c) `mobile_depthwise` "dense" and
+    "taps" against "conv" on the plain mobile model at f32 (B=8), within
+    phase_slice's tolerances. Prints each remat mode's peak memory and
+    step ms and the s2d front's ms against the 7x7 front's (readings).
+    The Keras weight import needs TensorFlow, which is logged."""
+    import torch
+
+    from single_person_pose_estimation_tpu_torch.models import (
+        fused_inference as fi,
+    )
+    from single_person_pose_estimation_tpu_torch.training import (
+        steps as steps_lib,
+    )
+    from single_person_pose_estimation_tpu_torch.utils.weight_convert import (
+        init_variables,
+        load_variables,
+    )
+
+    failed = []
+    rng = np.random.default_rng(40)
+    x = torch.from_numpy(rng.uniform(0, 1, (B_S2D, 256, 256, 3))
+                         .astype(np.float32)).cuda()
+    fp = fi.prepare_fused(model)
+    xin = model.input_nchw(x)
+    with torch.inference_mode():
+        front_ms = cuda_ms(lambda: model.front(xin), iters=5)
+        fwd_ms = cuda_ms(lambda: fi.fused_apply(fp, x, **MAIN_FLAGS),
+                         iters=3)
+        for label, flags in (("kernels", {}),
+                             ("kernels, fuse_front", DIALS["front"])):
+            reset_counts()
+            hm = fi.fused_apply(fp, x, front_s2d=True, **MAIN_FLAGS,
+                                **flags)[-1]
+            add_launches(report, read_counts(
+                f"s2d_remat front_s2d on the {label} path",
+                dial_want(flags)))
+            if hm.shape != (B_S2D, 64, 64, K) or not torch.isfinite(
+                    hm).all():
+                failed.append(f"front_s2d on the {label} path: bad heatmaps")
+        s2d_fwd_ms = cuda_ms(lambda: fi.fused_apply(
+            fp, x, front_s2d=True, **MAIN_FLAGS), iters=3)
+        model.front_s2d = True
+        try:
+            s2d_ms = cuda_ms(lambda: model.front(xin), iters=5)
+        finally:
+            model.front_s2d = False
+    del fp, hm
+    # Accuracy on an unsaturated copy: the kernel path with front_s2d (and
+    # fuse_front) against the plain model (scaled_readings), and the plain
+    # model's s2d front against its 7x7 front.
+    x8 = x[:8]
+    for label, flags in (("front_s2d", {}),
+                         ("front_s2d, fuse_front", DIALS["front"])):
+        scaled_readings(model, x8, f"s2d_remat {label}",
+                        {**MAIN_FLAGS, **flags, "front_s2d": True})
+    peaked = unsaturated_copy(model, x8)[0]
+    with torch.inference_mode():
+        ref32 = peaked(x8)[-1]
+        f7 = peaked.front(peaked.input_nchw(x8))
+        peaked.front_s2d = True
+        s2d32 = peaked(x8)[-1]
+        fs = peaked.front(peaked.input_nchw(x8))
+        peaked.compute_dtype = torch.bfloat16
+        s2d16 = peaked(x8)[-1]
+        peaked.front_s2d = False
+        ctl16 = peaked(x8)[-1]
+    del peaked
+    dist = lambda a, b: ((a - b).abs().max().item(),
+                         (a - b).abs().mean().item())
+    got32, got16, ctl = (dist(s2d32, ref32), dist(s2d16, ref32),
+                         dist(ctl16, ref32))
+    front_rel = rel_l2(fs, f7)
+    log(f"s2d_remat plain model, scaled copy, B=8: the s2d front's output "
+        f"L2 rel {front_rel:.3e} from the 7x7 front's (f32); heatmaps "
+        f"against the 7x7 f32 forward: s2d f32 max|d| {got32[0]:.3e} "
+        f"mean|d| {got32[1]:.3e}, s2d bf16 {got16[0]:.3e} {got16[1]:.3e} "
+        f"(7x7 bf16 control {ctl[0]:.3e} {ctl[1]:.3e})")
+    if front_rel > TOL_S2D_FRONT or got32[0] > TOL_F32 \
+            or got32[1] > TOL_S4_F32_MEAN \
+            or any(g > S4_BF16_FACTOR * c for g, c in zip(got16, ctl)):
+        failed.append(f"plain front_s2d: front {front_rel}, f32 {got32}, "
+                      f"bf16 {got16} vs {ctl}")
+
+    # (b) remat.
+    v = init_variables(4, C, seed=DP_SEED)
+    step = dp_step("flax", None, augment=False)
+    runs, readings = {}, {}
+    for mode, batch in [(m, "one") for m in REMAT_MODES] + [(False, "ulp")]:
+        state = steps_lib.TrainState.create(
+            load_variables(pp_model(torch.float32, remat=mode), v),
+            lambda mm: steps_lib.make_optimizer(mm, 2.5e-4), device="cuda")
+        b = control_batch(batch, B_DP_F32, DP_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[mode, batch] = (m["loss"].item(), flat_grads(state),
+                             running_stats(state))
+        if batch == "one":
+            readings[mode] = (peak, cuda_ms(lambda: step(state, b), iters=2,
+                                            warmup=0))
+        del state
+    loss0, g0, s0 = runs[False, "one"]
+    ulp = rel_l2(runs[False, "ulp"][1], g0)
+    for mode in REMAT_MODES[1:]:
+        loss, g, s = runs[mode, "one"]
+        lerr = abs(loss - loss0) / abs(loss0)
+        gap = rel_l2(g, g0)
+        same = all(torch.equal(s[n], s0[n]) for n in s0)
+        log(f"s2d_remat remat={mode!r} f32 B={B_DP_F32}: loss rel "
+            f"{lerr:.2e}, grads L2 rel {gap:.3e} (one-ulp control "
+            f"{ulp:.3e}), running stats bit-equal: {same}")
+        if lerr > TOL_REMAT_LOSS or gap > ulp or not same:
+            failed.append(f"remat {mode}: loss {lerr}, grads {gap} vs "
+                          f"{ulp}, stats equal {same}")
+    log(f"s2d_remat readings ({card}): f32 step B={B_DP_F32} peak memory "
+        "and ms: " + ", ".join(f"remat={mode!r} {p:.2f} GiB {ms:.1f} ms"
+                                for mode, (p, ms) in readings.items())
+        + f"; bf16 B={B_S2D} front module {front_ms:.2f} ms (7x7) vs "
+        f"{s2d_ms:.2f} ms (s2d), kernel-path forward {fwd_ms:.2f} vs "
+        f"{s2d_fwd_ms:.2f} ms")
+
+    # (c) the mobile depthwise lowerings.
+    vm = init_variables(4, C, seed=0, mobile=True)
+    xm = x[:8]
+    outs = {}
+    with torch.inference_mode():
+        for impl in ("conv", "dense", "taps"):
+            mm = load_variables(pp_model(torch.float32, mobile=True,
+                                         mobile_depthwise=impl), vm).cuda()
+            outs[impl] = mm(xm)[-1]
+            del mm
+    for impl in ("dense", "taps"):
+        d = (outs[impl] - outs["conv"]).abs()
+        log(f"s2d_remat mobile_depthwise={impl!r} vs 'conv' f32 B=8: "
+            f"max|d| {d.max().item():.3e}, mean|d| {d.mean().item():.3e}")
+        if not torch.isfinite(outs[impl]).all() \
+                or d.max().item() > TOL_S4_F32_MAX \
+                or d.mean().item() > TOL_S4_F32_MEAN:
+            failed.append(f"mobile_depthwise {impl}: {d.max().item()}")
+    if importlib.util.find_spec("tensorflow") is None:
+        log("s2d_remat: the Keras weight import (utils/weight_import.py) "
+            "needs TensorFlow, which this machine lacks; it is covered by "
+            "the CPU tests only (tests/test_torch_weight_import.py)")
+    else:
+        log("s2d_remat: TensorFlow is installed here, but the weight import "
+            "is covered by the CPU tests (tests/test_torch_weight_import.py)")
+    if failed:
+        raise AssertionError("s2d_remat: " + "; ".join(failed))
+
+
 def timed(name, fn, *args, **kwargs):
     """Run one phase and log its wall time."""
     t0 = time.perf_counter()
@@ -5231,6 +5852,7 @@ def main():
     timed("dial_slice", phase_dial_slice, report, model)
     timed("dial_times", phase_dial_times, report, model, card)
     timed("spatial", phase_spatial, report, model, card)
+    timed("s2d_remat", phase_s2d_remat, report, model, card)
     del model
     torch.cuda.empty_cache()
     timed("mobile_kernels", phase_kernels, report, mobile_main_cases,
@@ -5267,6 +5889,8 @@ def main():
         ref = timed("dp_train", phase_dp_train, report)
         torch.cuda.empty_cache()
         timed("tp_train", phase_tp_train, report, ref)
+        torch.cuda.empty_cache()
+        timed("pipeline", phase_pipeline, report, ref, card)
         del ref
         torch.cuda.empty_cache()
         args, cfg, val = timed("cli_train", phase_cli_train, report)

@@ -72,9 +72,9 @@ def _device(args):
 
 
 def _build_model(cfg: Config):
-    """The port's StackedHourglass for `cfg`. front_s2d "auto" means off
-    on the card (the space-to-depth front is a TPU dial); "on" reaches
-    the model's not-ported error."""
+    """The port's StackedHourglass for `cfg`. front_s2d "on" builds the
+    space-to-depth front; "auto" means off here, as the JAX package's
+    "auto" turns it on only on a TPU."""
     from single_person_pose_estimation_tpu_torch.utils.export import (
         model_from_config,
     )

@@ -20,8 +20,10 @@ kernel and `front_bottleneck_3` to the conv-skip kernel
 (`front_bottleneck_1`, at 128 px, stays plain); `fuse_bottom=d` runs the
 innermost d levels of each hourglass as one subtree launch
 (`ops/cuda/bottom_kernel.py`). Under `mobile` both are turned off, as the
-JAX package turns them off. `front_s2d` is not ported and raises (ROADMAP
-Queue 1, the dials: space-to-depth front and remat).
+JAX package turns them off. `front_s2d` computes the front's opening
+7x7/s2 conv as the folded 4x4/s1 conv over the space-to-depth input
+(`ops/space_to_depth.py`, plain PyTorch, as the JAX package runs it on
+XLA).
 """
 
 from __future__ import annotations
@@ -64,6 +66,9 @@ from single_person_pose_estimation_tpu_torch.ops.cuda.mobile_kernel import (
 )
 from single_person_pose_estimation_tpu_torch.ops.cuda.uplevel_kernel import (
     fused_uplevel,
+)
+from single_person_pose_estimation_tpu_torch.ops.space_to_depth import (
+    front_conv_s2d_nchw,
 )
 
 _HG_BOTTLENECKS = (
@@ -226,9 +231,14 @@ def _bottleneck_plain(fp: FusedParams, x, name, channels):
     return skip + y
 
 
-def _front(fp: FusedParams, x, fuse_front=False):
+def _front(fp: FusedParams, x, fuse_front=False, front_s2d=False):
     c = fp.num_channels
-    y = torch.relu(_conv(fp, x, "front_conv_1x1_1", stride=2))
+    if front_s2d:
+        cv = fp.convs["front_conv_1x1_1"]
+        y = torch.relu(front_conv_s2d_nchw(
+            x.permute(0, 3, 1, 2), cv.weight, cv.bias).permute(0, 2, 3, 1))
+    else:
+        y = torch.relu(_conv(fp, x, "front_conv_1x1_1", stride=2))
     y = _bn(fp, y, "front_conv_1x1_1_bn")
     y = _bottleneck_plain(fp, y, "front_bottleneck_1", c // 2)
     y = maxpool2x2(y)
@@ -274,7 +284,8 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
     front_bottleneck_3 through `fused_bottleneck_convskip`; fuse_bottom=d
     (0-4 at the four-level hourglass) runs the outer 4 - d levels as above
     and the innermost d, with the bottom block, as one `fused_subtree`
-    launch per stack.
+    launch per stack. front_s2d computes the front's opening conv as the
+    folded conv over the space-to-depth input (an even-sized input).
     For fp prepared from a mobile model (`fp.mobile`, the JAX function's
     `mobile=True`) the bottlenecks, pools and up-levels run the mobile
     kernels (`ops/cuda/mobile_kernel.py`), the heads the same `fused_head`,
@@ -282,10 +293,6 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
     """
     if fp.mobile:
         fuse_bottom, fuse_front = 0, False
-    if front_s2d:
-        raise NotImplementedError("front_s2d is not ported yet (ROADMAP "
-                                  "Queue 1, the dials: space-to-depth "
-                                  "front and remat)")
     depth = int(fuse_bottom)
     if not 0 <= depth <= len(LEVELS):
         raise ValueError(f"fuse_bottom must be 0..{len(LEVELS)}, got "
@@ -295,7 +302,7 @@ def fused_apply(fp: FusedParams, images: torch.Tensor, *,
                          f"divisible by 64; got {tuple(images.shape)}")
     c = fp.num_channels
     x = images.to(fp.compute_dtype)
-    y = _front(fp, x, fuse_front).contiguous()
+    y = _front(fp, x, fuse_front, front_s2d).contiguous()
 
     if fp.mobile:
         k_bneck, k_pool, k_uplevel = (fused_bottleneck_mobile,

@@ -25,8 +25,21 @@ Reference details kept:
     `_skip` convs included, for a `SeparableConv` (a depthwise conv with
     no bias, then a 1x1 pointwise conv with a bias); the 7x7 front conv
     and the heads stay plain convs. Mobile S4/256 counts 5,818,564
-    parameters. Only the JAX package's default "conv" depthwise lowering
-    is ported (its `mobile_depthwise` dials are not);
+    parameters. `mobile_depthwise` picks the depthwise lowering, with the
+    same parameter in every mode, as the JAX package's dial: "conv" (a
+    grouped conv, the default), "dense" (a dense conv with a
+    block-diagonal kernel) or "taps" (k*k shifted per-channel
+    multiply-adds in float32);
+  * `front_s2d=True` computes the 7x7/s2 front conv as the folded 4x4/s1
+    conv over the 2x2 space-to-depth input (`ops/space_to_depth.py`),
+    from the same stored (7, 7, 3, 64) parameter;
+  * `remat` recomputes activations in the backward, as JAX's `nn.remat`:
+    True checkpoints each hourglass module (`torch.utils.checkpoint`,
+    non-reentrant); "conv_out" checkpoints the front too and saves only
+    the convolution outputs (selective checkpointing), recomputing the
+    ReLUs, BNs, adds, pools and upsamples. The recompute does not update
+    the running statistics a second time, so they equal a step's without
+    remat;
   * train-mode BatchNorm is flax's `nn.BatchNorm`, computed here by hand:
     batch mean and variance in float32 with the variance as E[x^2]-E[x]^2
     (biased, clipped at 0), normalise with that variance, and update the
@@ -48,18 +61,29 @@ and weights of every conv, as flax's `dtype=` does.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from single_person_pose_estimation_tpu_torch.ops.space_to_depth import (
+    front_conv_s2d_nchw,
+)
 from single_person_pose_estimation_tpu_torch.parallel.distributed import (
     all_reduce_sum,
 )
 
 _BN_EPS = 1e-3
 _ACTIVATIONS = ("sigmoid", "linear", "relu")
+DEPTHWISE_IMPLS = ("conv", "dense", "taps")
+REMAT_MODES = (False, True, "conv_out")
 
 
 def same_pad(n: int, k: int, s: int):
@@ -96,6 +120,47 @@ def global_moments(xf: torch.Tensor, dims, group):
     n = tot[-1]
     mean = tot[:c] / n
     return mean, torch.clamp(tot[c:2 * c] / n - mean * mean, min=0.0)
+
+
+def depthwise_conv(x: torch.Tensor, w: torch.Tensor, impl: str = "conv"
+                   ) -> torch.Tensor:
+    """A k x k depthwise conv (SAME, no bias) of an NCHW tensor by the
+    (C, 1, k, k) weight `w` in x's dtype, lowered as `impl` says (the JAX
+    package's `mobile_depthwise`): "conv" a grouped conv; "dense" a dense
+    conv whose (C, C, k, k) kernel holds w on its diagonal; "taps" the k*k
+    shifted per-channel multiply-adds summed in float32, in the JAX
+    package's order (row, then column)."""
+    c, k = x.shape[1], w.shape[-1]
+    pad = k // 2
+    if impl == "conv":
+        return F.conv2d(x, w, padding=pad, groups=c)
+    if impl == "dense":
+        eye = torch.eye(c, dtype=w.dtype, device=w.device)
+        return F.conv2d(x, w * eye[:, :, None, None], padding=pad)
+    if impl != "taps":
+        raise ValueError(f"depthwise_impl must be 'conv', 'dense', or "
+                         f"'taps', got {impl!r}")
+    taps = w.float()[:, 0]
+    if k == 1:
+        return (x.float() * taps[None, :, 0, 0, None, None]).to(x.dtype)
+    h, wd = x.shape[2:]
+    xp = F.pad(x, (pad, pad, pad, pad))
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for dy in range(k):
+        for dx in range(k):
+            acc = acc + (xp[:, :, dy:dy + h, dx:dx + wd].float()
+                         * taps[None, :, dy, dx, None, None])
+    return acc.to(x.dtype)
+
+
+def _save_conv_out(ctx, op, *args, **kwargs):
+    """The "conv_out" remat policy: save the outputs of the dense
+    convolutions (the JAX package's `checkpoint_name(..., "conv_out")`
+    tags each conv's output, and a separable conv's pointwise output),
+    recompute everything else."""
+    if op is torch.ops.aten.convolution.default and args[-1] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def bottleneck_specs(name: str, cin: int, cout: int, mobile: bool = False):
@@ -158,15 +223,18 @@ class StackedHourglass(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  mobile: bool = False, front_s2d: bool = False,
                  remat=False, bn_momentum: float = 0.99,
-                 predict_activation: str = "sigmoid"):
+                 predict_activation: str = "sigmoid",
+                 mobile_depthwise: str = "conv"):
         super().__init__()
-        if front_s2d or remat:
-            raise NotImplementedError(
-                "front_s2d and remat are not ported yet (ROADMAP Queue 1, "
-                "the dials: space-to-depth front and remat)")
         if predict_activation not in _ACTIVATIONS:
             raise ValueError(f"unknown activation {predict_activation}; "
                              f"expected one of {_ACTIVATIONS}")
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}: "
+                             f"{remat!r}")
+        if mobile_depthwise not in DEPTHWISE_IMPLS:
+            raise ValueError(f"depthwise_impl must be 'conv', 'dense', or "
+                             f"'taps', got {mobile_depthwise!r}")
         self.predict_activation = predict_activation
         self.num_classes = num_classes
         self.num_stacks = num_stacks
@@ -174,10 +242,16 @@ class StackedHourglass(nn.Module):
         self.mobile = mobile
         self.compute_dtype = compute_dtype
         self.bn_momentum = bn_momentum
+        self.front_s2d = bool(front_s2d)
+        self.remat = remat
+        self.mobile_depthwise = mobile_depthwise
+        # False while a remat recompute (or a pipelined loss that carries
+        # no statistics) runs the train-mode BNs: they leave the running
+        # statistics as they are.
+        self.update_stats = True
         # parallel/sharding_rules.TensorParallel once the state is sharded.
         self.tensor_parallel = None
-        for name, kind, cin, cout, k in hourglass_specs(
-                num_stacks, num_channels, num_classes, mobile):
+        for name, kind, cin, cout, k in self._layer_specs():
             if kind == "conv":
                 self.add_module(name, nn.Conv2d(cin, cout, k,
                                                 stride=2 if k == 7 else 1))
@@ -186,6 +260,11 @@ class StackedHourglass(nn.Module):
             else:
                 self.add_module(name, nn.BatchNorm2d(cout, eps=_BN_EPS))
         self.eval()
+
+    def _layer_specs(self):
+        """The child layers this module holds (hourglass_specs' tuples)."""
+        return hourglass_specs(self.num_stacks, self.num_channels,
+                               self.num_classes, self.mobile)
 
     def count_params(self) -> int:
         """Keras-style count: parameters plus BN running statistics."""
@@ -208,13 +287,11 @@ class StackedHourglass(nn.Module):
         tp = self.tensor_parallel
         if isinstance(conv, SeparableConv):     # depthwise, then pointwise
             dw = conv.depthwise.weight.to(dt)
-            pad = dw.shape[-1] // 2
             if tp is not None and tp.is_split(name + ".depthwise.weight"):
                 xl = tp.local(tp.enter(x), 1)
-                x = tp.gather(F.conv2d(xl, dw, padding=pad,
-                                       groups=xl.shape[1]))
+                x = tp.gather(depthwise_conv(xl, dw, self.mobile_depthwise))
             else:
-                x = F.conv2d(x, dw, padding=pad, groups=x.shape[1])
+                x = depthwise_conv(x, dw, self.mobile_depthwise)
             name, conv = name + ".pointwise", conv.pointwise
         if tp is not None and not tp.is_split(name + ".weight"):
             tp = None       # every rank computes this conv whole
@@ -223,7 +300,9 @@ class StackedHourglass(nn.Module):
         if tp is not None:
             x = tp.enter(x)
         k = w.shape[-1]
-        if k == 7:
+        if k == 7 and self.front_s2d:
+            y = front_conv_s2d_nchw(x, w, bias)
+        elif k == 7:
             ph, pw = (same_pad(n, 7, 2) for n in x.shape[2:])
             x = F.pad(x, (*pw, *ph))
             y = F.conv2d(x, w, bias.to(dt), stride=2)
@@ -255,7 +334,8 @@ class StackedHourglass(nn.Module):
                               min=0.0)
         else:
             mean, var = global_moments(xf, (0, 2, 3), group)
-        update_running(bn, mean, var, self.bn_momentum, tp)
+        if self.update_stats:
+            update_running(bn, mean, var, self.bn_momentum, tp)
         col = lambda v: v[None, :, None, None]
         mul = torch.rsqrt(var + bn.eps) * leaf("weight")
         y = (xf - col(mean)) * col(mul) + col(leaf("bias"))
@@ -313,6 +393,27 @@ class StackedHourglass(nn.Module):
         process `group` (data parallel) the batch statistics are those of
         every rank's rows together: each train-mode BN all-reduces its
         sums, forward and backward (`global_moments`)."""
+        x = self.input_nchw(x)
+        remat = self.remat and torch.is_grad_enabled()
+        if remat == "conv_out":
+            y = self.rematerialize(lambda t: self.front(t, train, group), x)
+        else:
+            y = self.front(x, train, group)
+        outputs = []
+        for i in range(self.num_stacks):
+            last = i == self.num_stacks - 1
+            if remat:
+                y, pred = self.rematerialize(
+                    partial(self._hourglass, i=i, is_last=last, train=train,
+                            group=group), y)
+            else:
+                y, pred = self._hourglass(y, i, last, train, group)
+            outputs.append(pred.float().permute(0, 2, 3, 1))
+        return outputs
+
+    def input_nchw(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) images -> the compute-dtype NCHW tensor the front
+        takes (channels_last on the card); H and W must divide by 64."""
         if x.dim() != 4 or x.shape[-1] != 3 or x.shape[1] % 64 \
                 or x.shape[2] % 64:
             raise ValueError(
@@ -321,13 +422,29 @@ class StackedHourglass(nn.Module):
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        y = self.front(x, train, group)
-        outputs = []
-        for i in range(self.num_stacks):
-            y, pred = self._hourglass(y, i, i == self.num_stacks - 1, train,
-                                      group)
-            outputs.append(pred.float().permute(0, 2, 3, 1))
-        return outputs
+        return x
+
+    def rematerialize(self, fn, x):
+        """fn(x) under `torch.utils.checkpoint` (non-reentrant); with remat
+        "conv_out" only the convolution outputs are saved. The backward's
+        recompute runs with `update_stats` off, so the train-mode BNs
+        update the running statistics once, as under JAX's `nn.remat`."""
+        calls = []
+
+        def run(t):
+            saved = self.update_stats
+            self.update_stats = saved and not calls
+            calls.append(1)
+            try:
+                return fn(t)
+            finally:
+                self.update_stats = saved
+
+        extra = {}
+        if self.remat == "conv_out":
+            extra["context_fn"] = partial(
+                create_selective_checkpoint_contexts, _save_conv_out)
+        return checkpoint(run, x, use_reentrant=False, **extra)
 
 
 def create_hourglass_model(num_classes: int, num_stacks: int,
@@ -336,12 +453,12 @@ def create_hourglass_model(num_classes: int, num_stacks: int,
                            predict_activation: str = "sigmoid",
                            mobile: bool = False,
                            compute_dtype: torch.dtype = torch.float32,
-                           remat: bool = False) -> StackedHourglass:
+                           remat=False) -> StackedHourglass:
     """The reference's factory (JAX `models/hourglass.py`
     `create_hourglass_model`), with its signature. Returns the model with
     freshly initialised torch weights; load flax-layout variables with
     `utils.weight_convert.load_variables`. `input_shape` is implied by the
-    input tensor, and `remat` other than False raises."""
+    input tensor."""
     del input_shape
     return StackedHourglass(num_classes=num_classes, num_stacks=num_stacks,
                             num_channels=num_channels,

@@ -24,14 +24,23 @@ Three layouts:
   reduces the BN sums and the gradients. The ranks of a model group read
   the same rows;
 * ("spatial",), H-sharded inference, one process over a list of devices
-  and no group (`parallel/spatial.py`).
+  and no group (`parallel/spatial.py`);
+* ("pipe",), the GPipe pipeline over stacks (`parallel/pipeline.py`), one
+  process over a list of P devices and no group: stage p runs on
+  `devices[p]`;
+* ("data", "pipe"), the pipeline on d data replicas: the devices are the
+  d x P grid, row-major (replica i's stage p on `devices[i * P + p]`).
+  Training runs one process per data index (`torchrun`), each driving
+  its own P pipe devices, joined by a group of d ranks over which the
+  step reduces the front's BN sums and the gradients; the forward may run
+  in one process over the whole grid, with no group.
 
 A device list may repeat a device, as `[cpu, cpu]` or `[cuda:0, cuda:0]`:
 the replicas (or ranks, or shards) then share that device, and each still
 takes its own rows. That is how the tests and a machine with one card
 stand in for several cards, as the JAX tests spoof 8 CPU devices.
 
-Any other layout raises; a "pipe" axis (the GPipe pipeline) is not ported.
+Any other layout raises (AXES_MISSING).
 """
 
 from __future__ import annotations
@@ -47,10 +56,12 @@ import torch
 import torch.distributed as dist
 
 AXES_MISSING = (
-    "a 'pipe' mesh axis (the GPipe pipeline) is not ported yet (ROADMAP "
-    "Queue 1, the other parallel/ modules); the mesh axes are ('data',), "
-    "('data', 'model') or ('spatial',)")
-LAYOUTS = (("data",), ("data", "model"), ("spatial",))
+    "the mesh axes are ('data',), ('data', 'model'), ('spatial',), "
+    "('pipe',) or ('data', 'pipe'); the pipeline takes one data axis "
+    "beside 'pipe', as the JAX package's does")
+LAYOUTS = (("data",), ("data", "model"), ("spatial",), ("pipe",),
+           ("data", "pipe"))
+PIPE_LAYOUTS = (("pipe",), ("data", "pipe"))
 
 
 @dataclass(frozen=True)
@@ -62,7 +73,9 @@ class Mesh:
     LAYOUTS. With a "model" axis, `model_size` ranks in a row split the
     model's channels: `model_group` joins this rank's row and `data_group`
     its column (None when the data axis has one member); on a ("data",)
-    mesh the data group is `group`."""
+    mesh the data group is `group`. With a "pipe" axis, `pipe_size`
+    devices in a row run one replica's pipeline stages; with a group its
+    ranks are the data indices and the data group is `group`."""
 
     devices: Tuple[torch.device, ...]
     group: Optional[Any] = None
@@ -71,14 +84,24 @@ class Mesh:
     model_size: int = 1
     model_group: Optional[Any] = None
     data_group: Optional[Any] = None
+    pipe_size: int = 1
 
     def __post_init__(self):
-        if self.axis_names == ("data",) and self.data_group is None:
+        if self.axis_names in (("data",), ("data", "pipe")) \
+                and self.data_group is None:
             object.__setattr__(self, "data_group", self.group)
 
     @property
     def data_size(self) -> int:
-        return len(self.devices) // self.model_size
+        return len(self.devices) // (self.model_size * self.pipe_size)
+
+    def pipe_devices(self, data_index: Optional[int] = None
+                     ) -> Tuple[torch.device, ...]:
+        """The P devices of one data replica's pipeline stages (this
+        process's replica by default)."""
+        i = self.data_index if data_index is None else data_index
+        p = self.pipe_size
+        return self.devices[i * p:(i + 1) * p]
 
     @property
     def data_index(self) -> int:
@@ -92,19 +115,24 @@ class Mesh:
     def shape(self) -> dict:
         if self.axis_names == ("spatial",):
             return {"spatial": len(self.devices)}
-        sizes = {"data": self.data_size, "model": self.model_size}
+        sizes = {"data": self.data_size, "model": self.model_size,
+                 "pipe": self.pipe_size}
         return {a: sizes[a] for a in self.axis_names}
 
     @property
     def device(self) -> torch.device:
-        """This process's device (the first one without a group)."""
-        return self.devices[self.rank]
+        """This process's device (the first one without a group; its
+        first pipe device on a pipe mesh)."""
+        return self.devices[self.rank * self.pipe_size]
 
     @property
     def local_devices(self) -> Tuple[torch.device, ...]:
-        """The devices this process drives: its own with a group, all of
-        them without."""
-        return (self.device,) if self.group is not None else self.devices
+        """The devices this process drives: its own with a group (its pipe
+        devices on a pipe mesh), all of them without."""
+        if self.group is None:
+            return self.devices
+        return self.pipe_devices() if "pipe" in self.axis_names \
+            else (self.device,)
 
 
 def _check_device(d) -> torch.device:
@@ -147,6 +175,15 @@ def create_mesh(mesh_shape: Sequence[int] = (-1,),
     ("spatial",): one process over `devices` (default: every visible CUDA
     device), `mesh_shape` (-1,) or (n,); no group.
 
+    ("pipe",): one process over `devices` (default: every visible CUDA
+    device), `mesh_shape` (-1,) or (P,); no group.
+
+    ("data", "pipe"): `mesh_shape` (n, P) with P given, n may be -1;
+    `devices` the n x P grid in row-major order. In a process group of n
+    ranks each rank drives its row (default: cuda:LOCAL_RANK*P + j,
+    gathered over the group); without one, one process drives the grid
+    (default: every visible CUDA device).
+
     A CUDA device on a host without CUDA raises, and so does any other
     layout (AXES_MISSING).
     """
@@ -154,6 +191,8 @@ def create_mesh(mesh_shape: Sequence[int] = (-1,),
     if axis_names not in LAYOUTS or len(mesh_shape) != len(axis_names):
         raise NotImplementedError(f"mesh axes {axis_names} of shape "
                                   f"{tuple(mesh_shape)}: {AXES_MISSING}")
+    if axis_names in PIPE_LAYOUTS:
+        return _pipe_mesh(tuple(mesh_shape), axis_names, devices)
     spatial = axis_names == ("spatial",)
     group = dist.group.WORLD if not spatial and dist.is_available() \
         and dist.is_initialized() else None
@@ -194,6 +233,49 @@ def create_mesh(mesh_shape: Sequence[int] = (-1,),
         return Mesh(devices, group, rank, axis_names)
     return Mesh(devices, group, rank, axis_names, m,
                 *_model_and_data_groups(len(devices), m, rank))
+
+
+def _pipe_mesh(shape, axis_names, devices) -> Mesh:
+    """create_mesh for PIPE_LAYOUTS."""
+    group = None
+    if axis_names == ("data", "pipe") and dist.is_available() \
+            and dist.is_initialized():
+        group = dist.group.WORLD
+    p = shape[-1]
+    if axis_names == ("data", "pipe") and p < 1:
+        raise ValueError(f"mesh shape {shape}: give the pipe axis's size")
+    if devices is None:
+        if group is not None:
+            first = local_device().index * p
+            gathered: List[Optional[List[str]]] = \
+                [None] * dist.get_world_size()
+            dist.all_gather_object(gathered, [f"cuda:{first + j}"
+                                              for j in range(p)])
+            devices = [d for row in gathered for d in row]
+        else:
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device; pass the mesh's devices "
+                                   "explicitly (e.g. devices=['cpu'] * 4)")
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+    devices = tuple(_check_device(d) for d in devices)
+    if p == -1:
+        p = len(devices)
+    if not devices or len(devices) % p:
+        raise ValueError(f"a pipe axis of {p} does not divide "
+                         f"{len(devices)} devices")
+    n = len(devices) // p
+    if shape[0] not in (-1, n if len(shape) == 2 else p):
+        raise ValueError(f"mesh shape {shape} does not cover "
+                         f"{len(devices)} devices")
+    rank = 0
+    if group is not None:
+        rank = dist.get_rank()
+        if n != dist.get_world_size():
+            raise ValueError(f"{len(devices)} devices for a process group "
+                             f"of {dist.get_world_size()}: give {p} pipe "
+                             "devices per rank")
+    return Mesh(devices, group, rank, axis_names, pipe_size=p)
 
 
 def _model_and_data_groups(world: int, m: int, rank: int):

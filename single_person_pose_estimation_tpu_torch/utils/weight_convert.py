@@ -87,6 +87,37 @@ def to_state_dict(variables: Mapping) -> dict:
     return sd
 
 
+def to_variables(state_dict: Mapping) -> dict:
+    """The port's `state_dict` (or a model) -> flax variables as float32
+    numpy arrays: the inverse of `to_state_dict`. Entries other than
+    weights, biases and running statistics (`num_batches_tracked`) are
+    left out."""
+    if isinstance(state_dict, torch.nn.Module):
+        state_dict = state_dict.state_dict()
+    params: dict = {}
+    stats: dict = {}
+    arr = lambda t: t.detach().float().cpu().numpy().copy()
+    for key, t in state_dict.items():
+        layer, _, leaf = key.rpartition(".")
+        if leaf in ("running_mean", "running_var"):
+            stats.setdefault(layer, {})[leaf[len("running_"):]] = arr(t)
+            continue
+        if leaf not in ("weight", "bias"):
+            continue
+        layer, _, part = layer.partition(".")
+        node = params.setdefault(layer, {})
+        if part:                       # a separable conv's two convs
+            node = node.setdefault(part, {})
+        if t.dim() == 4:
+            node["kernel"] = np.ascontiguousarray(
+                arr(t).transpose(2, 3, 1, 0))
+        elif leaf == "weight":         # a BN's scale
+            node["scale"] = arr(t)
+        else:
+            node["bias"] = arr(t)
+    return {"params": params, "batch_stats": stats}
+
+
 def load_variables(model: torch.nn.Module, variables: Mapping):
     """Load flax variables into `model`; every parameter and running
     statistic must be covered, and nothing extra may be given."""

@@ -151,8 +151,10 @@ def test_build_model_follows_the_config():
     assert cli._build_model(Config().replace(
         compute_dtype="float32", front_s2d="auto")).compute_dtype == \
         torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli._build_model(Config().replace(front_s2d="on"))
+    assert not cli._build_model(Config().replace(front_s2d="auto")).front_s2d
+    assert cli._build_model(Config().replace(front_s2d="on")).front_s2d
+    with pytest.raises(ValueError, match="even image dimensions"):
+        cli._build_model(Config().replace(front_s2d="on", image_height=255))
 
 
 def test_cuda_tflite_and_bench_refuse(tmp_path):

@@ -98,11 +98,18 @@ def test_other_routings_match_plain_model(case, flags):
 
 
 def test_unported_dials_raise(case):
-    """front_s2d is the one dial of the JAX fused_apply still unported."""
+    """Every dial of the JAX fused_apply is ported: front_s2d gives the
+    7x7 front's heatmaps (atol 1e-5, the fold reorders the sums), and a
+    fuse_bottom beyond the four levels raises."""
     _, x, _, model = case
     fp = prepare_fused(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_apply(fp, torch.from_numpy(x), front_s2d=True)
+    xt = torch.from_numpy(x)
+    want = fused_apply(fp, xt, **MAIN_FLAGS)
+    got = fused_apply(fp, xt, front_s2d=True, **MAIN_FLAGS)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+    with pytest.raises(ValueError, match="fuse_bottom"):
+        fused_apply(fp, xt, fuse_bottom=5)
 
 
 def test_auto_policy_and_forward_last_stack(case):

@@ -73,8 +73,10 @@ def test_create_hourglass_model_defaults_and_rejects():
     assert isinstance(m, StackedHourglass)
     assert (m.predict_activation, m.mobile, m.compute_dtype) == (
         "sigmoid", False, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_hourglass_model(17, 1, 16, remat="conv_out")
+    assert create_hourglass_model(17, 1, 16, remat="conv_out").remat == \
+        "conv_out"
+    with pytest.raises(ValueError, match="remat must be one of"):
+        create_hourglass_model(17, 1, 16, remat="all")
     with pytest.raises(ValueError, match="unknown activation"):
         create_hourglass_model(17, 1, 16, predict_activation="tanh")
 
@@ -131,8 +133,14 @@ def test_input_not_divisible_by_64_raises():
 
 
 def test_unported_variants_raise():
-    for kw in (dict(front_s2d=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every variant of the JAX model is ported (tests/
+    test_torch_space_to_depth.py holds them); values outside the JAX
+    package's choices raise."""
+    for kw in (dict(front_s2d=True), dict(remat=True),
+               dict(remat="conv_out"), dict(mobile_depthwise="taps")):
+        StackedHourglass(num_stacks=1, num_channels=16, **kw)
+    for kw in (dict(remat="yes"), dict(mobile_depthwise="grouped")):
+        with pytest.raises(ValueError):
             StackedHourglass(num_stacks=1, num_channels=16, **kw)
 
 

@@ -1,7 +1,9 @@
 """The port imports neither JAX nor flax nor anything of the JAX package
 (`single_person_pose_estimation_tpu` and its submodules): an AST scan of
-its sources and of chip_smoke.py, and an import of its serving, training,
-data and evaluation modules with all of them blocked."""
+its sources, of examples_torch/ and of chip_smoke.py, and an import of its
+serving, training, data and evaluation modules with all of them blocked.
+TensorFlow and Keras (the weight import's) are imported only inside
+functions, never when a module of the port is imported."""
 
 import ast
 import os
@@ -37,10 +39,53 @@ def test_port_sources_import_no_jax():
                     if mod.split(".")[0] in BANNED:
                         offenders.append(f"{path}: {mod}")
     chip_smoke = os.path.join(REPO, "chip_smoke.py")
-    for mod in _imports(chip_smoke):
-        if mod.split(".")[0] in BANNED:
-            offenders.append(f"{chip_smoke}: {mod}")
-    assert scanned >= 10 and not offenders, offenders
+    examples = os.path.join(REPO, "examples_torch")
+    for path in [chip_smoke] + [os.path.join(examples, f) for f in
+                                sorted(os.listdir(examples))
+                                if f.endswith(".py")]:
+        scanned += 1
+        for mod in _imports(path):
+            if mod.split(".")[0] in BANNED:
+                offenders.append(f"{path}: {mod}")
+    assert scanned >= 17 and not offenders, offenders
+
+
+def _module_level_imports(path):
+    """Imports that run when the module is imported: those outside every
+    function body (a class body runs at import too)."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                yield node.module
+            yield from walk(ast.iter_child_nodes(node))
+    yield from walk(ast.parse(open(path).read(), path).body)
+
+
+def test_tensorflow_is_imported_lazily():
+    """No module of the port or of examples_torch/ imports TensorFlow or
+    Keras when it is imported; utils/weight_import.py does inside its
+    functions."""
+    lazy = ("tensorflow", "keras", "tf_keras")
+    offenders, inside = [], []
+    roots = [PORT_DIR, os.path.join(REPO, "examples_torch")]
+    for root in roots:
+        for dirpath, _, files in os.walk(root):
+            for f in files:
+                if not f.endswith(".py"):
+                    continue
+                path = os.path.join(dirpath, f)
+                offenders += [f"{path}: {m}" for m in
+                              _module_level_imports(path)
+                              if m.split(".")[0] in lazy]
+                inside += [m for m in _imports(path)
+                           if m.split(".")[0] in lazy]
+    assert not offenders, offenders
+    assert "tensorflow" in inside
 
 
 def test_ban_catches_the_jax_package_but_not_the_port():
@@ -52,8 +97,8 @@ def test_ban_catches_the_jax_package_but_not_the_port():
 
 def test_new_modules_are_scanned():
     """Every module of the evaluation, mobile, fused-training, entry-point,
-    data-parallel and tensor-parallel/spatial slices is among the scanned
-    sources."""
+    data-parallel, tensor-parallel/spatial and pipeline/dials/weight-import
+    slices is among the scanned sources."""
     for rel in ("data/example_codec.py", "data/tfrecord.py",
                 "data/images.py", "data/pipeline.py", "data/coco.py",
                 "ops/cuda/decode_kernel.py", "evaluation/predict.py",
@@ -71,7 +116,9 @@ def test_new_modules_are_scanned():
                 "demo/demo.py", "demo/webcam.py", "cli.py",
                 "parallel/__init__.py", "parallel/mesh.py",
                 "parallel/distributed.py", "parallel/sharding_rules.py",
-                "parallel/spatial.py", "parallel/spatial_model.py"):
+                "parallel/spatial.py", "parallel/spatial_model.py",
+                "parallel/pipeline.py", "ops/space_to_depth.py",
+                "utils/weight_import.py"):
         path = os.path.join(PORT_DIR, rel)
         assert os.path.exists(path), rel
         assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
@@ -201,6 +248,35 @@ def test_parallel_modules_import_with_jax_blocked():
             "assert distributed.initialize and distributed.aggregate_metrics\n"
             "assert distributed.shard_files_for_process\n"
             "assert torch_port_dp_worker.main\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_pipeline_dials_and_weight_import_import_with_jax_and_tf_blocked():
+    """The pipeline, the space-to-depth front, the weight import (its
+    TensorFlow is lazy), the GPipe test's worker and every examples_torch/
+    script import with JAX, the JAX package and TensorFlow blocked."""
+    code = ("import sys, glob, importlib.util\n"
+            "for m in ('jax', 'flax', 'jaxlib', 'optax', 'orbax',\n"
+            "          'single_person_pose_estimation_tpu', 'tensorflow',\n"
+            "          'keras'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.path.insert(0, 'tests')\n"
+            "from single_person_pose_estimation_tpu_torch.parallel import (\n"
+            "    pipeline)\n"
+            "from single_person_pose_estimation_tpu_torch.ops import (\n"
+            "    space_to_depth)\n"
+            "from single_person_pose_estimation_tpu_torch.utils import (\n"
+            "    weight_import)\n"
+            "import torch_port_pp_worker\n"
+            "assert pipeline.make_pipeline_train_step and torch_port_pp_worker.main\n"
+            "assert space_to_depth.front_conv_s2d and weight_import.validate_import\n"
+            "for path in sorted(glob.glob('examples_torch/*.py')):\n"
+            "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,

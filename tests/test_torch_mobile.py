@@ -168,15 +168,15 @@ def test_mobile_fused_apply_bf16_band_against_jax_f32(case):
 def test_mobile_fused_apply_dials(case):
     """Under mobile, fuse_bottom and fuse_front are turned off as the JAX
     package turns them off, so the result is the main path's; front_s2d
-    still raises. Without the fusion flags the routing still equals the
-    plain model."""
+    gives the same heatmaps. Without the fusion flags the routing still
+    equals the plain model."""
     x, want, model = case
     fp = prepare_fused(model)
     xt = torch.from_numpy(x)
     got = fused_apply(fp, xt, fuse_bottom=2, fuse_front=True, **MAIN_FLAGS)
     np.testing.assert_allclose(got[-1].numpy(), want[-1], atol=TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_apply(fp, xt, front_s2d=True)
+    got = fused_apply(fp, xt, front_s2d=True, **MAIN_FLAGS)
+    np.testing.assert_allclose(got[-1].numpy(), want[-1], atol=TOL)
     with torch.no_grad():
         plain = model(xt)[-1]
     got = fused_apply(fp, xt)[-1]

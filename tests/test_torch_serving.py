@@ -87,8 +87,8 @@ def test_step_failure_reaches_the_caller(model):
 
 def test_constructor_checks():
     m = torch_model(random_variables(1, 16, seed=15), 1, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_mesh((-1, 2), ("data", "pipe"), devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="mesh axes"):
+        create_mesh((-1, 2), ("model", "data"), devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="a device or a mesh"):
         PoseServer(m)
     with pytest.raises(ValueError, match="ascending"):
